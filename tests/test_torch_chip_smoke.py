@@ -1,0 +1,118 @@
+"""Rehearsal of ``chip_smoke.py`` on the CPU, at a small size.
+
+The script itself runs only where there is a card; here its corpus, its
+expected verdicts and its service drive are checked against OpenSSL and the
+port's plain version, and its refusal to run without a card is pinned.
+"""
+
+import asyncio
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as cs
+from mochi_tpu.crypto import hostfallback as jhf
+from mochi_tpu_torch.crypto import batch_verify as BV
+from mochi_tpu_torch.crypto import cuda_verify as CV
+from mochi_tpu_torch.crypto import keys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def signers():
+    return cs.make_signers(np.random.default_rng(3), 8)
+
+
+def test_corpus_verdicts_match_openssl_and_the_plain_version(signers):
+    items, want, kinds = cs.make_corpus(5, 192, signers)
+    assert len(items) == len(want) == len(kinds) == 192
+    assert {"valid", "wrong key", "mixed-order A", "x=0 sign=1 A", "65-byte signature"} <= set(kinds)
+    assert [keys.verify(i.public_key, i.message, i.signature) for i in items] == want
+    assert BV.verify_batch(items, device="cpu") == want
+    # the adversarial kinds the reference answers include acceptances
+    adv_true = {k for k, w in zip(kinds, want) if w and k != "valid"}
+    assert "identity A, S=r" in adv_true and "identity A and R, S=0" in adv_true
+    # the JAX package's pure-Python engine agrees on every canonical item
+    for it, w in zip(items, want):
+        if cs.reference_verdict(it.public_key, it.message, it.signature) != w:
+            pytest.fail(f"reference disagrees on {it}")
+        if len(it.public_key) == 32 and len(it.signature) == 64 and w:
+            assert jhf.verify(it.public_key, it.message, it.signature)
+
+
+def test_traffic_is_distinct_certificates_of_2f_plus_1_grants(signers):
+    traffic = cs.make_traffic(9, signers, clients=3, requests=2, grants=5, forge_rate=0.2)
+    reqs = [r for per_client in traffic for r in per_client]
+    assert len(reqs) == 6 and all(len(items) == 5 for items, _ in reqs)
+    flat = [(i.public_key, i.message, i.signature) for items, _ in reqs for i in items]
+    assert len(set(flat)) == len(flat) == 30
+    want = [w for _, ws in reqs for w in ws]
+    assert [keys.verify(*t) for t in flat] == want
+    assert 0 < sum(want) < 30
+
+
+def test_traffic_waves_put_each_wave_of_checks_together(signers):
+    traffic = cs.make_traffic(9, signers, clients=3, requests=2, grants=5, forge_rate=0.2)
+    items, want = cs.traffic_waves(traffic)
+    assert items[:15] == [it for per_client in traffic for it in per_client[0][0]]
+    assert want[15:] == [w for per_client in traffic for w in per_client[1][1]]
+
+
+def test_kernel_vs_plain_check_raises_on_a_wrong_verdict(signers):
+    traffic = cs.make_traffic(13, signers, clients=2, requests=1, grants=5, forge_rate=0.3)
+    items, want = cs.traffic_waves(traffic)
+    prepared = BV.prepare_packed(items)
+    tens = CV.from_reference_prepared(prepared, "cpu")
+    assert cs.check_kernel_vs_plain(tens, prepared[6], want) == 0
+    with pytest.raises(AssertionError, match="1 wrong verdicts"):
+        cs.check_kernel_vs_plain(tens, prepared[6], [not want[0]] + want[1:])
+
+
+class _Ev:
+    def __init__(self, t):
+        self.t = t
+
+    def elapsed_time(self, other):
+        return other.t - self.t
+
+
+def test_device_busy_is_the_union_of_launch_intervals():
+    log = [(8, _Ev(1.0), _Ev(3.0)), (8, _Ev(2.0), _Ev(4.0)), (4, _Ev(6.0), _Ev(7.0)), (8, _Ev(2.5), _Ev(3.5))]
+    got = cs.device_busy(log, _Ev(0.0), _Ev(10.0))
+    assert got["span_ms"] == 10.0 and got["kernel_busy_ms"] == 4.0 and got["kernel_sum_ms"] == 6.0
+    assert got["idle_share"] == pytest.approx(0.6)
+    assert got["launch_ms_by_lanes"] == {4: {"launches": 1, "median_ms": 1.0},
+                                         8: {"launches": 3, "median_ms": 2.0}}
+
+
+def test_service_drive_counts_on_cpu(signers):
+    traffic = cs.make_traffic(11, signers, clients=3, requests=2, grants=5)
+    CV.launches = 0
+    BV.reset_counts()
+    svc = asyncio.run(asyncio.wait_for(cs.drive_service(traffic, "cpu", b"k" * 32), 240))
+    assert svc["requests"] == 6 and svc["items"] == 30 and svc["mismatched_requests"] == 0
+    assert BV.device_item_count() == 30
+    assert svc["fallback_batches"] == svc["crossover_batches"] == svc["remote_fallbacks"] == 0
+    assert CV.launches == 0  # the plain version on the CPU is no kernel launch
+
+
+def test_refuses_to_run_without_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cs.main([]) == 2
+    out = capsys.readouterr()
+    assert '"ok"' not in out.out and "no CUDA device" in out.err
+
+
+def test_fails_alone_outside_the_checkout(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

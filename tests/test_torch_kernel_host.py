@@ -1,0 +1,391 @@
+"""The CUDA verify kernel's arithmetic, compiled for the host and fuzzed.
+
+``mochi_tpu_torch/csrc/fe25519.cuh`` and ``ge25519.cuh`` are plain
+``__host__ __device__`` code, so ``g++`` builds them here into a small
+ctypes library (the test-only shim below).  The fuzz holds every field op
+against Python integers, with inputs at the edges of the bounds the header
+states (maximum loose limbs, every sign pattern), and decode, one ladder
+window and the whole verify against Python integers and the port's plain
+PyTorch version.  The port never loads this build; it exists to catch radix
+and bounds faults before the kernel reaches a card.
+"""
+
+import ctypes
+import random
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from mochi_tpu_torch import kernels
+from mochi_tpu_torch.crypto import cuda_verify as CV
+from mochi_tpu_torch.crypto import curve as C
+from mochi_tpu_torch.crypto import field as F
+from mochi_tpu_torch.crypto import hostfallback as hf
+from mochi_tpu_torch.crypto import keys
+
+P = F.P_INT
+OFFS = (0, 26, 51, 77, 102, 128, 153, 179, 204, 230)
+LOOSE_EVEN = 110729625
+LOOSE_ODD = 55364812
+TIGHT_EVEN = (1 << 25) + (1 << 14)
+TIGHT_ODD = (1 << 24) + (1 << 14)
+
+SHIM = r"""
+#include <string.h>
+#include "ge25519.cuh"
+
+extern "C" {
+void t_fe_mul(int32_t* h, const int32_t* f, const int32_t* g) {
+  fe_mul((fe*)h, (const fe*)f, (const fe*)g);
+}
+void t_fe_sq(int32_t* h, const int32_t* f) { fe_sq((fe*)h, (const fe*)f); }
+void t_fe_carry(int32_t* h, const int32_t* f) { fe_carry((fe*)h, (const fe*)f); }
+void t_fe_canonical(int32_t* h, const int32_t* f) {
+  fe_canonical((fe*)h, (const fe*)f);
+}
+void t_fe_pow22523(int32_t* h, const int32_t* f) {
+  fe_pow22523((fe*)h, (const fe*)f);
+}
+void t_fe_from_limbs15(int32_t* h, const int32_t* l15) {
+  fe_from_limbs15((fe*)h, l15, 1);
+}
+void t_consts(int32_t* out) {
+  fe_const_d((fe*)out);
+  fe_const_d2((fe*)(out + 10));
+  fe_const_sqrtm1((fe*)(out + 20));
+}
+int t_ge_decode(int32_t* p, const int32_t* y15, int sign) {
+  return ge_decode((ge_p3*)p, y15, 1, sign);
+}
+void t_ge_window(int32_t* q, int dh, int ds, const int32_t* p,
+                 const int32_t* btab) {
+  ge_cached ptab[9];
+  ge_small_multiples(ptab, (const ge_p3*)p);
+  ge_window((ge_p3*)q, dh, ds, ptab, (const ge_niels*)btab);
+}
+int t_verify(const int32_t* y_a, int sign_a, const int32_t* y_r, int sign_r,
+             const uint8_t* s, const uint8_t* h, const int32_t* btab) {
+  return ed25519_verify_one(y_a, sign_a, y_r, sign_r, s, h, 1,
+                            (const ge_niels*)btab);
+}
+}
+"""
+
+I32P = ctypes.POINTER(ctypes.c_int32)
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed: the host build of the kernel arithmetic needs it")
+    d = tmp_path_factory.mktemp("kernel_host")
+    src = d / "shim.cpp"
+    src.write_text(SHIM)
+    so = d / "shim.so"
+    proc = subprocess.run(
+        [gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall", "-Werror",
+         "-I", str(kernels.CSRC), "-o", str(so), str(src)],
+        capture_output=True, text=True,
+    )
+    assert proc.returncode == 0, proc.stderr
+    return ctypes.CDLL(str(so))
+
+
+# ------------------------------------------------------------------ helpers
+
+
+def arr(vals) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(vals, dtype=np.int32))
+
+
+def ptr(a: np.ndarray):
+    return a.ctypes.data_as(I32P)
+
+
+def value(limbs) -> int:
+    return sum(int(v) << o for v, o in zip(np.asarray(limbs).reshape(-1)[:10], OFFS))
+
+
+def is_tight(limbs) -> bool:
+    v = np.asarray(limbs, dtype=np.int64)
+    return bool((np.abs(v[0::2]) <= TIGHT_EVEN).all() and (np.abs(v[1::2]) <= TIGHT_ODD).all())
+
+
+def call1(fn, f):
+    out = np.zeros(10, np.int32)
+    fn(ptr(out), ptr(arr(f)))
+    return out
+
+
+def call2(fn, f, g):
+    out = np.zeros(10, np.int32)
+    fn(ptr(out), ptr(arr(f)), ptr(arr(g)))
+    return out
+
+
+def rand_limbs(rng, even_bound, odd_bound):
+    return [rng.randint(-even_bound, even_bound) if i % 2 == 0 else rng.randint(-odd_bound, odd_bound)
+            for i in range(10)]
+
+
+def extreme_limbs(rng):
+    """Every limb at its loose maximum, with a random sign pattern."""
+    return [(LOOSE_EVEN if i % 2 == 0 else LOOSE_ODD) * rng.choice((-1, 1)) for i in range(10)]
+
+
+def field_inputs(seed, n=200):
+    rng = random.Random(seed)
+    out = [CV.int_to_limbs25(x) for x in (0, 1, P - 1, P, P + 1, (1 << 255) - 1, 19, P - 19)]
+    out += [[LOOSE_EVEN, LOOSE_ODD] * 5, [-LOOSE_EVEN, -LOOSE_ODD] * 5]
+    for _ in range(n):
+        kind = rng.randrange(3)
+        if kind == 0:
+            out.append(CV.int_to_limbs25(rng.randrange(1 << 255)))
+        elif kind == 1:
+            out.append(rand_limbs(rng, LOOSE_EVEN, LOOSE_ODD))
+        else:
+            out.append(extreme_limbs(rng))
+    return [list(map(int, f)) for f in out]
+
+
+# ------------------------------------------------------------------- field
+
+
+def test_constants_match_python_ints(lib):
+    out = np.zeros(30, np.int32)
+    lib.t_consts(ptr(out))
+    assert value(out[:10]) == F.D_INT
+    assert value(out[10:20]) == 2 * F.D_INT % P
+    assert value(out[20:]) == F.SQRT_M1_INT
+
+
+@pytest.mark.parametrize("op", ["mul", "sq"])
+def test_mul_and_square_fuzz_at_loose_bounds(lib, op):
+    ins = field_inputs(seed=11 if op == "mul" else 12)
+    rng = random.Random(13)
+    for f in ins:
+        g = ins[rng.randrange(len(ins))]
+        if op == "mul":
+            got, want = call2(lib.t_fe_mul, f, g), value(f) * value(g)
+        else:
+            got, want = call1(lib.t_fe_sq, f), value(f) ** 2
+        assert value(got) % P == want % P, (f, g)
+        assert is_tight(got), got
+
+
+def test_carry_of_any_int32_limbs_is_tight(lib):
+    rng = random.Random(21)
+    cases = [[(1 << 31) - 1] * 10, [-(1 << 31)] * 10]
+    cases += [[rng.randint(-(1 << 31), (1 << 31) - 1) for _ in range(10)] for _ in range(300)]
+    for f in cases:
+        got = call1(lib.t_fe_carry, f)
+        assert value(got) % P == value(f) % P
+        assert is_tight(got)
+
+
+def test_canonical_and_boundaries(lib):
+    rng = random.Random(31)
+    cases = field_inputs(seed=32)
+    cases += [[rng.randint(-(1 << 31), (1 << 31) - 1) for _ in range(10)] for _ in range(100)]
+    # values just around 0, p and 2p with mixed-sign limbs (2^255 = 2^25 in
+    # the top limb): -1, -19, -p, p - 1, p, p + 18, 2p - 1
+    top = lambda low, hi: [low] + [0] * 8 + [hi]  # noqa: E731
+    cases += [top(-1, 0), top(-19, 0), top(19, -(1 << 25)), top(-20, 1 << 25),
+              top(-19, 1 << 25), top(-1, 1 << 25), top(-39, 1 << 26)]
+    for f in cases:
+        got = call1(lib.t_fe_canonical, f)
+        assert value(got) == value(f) % P, f
+        assert all(0 <= got[i] < (1 << (26 if i % 2 == 0 else 25)) for i in range(10))
+
+
+def test_pow22523(lib):
+    e = (P - 5) // 8
+    for f in field_inputs(seed=41, n=40):
+        got = call1(lib.t_fe_pow22523, f)
+        assert value(got) % P == pow(value(f) % P, e, P)
+        assert is_tight(got)
+
+
+def test_from_limbs15(lib):
+    rng = random.Random(51)
+    for x in [0, 1, P - 1, P, (1 << 255) - 1] + [rng.randrange(1 << 255) for _ in range(100)]:
+        got = call1(lib.t_fe_from_limbs15, F.int_to_limbs(x).tolist() + [0] * 3)
+        assert value(got) == x
+        assert list(got) == list(CV.int_to_limbs25(x))
+
+
+# ------------------------------------------------------------------- curve
+
+
+def _recover_x(y, sign):
+    """RFC 8032 section 5.1.3 on Python ints: x, or None for a non-point."""
+    u, v = (y * y - 1) % P, (F.D_INT * y * y + 1) % P
+    x = u * pow(v, 3, P) * pow(u * pow(v, 7, P), (P - 5) // 8, P) % P
+    if v * x * x % P == u:
+        pass
+    elif v * x * x % P == (-u) % P:
+        x = x * F.SQRT_M1_INT % P
+    else:
+        return None
+    if x == 0 and sign == 1:
+        return None
+    return (P - x) % P if x & 1 != sign else x
+
+
+def _affine(pt):
+    X, Y, Z = (value(pt[10 * k : 10 * k + 10]) for k in range(3))
+    zi = pow(Z % P, P - 2, P)
+    return X * zi % P, Y * zi % P
+
+
+def _mul(k, pt):
+    acc = (0, 1)
+    for bit in bin(k)[2:] if k > 0 else "":
+        acc = C._py_edwards_add(acc, acc)
+        if bit == "1":
+            acc = C._py_edwards_add(acc, pt)
+    return acc
+
+
+def _proj(lib, pt, rng):
+    """Affine point -> random projective (X:Y:Z:T), each coordinate TIGHT
+    as the header requires of a point (canonical limbs are not)."""
+    z = rng.randrange(1, P)
+    x, y = pt
+    coords = (x * z % P, y * z % P, z, x * y * z % P)
+    return arr(np.concatenate([call1(lib.t_fe_carry, CV.int_to_limbs25(c)) for c in coords]))
+
+
+LOW_ORDER_Y = [1, P - 1, 0]  # identity, order 2, order 4 (y = 0)
+ORDER8 = "c7176a703d4dd84fba3c0b760d10670f2a2053fa2c39ccc64ec7fd7792ac03fa"
+
+
+def _decode_cases():
+    rng = random.Random(61)
+    cases = [(y, s) for y in LOW_ORDER_Y for s in (0, 1)]
+    enc = int.from_bytes(bytes.fromhex(ORDER8), "little")
+    cases += [(enc & ((1 << 255) - 1), enc >> 255)]
+    for pub in ("d75a980182b10ab7d54bfed3c964073a0ee172f3daa62325af021a68f707511a",
+                "3d4017c3e843895a92b70aa74d1b7ebc9c982ccf2ec4968cc0cd55f12af4660c"):
+        e = int.from_bytes(bytes.fromhex(pub), "little")
+        cases.append((e & ((1 << 255) - 1), e >> 255))
+    cases += [(P, 0), (P + 1, 1), ((1 << 255) - 1, 0)]  # non-canonical y
+    cases += [(rng.randrange(1 << 255), rng.randrange(2)) for _ in range(24)]
+    return cases
+
+
+def test_decode_matches_python_and_plain(lib):
+    cases = _decode_cases()
+    ys = torch.from_numpy(np.stack([F.int_to_limbs(y) for y, _ in cases], axis=-1).astype(np.int64))
+    signs = torch.tensor([s for _, s in cases], dtype=torch.int64)
+    plain_pt, plain_ok = C.decompress(ys, signs)
+    plain_x = F.limbs_to_int_batch(F.canonical(plain_pt.x))
+    n_ok = 0
+    for j, (y, s) in enumerate(cases):
+        out = np.zeros(40, np.int32)
+        ok = lib.t_ge_decode(ptr(out), ptr(arr(F.int_to_limbs(y))), s)
+        want = _recover_x(y % P, s)
+        assert bool(ok) == (want is not None) == bool(plain_ok[j]), (y, s)
+        if ok:
+            n_ok += 1
+            x, yy = _affine(out)
+            assert (x, yy) == (want, y % P)
+            assert x == plain_x[j]
+            assert value(out[30:]) % P == x * (y % P) % P  # T = xy
+    assert 0 < n_ok < len(cases)
+
+
+def test_one_ladder_window_matches_python_ints(lib):
+    rng = random.Random(71)
+    btab = CV.basepoint_table25()
+    bpt = (F.BX_INT, F.BY_INT)
+    for trial in range(40):
+        q_aff = _mul(rng.randrange(1, 1 << 64), bpt)
+        p_aff = _mul(rng.randrange(1, 1 << 64), bpt)
+        if trial % 8 == 0:
+            p_aff = (0, P - 1)  # a low-order P
+        dh, ds = rng.randint(-8, 8), rng.randint(-8, 8)
+        q = _proj(lib, q_aff, rng)
+        p = _proj(lib, p_aff, rng)
+        lib.t_ge_window(ptr(q), dh, ds, ptr(p), ptr(arr(btab)))
+        want = _mul(16, q_aff)
+        neg = lambda pt: ((P - pt[0]) % P, pt[1])  # noqa: E731
+        want = C._py_edwards_add(want, _mul(abs(dh), p_aff if dh >= 0 else neg(p_aff)))
+        want = C._py_edwards_add(want, _mul(abs(ds), bpt if ds >= 0 else neg(bpt)))
+        assert _affine(q) == want, (trial, dh, ds)
+        assert is_tight(q[:10]) and is_tight(q[10:20]) and is_tight(q[20:30]) and is_tight(q[30:])
+
+
+def _items(rng):
+    """Valid, forged and low-order items, with their RFC 8032 verdicts."""
+    out = []
+    seed = bytes(rng.randrange(256) for _ in range(32))
+    pub = hf.public_from_seed(seed)
+    for i in range(10):
+        msg = b"host %d" % i
+        sig = bytearray(hf.sign(seed, msg))
+        if i % 3 == 1:
+            sig[rng.randrange(64)] ^= 1 << rng.randrange(8)
+        out.append((pub, msg, bytes(sig)))
+    r = rng.randrange(F.L_INT)
+    sig_id = hf._compress(hf._mul_base(r)) + r.to_bytes(32, "little")
+    out.append(((1).to_bytes(32, "little"), b"any", sig_id))  # identity key
+    out.append(((0).to_bytes(32, "little"), b"m", hf.sign(seed, b"m")))
+    out.append((bytes.fromhex(ORDER8), b"m", hf.sign(seed, b"m")))
+    out.append((pub, b"m", bytes.fromhex(ORDER8) + hf.sign(seed, b"m")[32:]))
+    return out
+
+
+def _host_verdicts(lib, items):
+    from mochi_tpu_torch.crypto import batch_verify as BV
+
+    y_a, sign_a, y_r, sign_r, s_b, h_b, pre_ok = BV.prepare_packed(items)
+    btab = arr(CV.basepoint_table25())
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    raw = [
+        bool(lib.t_verify(ptr(arr(y_a[j])), int(sign_a[j]), ptr(arr(y_r[j])), int(sign_r[j]),
+                          s_b[j].ctypes.data_as(u8), h_b[j].ctypes.data_as(u8), ptr(btab)))
+        for j in range(len(items))
+    ]
+    return raw, [r and bool(ok) for r, ok in zip(raw, pre_ok)]
+
+
+def test_mutated_signatures_match_keys_verify(lib):
+    """Valid signatures and random single-bit mutations of the key, R and S:
+    the host build of the kernel gives keys.verify's verdict on each."""
+    from mochi_tpu_torch.verifier.spi import VerifyItem
+
+    rng = random.Random(91)
+    items = []
+    for i in range(120):
+        seed = bytes(rng.randrange(256) for _ in range(32))
+        msg = bytes(rng.randrange(256) for _ in range(rng.randrange(0, 80)))
+        pub, sig = bytearray(hf.public_from_seed(seed)), bytearray(hf.sign(seed, msg))
+        if i % 3:  # flip one bit of the key (i % 3 == 1) or of R||S
+            target = pub if i % 3 == 1 else sig
+            bit = rng.randrange(8 * len(target))
+            target[bit // 8] ^= 1 << (bit % 8)
+        items.append(VerifyItem(bytes(pub), msg, bytes(sig)))
+    _, got = _host_verdicts(lib, items)
+    want = [keys.verify(it.public_key, it.message, it.signature) for it in items]
+    assert got == want
+    assert 40 <= sum(want) < 120
+
+
+def test_whole_verify_matches_keys_verify_and_plain(lib):
+    from mochi_tpu_torch.crypto import batch_verify as BV
+    from mochi_tpu_torch.verifier.spi import VerifyItem
+
+    items = [VerifyItem(*t) for t in _items(random.Random(81))]
+    host, final = _host_verdicts(lib, items)
+    plain = C.verify_prepared_packed(*CV.from_reference_prepared(BV.prepare_packed(items), "cpu"))
+    assert host == plain.tolist()
+    want = [keys.verify(it.public_key, it.message, it.signature) for it in items]
+    assert final == want
+    assert any(want) and not all(want)
+    # the identity-key item verifies for any message (cofactorless semantics)
+    assert want[10] is True
