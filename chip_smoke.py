@@ -6,9 +6,11 @@ Run from the root of a checkout:  ``python3 chip_smoke.py [--seed N] [--out F]``
 Phases (any failure exits non-zero and prints no result line):
 
 1. Device — the card's name, ``nvidia-smi`` name and power limit, compute
-   capability, SM count and maximum SM clock.  No CUDA device: exit 2.
-2. Build — compile the kernel ``mochi_tpu_torch/csrc/verify.cu`` and
-   report registers per thread.
+   capability, SM count, maximum SM clock, and the host's Ed25519 engine.
+   No CUDA device: exit 2.
+2. Build — compile both kernels, ``mochi_tpu_torch/csrc/verify.cu`` and
+   ``comb.cu``, one nvcc each, started together; report ptxas's registers
+   and spills and each kernel's attributes.
 3. Kernel vs plain — an 8192-item corpus made from ``--seed``: valid
    signatures from 64 signers, forgeries, and adversarial encodings
    (low-order and mixed-order points, non-points, x = 0 with the sign bit,
@@ -30,9 +32,33 @@ Phases (any failure exits non-zero and prints no result line):
    may have fallen back to the CPU.  Each launch is timed with CUDA events on
    its own stream (``cuda_verify.launch_log``); the union of those intervals
    over the drive's span is the card's kernel-busy share.
+6. Comb vs plain — the comb kernel (registered signers): an 8192-lane corpus
+   signed by the 64 registered signers (valid, forged, another registered
+   signer's key, adversarial R — small order, non-point, x = 0 with the sign
+   bit, y >= p — and S >= L), at 8192 lanes and at a partial last block.
+   The kernel's bitmap must equal the plain version's on the card and the
+   expected verdicts, 256 sampled lanes must equal ``keys.verify``, and the
+   uploaded kernel-radix table must equal the 17 x 15 rows integer for
+   integer.
+7. Comb times — CUDA events at 8192 and 65536 lanes, a launch-size sweep,
+   the plain version at 8192, the bound, and one lone 43-grant certificate
+   through ``verify_batch`` with the registry.
+8. Service with signers — phase 5's traffic through
+   ``CudaBatchVerifier(signers=...)``: every item must take the comb kernel
+   and every bitmap must equal the expected verdicts.
+9. Cluster — the main path of the system: ``VirtualCluster(64, rf=64)``
+   (f = 21, quorum 43) with one ``CudaBatchVerifier(device="cuda")`` shared
+   by all 64 replicas (the replicas register the cluster identities, so
+   grant signatures take the comb kernel).  Concurrent SDK clients commit
+   signed PUTs, then read each key back: every acked write must read back
+   its value with a 43-grant certificate, the comb kernel must have carried
+   the grants, and nothing may have fallen back to the CPU.  Each kernel is
+   held against its plain version at every lane count it launched here.
 
-The last three lines of standard output are the kernel table (JSON), the
-``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
+Phases 5, 8 and 9 drive the main path: each zeroes the launch counts just
+before it and reads them just after.  The last three lines of standard
+output are the kernel table (JSON), the ``nvidia-smi`` name/power-limit
+line, and ``{"ok": true, "device": ...}``.
 
 To make tens of thousands of distinct valid signatures without a
 pure-Python base multiplication each, this script reuses a few nonces per
@@ -62,6 +88,11 @@ NONCES_PER_SIGNER = 4
 CORPUS = 8192  # items in the kernel-vs-plain corpus: the service's batch size
 BIG = 65536  # lanes of the larger timed launch
 CLIENTS, GRANTS, REQUESTS = 64, 43, 24  # n = 64 replicas, 2f + 1 grants, checks per client
+# The cluster phase: 64 replicas (rf = 64, f = 21), SDK clients x signed
+# PUTs each.  The host bounds it (the protocol's Python, 64 grant signatures
+# per write); sized to take a minute or two.
+CLUSTER_N, CLUSTER_CLIENTS, CLUSTER_WRITES = 64, 8, 16
+PARTIAL = 37  # lanes short of a full last block in the partial-block check
 REPEATS = 20  # timed kernel launches at CORPUS lanes
 IMAD_PER_SM_PER_CLOCK = 64  # 32-bit integer multiply-add, compute capability 9.0
 
@@ -221,6 +252,76 @@ def make_corpus(seed: int, n: int, signers: List[Signer]):
     return items, [w for *_, w in rows], [k for k, *_ in rows]
 
 
+def _r_adversarial(rng: np.random.Generator, s: Signer, msg: bytes):
+    """Adversarial R and S cases for a registered signer's key:
+    (kind, sig, expected); expected None means "ask the reference"."""
+    honest = sign_with(s, _below(rng, NONCES_PER_SIGNER), msg)
+
+    def s_eq_ha(r_enc: bytes) -> bytes:
+        # S = h a with R = r_enc: [S]B - [h]A is the identity
+        h = int.from_bytes(hashlib.sha512(r_enc + s.pub + msg).digest(), "little") % L
+        return r_enc + (h * s.a % L).to_bytes(32, "little")
+
+    big_s = int.from_bytes(honest[32:], "little") + L
+    return [
+        ("identity R, S=ha", s_eq_ha(ID_ENC), None),
+        ("identity R", ID_ENC + honest[32:], None),
+        ("order-2 R", ORDER2_ENC + honest[32:], None),
+        ("order-4 R", ORDER4_ENC + honest[32:], None),
+        ("order-8 R", ORDER8_ENC + honest[32:], None),
+        ("non-point R", _non_point(rng) + honest[32:], False),
+        ("x=0 sign=1 R", _with_sign_bit(ID_ENC) + honest[32:], False),
+        ("x=0 sign=1 R, S=ha", s_eq_ha(_with_sign_bit(ID_ENC)), False),
+        ("R y = p", P.to_bytes(32, "little") + honest[32:], False),
+        ("R y = p + 1", (P + 1).to_bytes(32, "little") + honest[32:], False),
+        ("S >= L (S + L)", honest[:32] + big_s.to_bytes(32, "little"), False),
+        ("S = 2^256 - 1", honest[:32] + b"\xff" * 32, False),
+    ]
+
+
+def make_comb_corpus(seed: int, n: int, signers: List[Signer]):
+    """n items, every one under a registered signer's key: about 70% valid,
+    15% forged (wrong message, flipped R or S bit, the signature checked
+    under another registered signer's key), 15% adversarial R and S.
+    Returns (items, expected, kinds)."""
+    from mochi_tpu_torch.verifier.spi import VerifyItem
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    n_adv = int(n * 0.15)
+    while len(rows) < n_adv:
+        s = signers[_below(rng, len(signers))]
+        msg = rng.bytes(_below(rng, 96))
+        for kind, sig, want in _r_adversarial(rng, s, msg):
+            rows.append((kind, s.pub, msg, sig, reference_verdict(s.pub, msg, sig) if want is None else want))
+    rows = rows[:n_adv]
+    forge_kinds = ("wrong message", "flipped R bit", "flipped S bit", "another signer's key")
+    n_forged = int(n * 0.15)
+    while len(rows) < n:
+        s = signers[_below(rng, len(signers))]
+        msg = rng.bytes(_below(rng, 200))
+        sig = sign_with(s, _below(rng, NONCES_PER_SIGNER), msg)
+        if len(rows) < n_adv + n_forged:
+            kind = forge_kinds[len(rows) % 4]
+            pub = s.pub
+            if kind == "wrong message":
+                msg = msg + b"!"
+            elif kind in ("flipped R bit", "flipped S bit"):
+                b = _below(rng, 255) if kind == "flipped R bit" else 256 + _below(rng, 252)
+                sig = bytearray(sig)
+                sig[b // 8] ^= 1 << (b % 8)
+                sig = bytes(sig)
+            else:
+                others = [t for t in signers if t is not s]
+                pub = others[_below(rng, len(others))].pub
+            rows.append((kind, pub, msg, sig, False))
+        else:
+            rows.append(("valid", s.pub, msg, sig, True))
+    rows = [rows[i] for i in rng.permutation(len(rows))]
+    items = [VerifyItem(pub, msg, sig) for _, pub, msg, sig, _ in rows]
+    return items, [w for *_, w in rows], [k for k, *_ in rows]
+
+
 def traffic_waves(traffic):
     """The traffic flattened wave by wave (every client's k-th certificate
     check, then the (k+1)-th): (items, expected)."""
@@ -306,6 +407,51 @@ def check_kernel_vs_plain(tens, pre_ok, want) -> int:
     return err
 
 
+def check_comb_vs_plain(table25, table15, lanes, pre_ok, want) -> int:
+    """The comb kernel and its plain version on the same card tensors: the
+    max abs difference of their bitmaps.  Raises if the kernel's verdicts
+    (ANDed with ``pre_ok``) differ from ``want``."""
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    got = CC.verify_comb_prepared(table25, *lanes)
+    plain = comb.verify_comb_prepared(table15, *lanes)
+    got_np, plain_np = got.cpu().numpy(), plain.cpu().numpy()
+    err = int(np.abs(got_np.astype(np.int64) - plain_np.astype(np.int64)).max())
+    wrong = int(np.sum(np.logical_and(got_np, pre_ok) != np.asarray(want, dtype=bool)))
+    if err or wrong:
+        raise AssertionError(f"comb kernel disagrees at {len(want)} lanes: vs plain {err}, {wrong} wrong verdicts")
+    return err
+
+
+def _words(limbs: np.ndarray, offsets, bits) -> np.ndarray:
+    """Little-endian limbs (..., k) at bit ``offsets`` -> (..., 4) uint64
+    words of the integer they hold (each limb must lie in [0, 2^bits))."""
+    limbs = limbs.astype(np.int64)
+    if limbs.min() < 0 or (limbs >= (1 << np.asarray(bits, dtype=np.int64))).any():
+        raise AssertionError("limb out of range")
+    words = np.zeros(limbs.shape[:-1] + (4,), dtype=np.uint64)
+    for i, (o, b) in enumerate(zip(offsets, bits)):
+        x = limbs[..., i].astype(np.uint64)
+        words[..., o >> 6] |= x << np.uint64(o & 63)
+        if (o & 63) + b > 64:
+            words[..., (o >> 6) + 1] |= x >> np.uint64(64 - (o & 63))
+    return words
+
+
+def check_table_radix(table25, table15) -> int:
+    """Entries of the uploaded kernel-radix table that do not hold the
+    integer of the matching 17 x 15 row (0 expected)."""
+    from mochi_tpu_torch.crypto import cuda_verify as CV
+    from mochi_tpu_torch.crypto import field as F
+
+    t25 = table25.cpu().numpy()
+    t15 = table15.cpu().numpy().reshape(-1, 3, F.NLIMBS)
+    w25 = _words(t25, CV._OFFS, CV._BITS)
+    w15 = _words(t15, [F.RADIX * i for i in range(F.NLIMBS)], [F.RADIX] * F.NLIMBS)
+    return int(np.any(w25 != w15, axis=-1).sum())
+
+
 def device_busy(launch_log, ref0, ref1) -> dict:
     """Kernel-busy time on the card between events ``ref0`` and ``ref1``:
     the union of the logged launches' [start, end] intervals."""
@@ -327,13 +473,15 @@ def device_busy(launch_log, ref0, ref1) -> dict:
     }
 
 
-async def drive_service(traffic, device: str, secret: Optional[bytes], timeout_s: float = 300.0) -> dict:
-    """Boot the verifier service on loopback and drive it from one
-    RemoteVerifier per client, concurrently.  Returns counts and times."""
+async def drive_service(traffic, device: str, secret: Optional[bytes], timeout_s: float = 300.0,
+                        signers=()) -> dict:
+    """Boot the verifier service on loopback (with ``signers`` as its known
+    signers) and drive it from one RemoteVerifier per client, concurrently.
+    Returns counts and times."""
     from mochi_tpu_torch.verifier.cuda import CudaBatchVerifier
     from mochi_tpu_torch.verifier.service import RemoteVerifier, VerifierService
 
-    verifier = CudaBatchVerifier(device=device)
+    verifier = CudaBatchVerifier(device=device, signers=list(signers))
     service = VerifierService(port=0, verifier=verifier, secret=secret)
     await service.start()
     remotes = [RemoteVerifier("127.0.0.1", service.bound_port, timeout_s=timeout_s, secret=secret)
@@ -376,11 +524,132 @@ async def drive_service(traffic, device: str, secret: Optional[bytes], timeout_s
     }
 
 
+def _pct(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+async def drive_cluster(device: str, n: int, clients: int, writes: int, timeout_s: float = 600.0) -> dict:
+    """The system's main path: an n-replica ``VirtualCluster`` (rf = n)
+    whose replicas share ONE ``CudaBatchVerifier(device)``; ``clients``
+    concurrent SDK clients each commit ``writes`` signed single-key PUTs,
+    then read every acked key back.  Returns counts and times; raises if a
+    write fails or a read does not return its value with a 2f+1-grant
+    certificate."""
+    from mochi_tpu_torch.client import TransactionBuilder
+    from mochi_tpu_torch.testing import VirtualCluster
+    from mochi_tpu_torch.verifier.cuda import CudaBatchVerifier
+
+    verifier = CudaBatchVerifier(device=device)
+    t0 = time.perf_counter()
+    async with VirtualCluster(n, rf=n, verifier_factory=lambda: verifier) as vc:
+        boot_s = time.perf_counter() - t0
+        quorum = vc.config.quorum
+        sdks = [vc.client() for _ in range(clients)]
+        acked: dict = {}
+        write_s: List[float] = []
+        read_s: List[float] = []
+        bad: List[str] = []
+
+        async def writer(c, sdk):
+            for k in range(writes):
+                key, value = f"smoke-{c}-{k}", b"value %d/%d " % (c, k) + bytes(24)
+                t = time.perf_counter()
+                await sdk.execute_write_transaction(TransactionBuilder().write(key, value).build())
+                write_s.append(time.perf_counter() - t)
+                acked[key] = (sdk, value)
+
+        async def reader(keys_):
+            for key in keys_:
+                sdk, value = acked[key]
+                t = time.perf_counter()
+                res = await sdk.execute_read_transaction(TransactionBuilder().read(key).build())
+                read_s.append(time.perf_counter() - t)
+                op = res.operations[0]
+                cert = op.current_certificate
+                if op.value != value or cert is None or len(cert.grants) != quorum:
+                    bad.append(key)
+
+        t0 = time.perf_counter()
+        await asyncio.wait_for(asyncio.gather(*(writer(c, sdk) for c, sdk in enumerate(sdks))), timeout_s)
+        wall = time.perf_counter() - t0
+        keys_ = sorted(acked)
+        t0 = time.perf_counter()
+        await asyncio.wait_for(asyncio.gather(*(reader(keys_[c::clients]) for c in range(clients))), timeout_s)
+        read_wall = time.perf_counter() - t0
+    if bad:
+        raise AssertionError(f"{len(bad)} acked writes did not read back with a {quorum}-grant certificate: {bad[:5]}")
+    return {
+        "replicas": n, "rf": n, "f": (n - 1) // 3, "quorum": quorum, "clients": clients,
+        "writes": len(write_s), "acked": len(acked), "read_back": len(read_s), "boot_s": boot_s,
+        "write_wall_s": wall, "txn_per_s": len(write_s) / wall,
+        "write_p50_ms": 1e3 * _pct(write_s, 0.5), "write_p99_ms": 1e3 * _pct(write_s, 0.99),
+        "read_wall_s": read_wall, "read_p50_ms": 1e3 * _pct(read_s, 0.5),
+        "batches_flushed": verifier.batches_flushed, "items_verified": verifier.items_verified,
+        "fallback_batches": verifier.fallback_batches,
+        "crossover_batches": verifier.backend.crossover_batches,
+        "registered_signers": len(verifier.backend.registry),
+    }
+
+
+def _zero_counts():
+    """Launch counts and traces zeroed just before a main-path phase."""
+    from mochi_tpu_torch.crypto import batch_verify as BV
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+    from mochi_tpu_torch.crypto import cuda_verify as CV
+
+    CV.launches = CC.launches = 0
+    BV.reset_counts()
+    CV.launch_log, CC.launch_log = [], []
+
+
+def _read_counts(out: dict):
+    """Counts and traces read just after a main-path phase; returns the
+    (verify, comb) launch logs and turns tracing off."""
+    from mochi_tpu_torch.crypto import batch_verify as BV
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+    from mochi_tpu_torch.crypto import cuda_verify as CV
+
+    out["verify_launches"] = CV.launches
+    out["comb_launches"] = CC.launches
+    out["device_items"] = BV.device_item_count()
+    out["device_dispatches"] = BV.device_dispatch_count()
+    out["routing"] = BV.comb_routing_counts()
+    logs = (CV.launch_log, CC.launch_log)
+    CV.launch_log = CC.launch_log = None
+    return logs
+
+
+def _drive(coro_fn, out_key: str, res: dict):
+    """Run one main-path phase between two card events, with the counts
+    zeroed just before and read just after; the kernel-busy share is the
+    union of both kernels' logged launches over the phase's span."""
+    import torch
+
+    ref0, ref1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    _zero_counts()
+    ref0.record()
+    out = asyncio.run(coro_fn())
+    logs = _read_counts(out)
+    torch.cuda.synchronize()
+    ref1.record()
+    ref1.synchronize()
+    out["device"] = device_busy(logs[0] + logs[1], ref0, ref1)
+    out["device"]["verify_kernel"] = device_busy(logs[0], ref0, ref1)["launch_ms_by_lanes"]
+    out["device"]["comb_kernel"] = device_busy(logs[1], ref0, ref1)["launch_ms_by_lanes"]
+    res[out_key] = out
+    print(f"[{out_key}] {out}", flush=True)
+    return out, logs
+
+
 def run(args) -> dict:
     import torch
 
     from mochi_tpu_torch import kernels
     from mochi_tpu_torch.crypto import batch_verify as BV
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
     from mochi_tpu_torch.crypto import cuda_verify as CV
     from mochi_tpu_torch.crypto import curve
     from mochi_tpu_torch.crypto import keys
@@ -396,20 +665,22 @@ def run(args) -> dict:
         "name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "capability": f"{props.major}.{props.minor}", "sms": props.multi_processor_count,
         "max_sm_clock_mhz": clk_mhz, "torch": torch.__version__, "cuda": torch.version.cuda,
+        "host_crypto_engine": keys.host_crypto_engine(),
     }
     print(f"[device] {res['device']}", flush=True)
+    rate = IMAD_PER_SM_PER_CLOCK * props.multi_processor_count * clk_mhz * 1e6
 
-    # 2. build
+    # 2. build: one nvcc per kernel, all started together
     t0 = time.perf_counter()
-    kernels.load("verify")
+    took = kernels.build_all()
     res["build_s"] = time.perf_counter() - t0
-    attrs = CV.kernel_attributes()
-    res["kernel_attributes"] = attrs
-    ptxas = [ln.strip() for ln in kernels.build_logs.get("verify", "").splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"[build] {res['build_s']:.1f} s; {attrs}", flush=True)
-    for ln in ptxas:
-        print(f"[build] ptxas: {ln}", flush=True)
+    res["build_s_by_kernel"] = took
+    res["kernel_attributes"] = {"verify": CV.kernel_attributes(), "comb": CC.kernel_attributes()}
+    print(f"[build] {res['build_s']:.1f} s {took}; {res['kernel_attributes']}", flush=True)
+    for name in ("verify", "comb"):
+        for ln in kernels.build_logs.get(name, "").splitlines():
+            if "registers" in ln or "spill" in ln:
+                print(f"[build] ptxas {name}: {ln.strip()}", flush=True)
 
     # 3. kernel vs plain on the card
     rng = np.random.default_rng(args.seed)
@@ -471,7 +742,6 @@ def run(args) -> dict:
             ms = _ms_median(lambda: CV.verify_prepared_packed(*part), 1, 5)
             sweep[n] = {"ms": ms, "sigs_per_s": n / (ms / 1e3)}
     per_sig_ops = CV.IMADS_PER_SIGNATURE
-    rate = IMAD_PER_SM_PER_CLOCK * props.multi_processor_count * clk_mhz * 1e6
     bytes_per_sig = 2 * 17 * 4 + 2 * 4 + 2 * 32 + 1
     bound = lambda n: 1e3 * max(n * per_sig_ops / rate, n * bytes_per_sig / 3.35e12)  # noqa: E731
     res["times"] = {
@@ -484,28 +754,13 @@ def run(args) -> dict:
     }
     print(f"[times] {res['times']}", flush=True)
 
-    # 5. service: the main path, counts zeroed just before and read just after
+    # 5. service: the main path of the general kernel
     secret = hashlib.sha256(b"chip smoke %d" % args.seed).digest()
-    ref0, ref1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    CV.launches = 0
-    BV.reset_counts()
-    CV.launch_log = []
-    ref0.record()
-    svc = asyncio.run(drive_service(traffic, "cuda", secret))
-    svc["kernel_launches"] = CV.launches
-    svc["device_items"] = BV.device_item_count()
-    svc["device_dispatches"] = BV.device_dispatch_count()
-    launch_log, CV.launch_log = CV.launch_log, None
-    torch.cuda.synchronize()
-    ref1.record()
-    ref1.synchronize()
+    svc, (vlog, _) = _drive(lambda: drive_service(traffic, "cuda", secret), "service", res)
+    svc["kernel_launches"] = svc["verify_launches"]
     svc["launches_per_request"] = svc["kernel_launches"] / svc["requests"]
-    svc["device"] = device_busy(launch_log, ref0, ref1)
-    res["service"] = svc
-    print(f"[service] {svc}", flush=True)
     # kernel vs plain at every lane count the service launched
-    for n in sorted({n for n, _, _ in launch_log} - set(checked)):
+    for n in sorted({n for n, _, _ in vlog} - set(checked)):
         checked[n] = check_kernel_vs_plain([t[:n] for t in big_t], big[6][:n], flat_want[:n])
     svc["lane_counts_checked_vs_plain"] = sorted(checked)
     print(f"[service] kernel equals plain at lane counts {sorted(checked)}", flush=True)
@@ -517,9 +772,111 @@ def run(args) -> dict:
         problems.append("the kernel was never launched")
     if svc["device_items"] != svc["items"]:
         problems.append(f"{svc['device_items']} items on the device, {svc['items']} sent")
-    for key in ("fallback_batches", "crossover_batches", "remote_fallbacks"):
+    for key in ("fallback_batches", "crossover_batches", "remote_fallbacks", "comb_launches"):
         if svc[key]:
-            problems.append(f"{key} = {svc[key]}")
+            problems.append(f"service: {key} = {svc[key]}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+    # 6. comb vs plain on the card: registered signers
+    reg = comb.SignerRegistry(dev)
+    reg.register_all([s.pub for s in signers])
+    table25 = reg.device_table(dev)
+    table15 = torch.from_numpy(reg.host_table()).to(dev)
+    table_mismatch = check_table_radix(table25, table15)
+    t0 = time.perf_counter()
+    citems, cwant, ckinds = make_comb_corpus(args.seed + 3, CORPUS, signers)
+    res["comb_corpus_s"] = time.perf_counter() - t0
+    cprep = BV.prepare_packed(citems)
+    kidx = np.asarray([reg.index_of(it.public_key) for it in citems], dtype=np.int32)
+    lanes = CC.from_prepared(kidx, cprep, dev)
+    cgot = CC.verify_comb_prepared(table25, *lanes).cpu().numpy()
+    cfinal = np.logical_and(cgot, cprep[6])
+    cwrong = [k for k, g, w in zip(ckinds, cfinal, cwant) if bool(g) != w]
+    ccheck = {len(citems): check_comb_vs_plain(table25, table15, lanes, cprep[6], cwant)}
+    part = len(citems) - PARTIAL
+    ccheck[part] = check_comb_vs_plain(table25, table15, [t[:part] for t in lanes], cprep[6][:part], cwant[:part])
+    csample = np.random.default_rng(args.seed + 4).choice(len(citems), 256, replace=False).tolist()
+    csample_wrong = [j for j in csample if keys.verify(citems[j].public_key, citems[j].message,
+                                                       citems[j].signature) != bool(cfinal[j])]
+    res["comb_corpus"] = {
+        "items": len(citems), "accepted": int(cfinal.sum()), "kinds": len(set(ckinds)),
+        "registered_signers": len(reg), "table_rows": int(table25.shape[0]),
+        "table_entries_not_equal_to_17x15_rows": table_mismatch,
+        "kernel_vs_plain_max_abs_err": max(ccheck.values()), "lane_counts_checked": sorted(ccheck),
+        "wrong_verdicts": len(cwrong), "sample_vs_keys_verify_wrong": len(csample_wrong),
+        "seconds_to_make": res["comb_corpus_s"],
+    }
+    print(f"[comb vs plain] {res['comb_corpus']}", flush=True)
+    if table_mismatch or cwrong or csample_wrong:
+        raise AssertionError(f"comb kernel disagrees: table entries {table_mismatch}, wrong kinds "
+                             f"{sorted(set(cwrong))[:10]}, sample lanes {csample_wrong[:10]}")
+
+    # 7. comb times
+    big_lanes = [torch.cat([t] * (BIG // len(citems))) for t in lanes]
+    c8k = _ms_median(lambda: CC.verify_comb_prepared(table25, *lanes), 3, REPEATS)
+    c64k = _ms_median(lambda: CC.verify_comb_prepared(table25, *big_lanes), 2, REPEATS // 2)
+    cplain = _ms_median(lambda: comb.verify_comb_prepared(table15, *lanes), 1, 3)
+    BV.verify_batch(cert, dev, registry=reg)
+    l0, t0 = CC.launches, time.perf_counter()
+    for _ in range(10):
+        BV.verify_batch(cert, dev, registry=reg)
+    ccert_ms, ccert_launches = 1e2 * (time.perf_counter() - t0), (CC.launches - l0) / 10
+    ctiled = [torch.cat([t] * 4) for t in big_lanes]
+    csweep = {}
+    for n in (1024, 4096, 8192, 16384, 32768, 65536, 131072, 262144):
+        part_l = [t[:n] for t in ctiled]
+        ms = _ms_median(lambda: CC.verify_comb_prepared(table25, *part_l), 1, 5)
+        csweep[n] = {"ms": ms, "sigs_per_s": n / (ms / 1e3)}
+    # the bound: operations (IMADs) or bytes (each lane's inputs and verdict,
+    # plus one read of the signer table and the basepoint comb)
+    cbytes = lambda n: n * CC.BYTES_PER_SIGNATURE + (table25.shape[0] + 576) * CC.ENTRY_BYTES  # noqa: E731
+    cbound = lambda n: 1e3 * max(n * CC.IMADS_PER_SIGNATURE / rate, cbytes(n) / 3.35e12)  # noqa: E731
+    res["comb_times"] = {
+        "kernel_ms_8192": c8k, "kernel_ms_65536": c64k, "plain_ms_8192": cplain,
+        "bound_ms_8192": cbound(len(citems)), "bound_ms_65536": cbound(BIG),
+        "bound_by": "operations" if len(citems) * CC.IMADS_PER_SIGNATURE / rate > cbytes(len(citems)) / 3.35e12
+        else "bytes",
+        "sigs_per_s_8192": len(citems) / (c8k / 1e3), "sigs_per_s_65536": BIG / (c64k / 1e3),
+        "imads_per_signature": CC.IMADS_PER_SIGNATURE, "launch_size_sweep": csweep,
+        "cert43_verify_batch_ms": ccert_ms, "cert43_launches": ccert_launches,
+        "general_over_comb_ms_8192": ms_8k / c8k,
+    }
+    print(f"[comb times] {res['comb_times']}", flush=True)
+
+    # 8. service with known signers: every grant takes the comb kernel
+    pubs = [s.pub for s in signers]
+    svc2, (_, clog) = _drive(lambda: drive_service(traffic, "cuda", secret, signers=pubs), "service_signers", res)
+    for n in sorted({n for n, _, _ in clog} - set(ccheck)):
+        ccheck[n] = _check_comb_at(n, table25, table15, lanes, big_lanes, cprep[6], cwant)
+    problems = []
+    if svc2["mismatched_requests"]:
+        problems.append(f"{svc2['mismatched_requests']} bitmaps differ from the expected verdicts")
+    if svc2["comb_launches"] <= 0 or svc2["routing"]["comb_items"] != svc2["items"]:
+        problems.append(f"comb launches {svc2['comb_launches']}, routing {svc2['routing']} for {svc2['items']} items")
+    for key in ("fallback_batches", "crossover_batches", "remote_fallbacks", "verify_launches"):
+        if svc2[key]:
+            problems.append(f"service with signers: {key} = {svc2[key]}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+    # 9. the cluster: the system's main path
+    cl, (vlog2, clog2) = _drive(lambda: drive_cluster("cuda", CLUSTER_N, CLUSTER_CLIENTS, CLUSTER_WRITES),
+                                "cluster", res)
+    for n in sorted({n for n, _, _ in clog2} - set(ccheck)):
+        ccheck[n] = _check_comb_at(n, table25, table15, lanes, big_lanes, cprep[6], cwant)
+    for n in sorted({n for n, _, _ in vlog2} - set(checked)):
+        checked[n] = check_kernel_vs_plain([t[:n] for t in big_t], big[6][:n], flat_want[:n])
+    cl["comb_lane_counts_checked_vs_plain"] = sorted({n for n, _, _ in clog2})
+    cl["verify_lane_counts_checked_vs_plain"] = sorted({n for n, _, _ in vlog2})
+    print(f"[cluster] comb kernel equals plain at lane counts {cl['comb_lane_counts_checked_vs_plain']}, "
+          f"general kernel at {cl['verify_lane_counts_checked_vs_plain']}", flush=True)
+    problems = []
+    if cl["comb_launches"] <= 0 or cl["routing"]["comb_items"] <= 0:
+        problems.append(f"the comb kernel carried nothing: {cl['comb_launches']} launches, {cl['routing']}")
+    for key in ("fallback_batches", "crossover_batches"):
+        if cl[key]:
+            problems.append(f"cluster: {key} = {cl[key]}")
     if problems:
         raise AssertionError("; ".join(problems))
 
@@ -528,15 +885,36 @@ def run(args) -> dict:
         "route": "cuda",
         "source": "mochi_tpu_torch/csrc/verify.cu",
         "replaces": "mochi_tpu/crypto/pallas_verify.py:132",
-        "launches": svc["kernel_launches"],
-        "max_abs_err": max_abs_err,
+        "launches": svc["verify_launches"],
+        "max_abs_err": max([max_abs_err, *checked.values()]),
         "ms": ms_8k,
         "plain_ms": plain_ms,
         "bound_ms": bound(len(items)),
         "bound_by": "operations",
         "library_ms": None,
+    }, {
+        "name": "comb_verify",
+        "route": "cuda",
+        "source": "mochi_tpu_torch/csrc/comb.cu",
+        "replaces": "mochi_tpu/crypto/comb.py:512",
+        "launches": cl["comb_launches"],
+        "max_abs_err": max(ccheck.values()),
+        "ms": c8k,
+        "plain_ms": cplain,
+        "bound_ms": cbound(len(citems)),
+        "bound_by": res["comb_times"]["bound_by"],
+        "library_ms": None,
     }]
     return res
+
+
+def _check_comb_at(n, table25, table15, lanes, big_lanes, pre_ok, want) -> int:
+    """The comb kernel against its plain version at ``n`` lanes of the comb
+    corpus (tiled past its length)."""
+    src = lanes if n <= lanes[0].shape[0] else big_lanes
+    reps = -(-n // len(want))
+    return check_comb_vs_plain(table25, table15, [t[:n] for t in src], np.tile(pre_ok, reps)[:n],
+                               (list(want) * reps)[:n])
 
 
 def main(argv=None) -> int:

@@ -7,7 +7,15 @@ Division of labour (as in the reference package):
   prechecks (lengths, y < p on the masked encoding, S < L), and packing
   into fixed-shape tensors (scalars as bytes).
 * **Device** — decode and the double-scalar multiply, one signature per
-  thread (:mod:`.cuda_verify`).
+  thread (:mod:`.cuda_verify`); or, for a key registered in a
+  :class:`~mochi_tpu_torch.crypto.comb.SignerRegistry` (the cluster's
+  replica identities), the doubling-free comb kernel (:mod:`.cuda_comb`).
+
+Routing (``verify_batch(..., registry=...)``): items whose key is registered
+below the pinned generation take the comb kernel, the rest the general
+kernel; a mixed batch launches both kernels before reading either back and
+merges one bitmap.  ``MOCHI_COMB=0`` turns the comb path off (every item
+takes the general kernel), as in the reference.
 
 Requests larger than the launch size are cut into chunks.  Every chunk is
 launched before any is read back, so chunk k+1's host prepare runs while
@@ -34,8 +42,10 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from . import cuda_comb
 from . import cuda_verify
 from . import field as F
+from .comb import SignerRegistry
 from ..verifier.spi import VerifyItem
 
 
@@ -162,18 +172,33 @@ def prepare_packed(items: Sequence[VerifyItem]):
 
 # ------------------------------------------------------------ dispatch counts
 
-# Real device dispatches and the items they carried (process totals; the
-# lock because BatchingVerifier runs several backend calls at once).
+# Real device dispatches (of either kernel) and the items they carried,
+# the comb kernel's share, and the router's occupancy: items sent down each
+# path and batches that carried both (process totals; the lock because
+# BatchingVerifier runs several backend calls at once).
 _device_dispatches = 0
 _device_items = 0
+_comb_dispatches = 0
+_comb_items_routed = 0
+_ladder_items_routed = 0
+_mixed_batches = 0
 _count_lock = threading.Lock()
 
 
-def _note_dispatch(n_items: int) -> None:
-    global _device_dispatches, _device_items
+def _note_dispatch(n_items: int, comb: bool = False) -> None:
+    global _device_dispatches, _device_items, _comb_dispatches
     with _count_lock:
         _device_dispatches += 1
         _device_items += n_items
+        _comb_dispatches += comb
+
+
+def _note_routing(n_comb: int, n_ladder: int) -> None:
+    global _comb_items_routed, _ladder_items_routed, _mixed_batches
+    with _count_lock:
+        _comb_items_routed += n_comb
+        _ladder_items_routed += n_ladder
+        _mixed_batches += bool(n_comb and n_ladder)
 
 
 def device_dispatch_count() -> int:
@@ -185,11 +210,33 @@ def device_item_count() -> int:
     return _device_items
 
 
-def reset_counts() -> None:
-    global _device_dispatches, _device_items
+def comb_dispatch_count() -> int:
+    """Dispatches of the comb kernel (included in device_dispatch_count)."""
+    return _comb_dispatches
+
+
+def comb_routing_counts() -> dict:
+    """The router's occupancy: items routed to each kernel (counted only
+    where a registry was consulted) and batches that carried both."""
     with _count_lock:
-        _device_dispatches = 0
-        _device_items = 0
+        return {
+            "comb_items": _comb_items_routed,
+            "ladder_items": _ladder_items_routed,
+            "mixed_batches": _mixed_batches,
+        }
+
+
+def reset_counts() -> None:
+    global _device_dispatches, _device_items, _comb_dispatches
+    global _comb_items_routed, _ladder_items_routed, _mixed_batches
+    with _count_lock:
+        _device_dispatches = _device_items = _comb_dispatches = 0
+        _comb_items_routed = _ladder_items_routed = _mixed_batches = 0
+
+
+def comb_enabled() -> bool:
+    """Operator kill switch for the known-signer comb path."""
+    return os.environ.get("MOCHI_COMB", "1") != "0"
 
 
 # ------------------------------------------------------------------- launch
@@ -206,22 +253,32 @@ def _thread_stream(device: torch.device) -> torch.cuda.Stream:
     return s
 
 
-def _dispatch(prepared, device: torch.device):
+def _dispatch(prepared, device: torch.device, key_idx=None, table=None):
     """Send one prepared chunk to the device and launch; no readback.
-    Returns (bitmap or None, stream, pinned inputs, pre_ok)."""
+    With ``key_idx`` and ``table`` (the comb table pinned at routing time)
+    the comb kernel runs, else the general kernel.  Returns (bitmap or
+    None, stream, what must stay alive until readback, pre_ok)."""
     *arrays, pre_ok = prepared
     if not pre_ok.any():
         return None, None, None, pre_ok
-    _note_dispatch(len(pre_ok))
+    comb = table is not None
+    _note_dispatch(len(pre_ok), comb=comb)
+    if comb:
+        host = cuda_comb.from_prepared(key_idx, arrays, "cpu")
+        kernel = lambda *t: cuda_comb.verify_comb_prepared(table, *t)  # noqa: E731
+    else:
+        host = cuda_verify.from_reference_prepared(arrays, "cpu")
+        kernel = cuda_verify.verify_prepared_packed
     if device.type == "cpu":
-        bitmap = cuda_verify.verify_prepared_packed(*cuda_verify.from_reference_prepared(arrays, device))
-        return bitmap, None, None, pre_ok
-    hosts = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory() for a in arrays]
+        return kernel(*host), None, None, pre_ok
+    hosts = [h.pin_memory() for h in host]
     stream = _thread_stream(device)
     with torch.cuda.stream(stream):
-        bitmap = cuda_verify.verify_prepared_packed(*(h.to(device, non_blocking=True) for h in hosts))
-    # the pinned inputs stay referenced until the readback synchronises
-    return bitmap, stream, hosts, pre_ok
+        bitmap = kernel(*(h.to(device, non_blocking=True) for h in hosts))
+    # The pinned inputs and the pinned comb table stay referenced until the
+    # readback synchronises: a registration that rebuilds the registry's
+    # table cannot free this one under the running kernel.
+    return bitmap, stream, (hosts, table), pre_ok
 
 
 def _readback(launched) -> List[bool]:
@@ -235,19 +292,45 @@ def _readback(launched) -> List[bool]:
     return [bool(b) for b in np.logical_and(host, pre_ok)]
 
 
-def verify_batch(items: Sequence[VerifyItem], device="cuda") -> List[bool]:
+def verify_batch(items: Sequence[VerifyItem], device="cuda", registry=None,
+                 comb_gen: Optional[int] = None) -> List[bool]:
     """Verify a batch on ``device`` ("cuda" by default, "cpu" for the plain
-    version); returns one bool per item."""
+    versions); returns one bool per item.
+
+    ``registry`` (a :class:`~mochi_tpu_torch.crypto.comb.SignerRegistry`)
+    enables the comb path: an item whose key is registered with an index
+    below ``comb_gen`` (the generation pinned at routing time; default: the
+    current one) takes the comb kernel against the table of that
+    generation, the rest the general kernel.  Every chunk of both kernels
+    is launched before any is read back.  Verdicts are identical either way.
+    """
     if not items:
         return []
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    launched = [
-        _dispatch(prepare_packed(items[i : i + MAX_LAUNCH]), device)
-        for i in range(0, len(items), MAX_LAUNCH)
-    ]
-    return [ok for chunk in launched for ok in _readback(chunk)]
+    comb_pos: List[int] = []
+    gen_pos: List[int] = list(range(len(items)))
+    if registry is not None and len(registry) and comb_enabled():
+        gen = registry.generation if comb_gen is None else comb_gen
+        idx = [registry.index_of(it.public_key) for it in items]
+        comb_pos = [i for i, k in enumerate(idx) if k is not None and k < gen]
+        gen_pos = [i for i, k in enumerate(idx) if k is None or k >= gen]
+        _note_routing(len(comb_pos), len(gen_pos))
+    launched = []
+    if comb_pos:
+        table = registry.device_table(device, gen)
+        kidx = np.asarray([idx[i] for i in comb_pos], dtype=np.int32)
+        for i in range(0, len(comb_pos), MAX_LAUNCH):
+            chunk = [items[j] for j in comb_pos[i : i + MAX_LAUNCH]]
+            launched.append(_dispatch(prepare_packed(chunk), device, kidx[i : i + MAX_LAUNCH], table))
+    for i in range(0, len(gen_pos), MAX_LAUNCH):
+        chunk = [items[j] for j in gen_pos[i : i + MAX_LAUNCH]]
+        launched.append(_dispatch(prepare_packed(chunk), device))
+    out: List[bool] = [False] * len(items)
+    for j, ok in zip(comb_pos + gen_pos, (ok for chunk in launched for ok in _readback(chunk))):
+        out[j] = ok
+    return out
 
 
 # ------------------------------------------------------------------ backend
@@ -260,6 +343,12 @@ class TorchBatchBackend:
     items through :func:`verify_batch` on ``device``.  A CUDA kernel needs
     no per-shape compile, so the reference's bucket-readiness machinery has
     no counterpart here.
+
+    Known signers: the backend owns a
+    :class:`~mochi_tpu_torch.crypto.comb.SignerRegistry`;
+    :meth:`register_signers` builds their comb tables, and every call pins
+    the registry's generation at routing time, so a registration racing a
+    batch moves only later batches onto the comb kernel.
 
     CPU crossover: a batch smaller than ``min_device_items``
     (``MOCHI_DEVICE_MIN_BATCH``) is verified on the host instead.  The
@@ -276,24 +365,28 @@ class TorchBatchBackend:
             except ValueError:
                 min_device_items = 0
         self.min_device_items = max(0, min_device_items)
-        # Known signers (cluster identities).  Accepted for the comb path
-        # that is still to be ported; all traffic takes the general kernel.
-        self.registered_signers: List[bytes] = []
+        self.registry = SignerRegistry(self.device)
         self.crossover_batches = 0
         self._lock = threading.Lock()
 
+    @property
+    def registered_signers(self) -> List[bytes]:
+        return self.registry.public_keys()
+
     def warmup(self) -> None:
-        """Build and load the kernel now, so no request waits for nvcc."""
+        """Build and load both kernels now (one nvcc each, in parallel), and
+        upload the comb table of the registered signers, so no request waits
+        for either."""
         if self.device.type == "cuda":
-            cuda_verify._lib()
+            cuda_verify._lib()  # builds every missing kernel at once
+            cuda_comb._lib()
+            if len(self.registry):
+                self.registry.device_table(self.device)
 
     def register_signers(self, pubs: Sequence[bytes]) -> None:
-        with self._lock:
-            known = set(self.registered_signers)
-            for p in map(bytes, pubs):
-                if p not in known:
-                    known.add(p)
-                    self.registered_signers.append(p)
+        """Register known signers (cluster replica identities): their
+        traffic takes the comb kernel from the next batch on."""
+        self.registry.register_all(pubs)
 
     def __call__(self, items: Sequence[VerifyItem]) -> Sequence[bool]:
         if len(items) < self.min_device_items:
@@ -302,4 +395,4 @@ class TorchBatchBackend:
             with self._lock:
                 self.crossover_batches += 1
             return [_keys.verify(it.public_key, it.message, it.signature) for it in items]
-        return verify_batch(items, self.device)
+        return verify_batch(items, self.device, self.registry)

@@ -8,8 +8,10 @@ device-sized batches even when each replica's own traffic is thin.
 
 Server: :class:`VerifierService` — an ``RpcServer`` (the length-prefixed
 transport the replicas speak, ``net/transport.py``) in front of a
-:class:`~mochi_tpu_torch.verifier.spi.BatchingVerifier` over the CUDA verify
-kernel (:class:`~mochi_tpu_torch.verifier.cuda.CudaBatchVerifier`).
+:class:`~mochi_tpu_torch.verifier.spi.BatchingVerifier` over the CUDA kernels
+(:class:`~mochi_tpu_torch.verifier.cuda.CudaBatchVerifier`: the comb kernel
+for the known signers of ``--signers-file``, the general kernel for the
+rest).
 
 Client: :class:`RemoteVerifier` — a ``SignatureVerifier`` that ships batches
 to the service and falls back to local CPU verification if the service is
@@ -272,7 +274,7 @@ async def amain(args) -> None:
         t0 = time.time()
         verifier = CudaBatchVerifier(device="cuda", signers=signers)
         LOG.info(
-            "CUDA verify kernel ready in %.1fs (%d known signers)",
+            "CUDA kernels ready in %.1fs (%d known signers on the comb kernel)",
             time.time() - t0,
             len(signers),
         )
@@ -313,9 +315,9 @@ def main(argv=None) -> None:
         "--signers-file",
         default=None,
         help="file of hex Ed25519 pubkeys (one per line, # comments ok): "
-        "known signers, usually the cluster's replica identities; recorded "
-        "for the comb path, which is not part of this package yet, so every "
-        "signature takes the general kernel",
+        "known signers, usually the cluster's replica identities; their "
+        "signatures take the comb kernel (every other key the general "
+        "kernel)",
     )
     parser.add_argument("--log-level", default="INFO")
     args = parser.parse_args(argv)

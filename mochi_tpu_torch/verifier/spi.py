@@ -12,8 +12,10 @@ SURVEY.md §2.4).  Here every replica routes signature checks through this SPI:
   ``max_delay_s`` (bounding p50 commit latency at low load — SURVEY.md §7
   "batching discipline").  The CUDA backend
   (:class:`mochi_tpu_torch.crypto.batch_verify.TorchBatchBackend`) plugs in
-  here; on backend failure it falls back to the CPU path rather than ever
-  skipping verification, and counts the batch in ``fallback_batches``.
+  here.  On backend failure a host or remote backend falls back to the CPU
+  path rather than ever skipping verification, and counts the batch in
+  ``fallback_batches``; a verifier without a fallback (the CUDA verifier on
+  the card) raises the failure to every caller of the batch instead.
 """
 
 from __future__ import annotations
@@ -94,7 +96,7 @@ class SignatureVerifier:
         verifier composition it was built with.  The default walks the
         standard composition attributes — ``inner`` (Caching/Coalescing
         wrappers), ``backend`` (BatchingVerifier → TorchBatchBackend, which
-        records the signers for the comb path to come) and
+        owns the device :class:`~mochi_tpu_torch.crypto.comb.SignerRegistry`) and
         ``fallback`` (the CPU path, whose pure-Python engine keeps per-
         signer window tables) — so registration reaches the device registry
         AND the host fallback through any stack.  Registration is always
@@ -438,6 +440,10 @@ class BatchingVerifier(SignatureVerifier):
     while the device crunches.  Up to ``max_inflight`` batches run
     concurrently, so in-flight batches overlap one batch's host prepare and
     readback with another's device execution.
+
+    ``fallback`` (default: :class:`CpuVerifier`) answers a batch the backend
+    failed.  A subclass that sets ``self.fallback = None`` fails closed: the
+    backend's exception reaches every caller of that batch.
     """
 
     def __init__(
@@ -529,7 +535,13 @@ class BatchingVerifier(SignatureVerifier):
                 raise ValueError("backend bitmap length mismatch")
         except asyncio.CancelledError:
             raise
-        except Exception:
+        except Exception as exc:
+            if self.fallback is None:
+                LOG.exception("batch backend failed; the batch's callers get the error")
+                for _, fut in chunk:
+                    if not fut.done():
+                        fut.set_exception(exc)
+                return
             LOG.exception("batch backend failed; falling back to CPU verify")
             self.fallback_batches += 1
             bitmap = await self.fallback.verify_batch(items)
@@ -590,19 +602,23 @@ def verifier_stats(verifier) -> dict:
         if isinstance(v, int):
             st[attr] = v
     backend = getattr(verifier, "backend", None)
-    signers = getattr(backend, "registered_signers", None)
-    if signers is not None:
-        # The comb fast path (the reference's crypto/comb.py) is not ported
-        # yet: signers are accepted and all traffic takes the general
-        # kernel, so the comb block reports itself absent with zeros under
-        # the reference's key names.
+    registry = getattr(backend, "registry", None)
+    if registry is not None:
+        # comb fast-path observability (crypto/comb.py): is the registry
+        # populated, and is the comb kernel actually carrying traffic.  The
+        # reference's "ready_buckets" has no counterpart: a CUDA kernel
+        # needs no per-shape compile.
+        from ..crypto import batch_verify as _bv
+
+        routed = _bv.comb_routing_counts()
         st["comb"] = {
-            "registered_signers": len(signers),
-            "ready_buckets": [],
-            "device_dispatches_process_total": 0,
-            "items_comb_routed_process_total": 0,
-            "items_ladder_routed_process_total": 0,
-            "mixed_batches_process_total": 0,
+            "registered_signers": len(registry),
+            "device_dispatches_process_total": _bv.comb_dispatch_count(),
+            # routing occupancy (process-global): items the router sent
+            # down each kernel, and batches that carried both
+            "items_comb_routed_process_total": routed["comb_items"],
+            "items_ladder_routed_process_total": routed["ladder_items"],
+            "mixed_batches_process_total": routed["mixed_batches"],
         }
     inner = getattr(verifier, "inner", None)
     if inner is not None:

@@ -116,3 +116,52 @@ def test_fails_alone_outside_the_checkout(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+# ------------------------------------------------------------ comb phases
+
+
+def test_comb_corpus_verdicts_match_openssl_and_the_routed_plain_version(signers):
+    from mochi_tpu.crypto import keys as jkeys
+    from mochi_tpu_torch.crypto import comb
+
+    items, want, kinds = cs.make_comb_corpus(6, 200, signers)
+    assert len(items) == len(want) == len(kinds) == 200
+    assert {"valid", "another signer's key", "order-8 R", "x=0 sign=1 R", "R y = p + 1",
+            "S >= L (S + L)", "identity R, S=ha"} <= set(kinds)
+    assert [jkeys.verify(i.public_key, i.message, i.signature) for i in items] == want
+    reg = comb.SignerRegistry("cpu")
+    reg.register_all([s.pub for s in signers])
+    assert {reg.index_of(i.public_key) for i in items} <= set(range(len(signers)))
+    BV.reset_counts()
+    assert BV.verify_batch(items, device="cpu", registry=reg) == want
+    assert BV.comb_routing_counts()["comb_items"] == 200
+    # "identity R, S = h a" is the one adversarial kind the equation accepts
+    assert {k for k, w in zip(kinds, want) if w and k != "valid"} == {"identity R, S=ha"}
+
+
+def test_table_radix_check_counts_a_wrong_entry(signers):
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    reg = comb.SignerRegistry("cpu")
+    reg.register_all([s.pub for s in signers[:2]])
+    t15 = reg.device_table("cpu")
+    t25 = torch.from_numpy(CC.to_radix25(t15.numpy()))
+    assert cs.check_table_radix(t25, t15) == 0
+    t25[577, 2, 4] ^= 1
+    assert cs.check_table_radix(t25, t15) == 1
+
+
+def test_cluster_drive_counts_on_cpu():
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    CV.launches = CC.launches = 0
+    BV.reset_counts()
+    out = asyncio.run(asyncio.wait_for(cs.drive_cluster("cpu", 7, 2, 2), 300))
+    assert out["quorum"] == 5 and out["writes"] == out["acked"] == out["read_back"] == 4
+    assert out["fallback_batches"] == out["crossover_batches"] == 0
+    assert out["registered_signers"] == 7 and out["txn_per_s"] > 0
+    routed = BV.comb_routing_counts()
+    assert routed["comb_items"] >= 4 * 5 and BV.comb_dispatch_count() > 0
+    assert CV.launches == CC.launches == 0  # the plain versions on the CPU launch no kernel

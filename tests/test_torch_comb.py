@@ -1,0 +1,208 @@
+"""The comb path of the port against the JAX package's.
+
+Host tables and the registry are held byte for byte against
+``mochi_tpu.crypto.comb``; the plain PyTorch comb against the reference's
+jitted comb program on JAX's CPU backend (exact: both are verdict bitmaps)
+and against OpenSSL; the router against the reference's verdicts, with the
+``MOCHI_COMB=0`` switch and generation pinning.  Inputs are made from numpy
+seeds.  The CUDA kernel itself is held against the plain version in
+``tests/test_torch_kernel_host.py`` (its g++ build) and on the card.
+"""
+
+import asyncio
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as cs
+from mochi_tpu.crypto import batch_verify as JBV
+from mochi_tpu.crypto import comb as JC
+from mochi_tpu.crypto import keys as jkeys
+from mochi_tpu.verifier.spi import VerifyItem as JItem
+from mochi_tpu_torch.crypto import batch_verify as BV
+from mochi_tpu_torch.crypto import comb as TC
+from mochi_tpu_torch.crypto import cuda_comb as CC
+from mochi_tpu_torch.crypto import keys
+from mochi_tpu_torch.verifier.spi import VerifyItem, verifier_stats
+
+P = (1 << 255) - 19
+
+
+@pytest.fixture(scope="module")
+def signers():
+    return cs.make_signers(np.random.default_rng(21), 6)
+
+
+@pytest.fixture(scope="module")
+def corpus(signers):
+    return cs.make_comb_corpus(22, 96, signers)
+
+
+@pytest.fixture(scope="module")
+def registries(signers):
+    jreg, treg = JC.SignerRegistry(), TC.SignerRegistry("cpu")
+    for s in signers:
+        assert jreg.register(s.pub) == treg.register(s.pub)
+    return jreg, treg
+
+
+def _openssl(items):
+    return [jkeys.verify(it.public_key, it.message, it.signature) for it in items]
+
+
+# ------------------------------------------------------------- host tables
+
+
+def test_host_tables_are_byte_equal_to_the_reference(signers, registries):
+    for s in signers[:3]:
+        mine, ref = TC.signer_table(s.pub), JC.signer_table(s.pub)
+        assert mine.dtype == ref.dtype == np.int32 and mine.shape == (64, 9, 51)
+        assert mine.tobytes() == ref.tobytes()
+    assert TC._b_comb().tobytes() == JC._b_comb().tobytes()
+    jreg, treg = registries
+    assert treg.host_table().tobytes() == np.asarray(jreg.device_table()).tobytes()
+    assert np.asarray(treg.device_table("cpu")).tobytes() == np.asarray(jreg.device_table()).tobytes()
+    for s in signers:
+        assert TC.decompress_host(s.pub) == JC.decompress_host(s.pub)
+
+
+def test_registry_refuses_what_the_reference_refuses(signers):
+    non_point = next(y for y in range(2, 64) if JC.decompress_host(y.to_bytes(32, "little")) is None)
+    x0_sign = bytearray((1).to_bytes(32, "little"))
+    x0_sign[31] |= 0x80
+    bad = [P.to_bytes(32, "little"), non_point.to_bytes(32, "little"), b"\x00" * 31, bytes(x0_sign)]
+    treg, jreg = TC.SignerRegistry("cpu"), JC.SignerRegistry()
+    for enc in bad:
+        assert treg.register(enc) is None and jreg.register(enc) is None
+        assert treg.register(enc) is None  # refusals are remembered
+    assert len(treg) == 0 and treg.generation == 0
+    for i, s in enumerate(signers):
+        assert treg.register(s.pub) == i
+    assert [treg.register(s.pub) for s in signers] == list(range(len(signers)))
+    assert treg.public_keys() == [s.pub for s in signers] and treg.generation == len(signers)
+
+
+def test_capacity_crosses_8_to_16_and_pinned_tables_keep_their_shape():
+    rng = np.random.default_rng(23)
+    pubs = [keys.keypair_from_seed(rng.bytes(32)).public_key for _ in range(10)]
+    treg, jreg = TC.SignerRegistry("cpu"), JC.SignerRegistry()
+    for p in pubs[:8]:
+        treg.register(p)
+        jreg.register(p)
+    pinned = treg.device_table("cpu", gen=8)
+    assert pinned.shape == (8 * 576, 51)
+    for p in pubs[8:]:
+        treg.register(p)
+        jreg.register(p)
+    assert treg.device_table("cpu", gen=8) is pinned  # the pinned generation's table
+    grown = treg.device_table("cpu")
+    assert grown.shape == (16 * 576, 51) and grown is not pinned
+    assert np.asarray(grown).tobytes() == np.asarray(jreg.device_table()).tobytes()
+    assert treg.host_table(gen=8).tobytes() == np.asarray(jreg.device_table(gen=8)).tobytes()
+    # the kernel layout holds the same integers
+    r25 = CC.to_radix25(treg.host_table())
+    assert r25.shape == (16 * 576, 3, 10)
+    assert cs.check_table_radix(torch.from_numpy(r25), grown) == 0
+
+
+# ------------------------------------------------------------------ verdicts
+
+
+def test_plain_comb_equals_the_reference_comb_program(corpus, registries):
+    """The plain PyTorch comb against ``_verify_comb_jit`` on JAX-CPU, raw
+    bitmaps before the host prechecks: forged, another signer's key,
+    adversarial R, S >= L, and key indices past the table."""
+    items, _, _ = corpus
+    jreg, treg = registries
+    kidx = np.asarray([treg.index_of(it.public_key) for it in items], dtype=np.int32)
+    kidx[3], kidx[7], kidx[11] = 9999, -2, treg.generation  # clipped into the table
+    _, _, y_r, sign_r, s_b, h_b, _ = JBV.prepare_packed(
+        [JItem(it.public_key, it.message, it.signature) for it in items])
+    ref = np.asarray(JC._verify_comb_jit(jreg.device_table(), kidx, y_r, sign_r, s_b, h_b))
+    prep = BV.prepare_packed(items)
+    for a, b in zip((y_r, sign_r, s_b, h_b), (prep[2], prep[3], prep[4], prep[5])):
+        assert np.array_equal(a, b)
+    mine = TC.verify_comb_prepared(treg.device_table("cpu"), *CC.from_prepared(kidx, prep, "cpu"))
+    assert mine.tolist() == ref.tolist()
+    assert ref.any() and not ref.all()
+
+
+def test_plain_comb_equals_openssl(corpus, registries):
+    items, want, kinds = corpus
+    _, treg = registries
+    prep = BV.prepare_packed(items)
+    kidx = np.asarray([treg.index_of(it.public_key) for it in items], dtype=np.int32)
+    got = TC.verify_comb_prepared(treg.device_table("cpu"), *CC.from_prepared(kidx, prep, "cpu"))
+    final = np.logical_and(got.numpy(), prep[6]).tolist()
+    assert final == want == _openssl(items)
+    assert {"valid", "another signer's key", "x=0 sign=1 R", "S >= L (S + L)", "non-point R"} <= set(kinds)
+
+
+# ------------------------------------------------------------------- routing
+
+
+def _mixed(signers, rng):
+    strangers = [keys.keypair_from_seed(rng.bytes(32)) for _ in range(2)]
+    out = []
+    for i in range(18):
+        msg = rng.bytes(int(rng.integers(0, 60)))
+        if i % 3 == 2:
+            kp = strangers[i % 2]
+            sig = kp.sign(msg if i % 4 else msg + b"?")
+            out.append(VerifyItem(kp.public_key, msg, sig))
+        else:
+            s = signers[i % len(signers)]
+            sig = cs.sign_with(s, i % cs.NONCES_PER_SIGNER, msg)
+            if i % 5 == 0:
+                sig = sig[:33] + bytes([sig[33] ^ 2]) + sig[34:]
+            out.append(VerifyItem(s.pub, msg, sig))
+    return out
+
+
+def test_mixed_batch_routes_registered_keys_to_the_comb(signers, registries):
+    _, treg = registries
+    items = _mixed(signers, np.random.default_rng(24))
+    BV.reset_counts()
+    assert BV.verify_batch(items, "cpu", registry=treg) == _openssl(items)
+    routed = BV.comb_routing_counts()
+    assert routed == {"comb_items": 12, "ladder_items": 6, "mixed_batches": 1}
+    assert BV.comb_dispatch_count() == 1 and BV.device_dispatch_count() == 2
+
+
+def test_comb_switch_and_generation_pinning(signers, registries, monkeypatch):
+    _, treg = registries
+    items = _mixed(signers, np.random.default_rng(25))
+    want = _openssl(items)
+    # generation pinned at 2: signers 2.. are "registered later" -> general kernel
+    BV.reset_counts()
+    assert BV.verify_batch(items, "cpu", registry=treg, comb_gen=2) == want
+    idx = [treg.index_of(it.public_key) for it in items]
+    n_early = sum(1 for k in idx if k is not None and k < 2)
+    assert BV.comb_routing_counts()["comb_items"] == n_early > 0
+    monkeypatch.setenv("MOCHI_COMB", "0")
+    BV.reset_counts()
+    assert BV.verify_batch(items, "cpu", registry=treg) == want
+    assert BV.comb_routing_counts()["comb_items"] == 0 and BV.comb_dispatch_count() == 0
+
+
+def test_backend_registration_and_comb_stats(signers):
+    from mochi_tpu_torch.verifier.cuda import CudaBatchVerifier
+
+    async def main():
+        v = CudaBatchVerifier(device="cpu", signers=[s.pub for s in signers[:3]])
+        try:
+            assert v.register_signers([s.pub for s in signers]) is True
+            assert v.backend.registered_signers == [s.pub for s in signers]
+            items = _mixed(signers, np.random.default_rng(26))
+            BV.reset_counts()
+            assert await v.verify_batch(items) == _openssl(items)
+            st = verifier_stats(v)["comb"]
+            assert st["registered_signers"] == len(signers)
+            assert st["items_comb_routed_process_total"] == 12
+            assert st["items_ladder_routed_process_total"] == 6
+            assert st["device_dispatches_process_total"] == 1
+        finally:
+            await v.close()
+
+    asyncio.run(asyncio.wait_for(main(), 240))

@@ -1,4 +1,4 @@
-"""The CUDA verify kernel on the card.
+"""The CUDA kernels (general verify and comb) on the card.
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA card and
 skips elsewhere.  On the card (this file imports no JAX, so the JAX-bound
@@ -17,6 +17,7 @@ import chip_smoke as cs
 from mochi_tpu_torch.crypto import batch_verify as BV
 from mochi_tpu_torch.crypto import cuda_verify as CV
 from mochi_tpu_torch.crypto import curve
+from mochi_tpu_torch.verifier.spi import VerifyItem
 
 pytestmark = pytest.mark.cuda
 
@@ -24,7 +25,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture(scope="module")
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the CUDA verify kernel has no CPU mode")
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
     return torch.device("cuda", 0)
 
 
@@ -79,3 +80,60 @@ def test_chunked_and_concurrent_verify_batch(card, corpus, monkeypatch):
         t.join(timeout=300)
     assert not any(t.is_alive() for t in threads)
     assert [results[k] for k in range(6)] == [want[k * 100 : (k + 1) * 100] for k in range(6)]
+
+
+@pytest.fixture(scope="module")
+def comb_setup(card):
+    from mochi_tpu_torch.crypto import comb
+
+    signers = cs.make_signers(np.random.default_rng(3), 16)
+    items, want, _ = cs.make_comb_corpus(4, 600, signers)
+    reg = comb.SignerRegistry(card)
+    reg.register_all([s.pub for s in signers])
+    return reg, items, want
+
+
+def test_comb_kernel_equals_plain_version_and_expected_verdicts(card, comb_setup):
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    reg, items, want = comb_setup
+    prepared = BV.prepare_packed(items)
+    kidx = np.asarray([reg.index_of(it.public_key) for it in items], dtype=np.int32)
+    kidx[5], kidx[9] = 10 ** 6, -4  # clipped into the table, never read past it
+    lanes = CC.from_prepared(kidx, prepared, card)
+    before = CC.launches
+    got = CC.verify_comb_prepared(reg.device_table(card), *lanes)
+    assert CC.launches == before + 1
+    plain = comb.verify_comb_prepared(torch.from_numpy(reg.host_table()).to(card), *lanes)
+    assert torch.equal(got, plain)
+    ok = (got.cpu().numpy() & prepared[6]).tolist()
+    assert [w for j, w in enumerate(want) if j not in (5, 9)] == [o for j, o in enumerate(ok) if j not in (5, 9)]
+
+
+def test_comb_wrapper_rejects_what_the_kernel_does_not_take(card, comb_setup):
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    reg, items, _ = comb_setup
+    kidx = np.zeros(8, dtype=np.int32)
+    lanes = list(CC.from_prepared(kidx, BV.prepare_packed(items[:8]), card))
+    with pytest.raises(ValueError):  # the 17 x 15 table is the plain version's
+        CC.verify_comb_prepared(torch.from_numpy(reg.host_table()).to(card), *lanes)
+    bad = [t.clone() for t in lanes]
+    bad[0] = bad[0].to(torch.int64)
+    with pytest.raises(TypeError):
+        CC.verify_comb_prepared(reg.device_table(card), *bad)
+    assert CC.verify_comb_prepared(reg.device_table(card), *(t[:0] for t in lanes)).shape == (0,)
+
+
+def test_routed_mixed_batch_on_the_card(card, comb_setup):
+    from mochi_tpu_torch.crypto import keys
+
+    reg, items, want = comb_setup
+    stranger = keys.generate_keypair()
+    extra = [VerifyItem(stranger.public_key, b"s%d" % i, stranger.sign(b"s%d" % i)) for i in range(5)]
+    before = BV.comb_routing_counts()
+    assert BV.verify_batch(items + extra, card, registry=reg) == want + [True] * 5
+    after = BV.comb_routing_counts()
+    assert after["comb_items"] - before["comb_items"] == len(items)
+    assert after["ladder_items"] - before["ladder_items"] == 5

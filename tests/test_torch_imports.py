@@ -24,6 +24,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     mods = ["mochi_tpu_torch"] + _port_modules()
     assert "mochi_tpu_torch.crypto.cuda_verify" in mods
     assert "mochi_tpu_torch.verifier.service" in mods
+    for m in ("crypto.comb", "crypto.cuda_comb", "server.replica", "server.__main__", "client.client",
+              "testing.virtual_cluster", "storage.spi", "tools.gen_cluster"):
+        assert f"mochi_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises

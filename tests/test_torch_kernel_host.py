@@ -1,13 +1,14 @@
-"""The CUDA verify kernel's arithmetic, compiled for the host and fuzzed.
+"""The CUDA kernels' arithmetic, compiled for the host and fuzzed.
 
-``mochi_tpu_torch/csrc/fe25519.cuh`` and ``ge25519.cuh`` are plain
-``__host__ __device__`` code, so ``g++`` builds them here into a small
-ctypes library (the test-only shim below).  The fuzz holds every field op
-against Python integers, with inputs at the edges of the bounds the header
-states (maximum loose limbs, every sign pattern), and decode, one ladder
-window and the whole verify against Python integers and the port's plain
-PyTorch version.  The port never loads this build; it exists to catch radix
-and bounds faults before the kernel reaches a card.
+``mochi_tpu_torch/csrc/fe25519.cuh``, ``ge25519.cuh`` and ``comb25519.cuh``
+are plain ``__host__ __device__`` code, so ``g++`` builds them here into a
+small ctypes library (the test-only shim below).  The fuzz holds every field
+op against Python integers, with inputs at the edges of the bounds the
+header states (maximum loose limbs, every sign pattern), and decode, one
+ladder window, the whole verify, the comb's negated-Niels mixed addition
+and the whole comb verify against Python integers and the port's plain
+PyTorch versions.  The port never loads this build; it exists to catch radix
+and bounds faults before the kernels reach a card.
 """
 
 import ctypes
@@ -36,6 +37,7 @@ TIGHT_ODD = (1 << 24) + (1 << 14)
 SHIM = r"""
 #include <string.h>
 #include "ge25519.cuh"
+#include "comb25519.cuh"
 
 extern "C" {
 void t_fe_mul(int32_t* h, const int32_t* f, const int32_t* g) {
@@ -70,6 +72,16 @@ int t_verify(const int32_t* y_a, int sign_a, const int32_t* y_r, int sign_r,
              const uint8_t* s, const uint8_t* h, const int32_t* btab) {
   return ed25519_verify_one(y_a, sign_a, y_r, sign_r, s, h, 1,
                             (const ge_niels*)btab);
+}
+void t_comb_madd(int32_t* r, const int32_t* p, const int32_t* entry, int neg) {
+  ge_niels n;
+  comb_load_niels(&n, entry, neg);
+  ge_madd((ge_p3*)r, (const ge_p3*)p, &n);
+}
+int t_comb_verify(const int32_t* table, long long rows, int key_idx,
+                  const int32_t* y_r, int sign_r, const uint8_t* s,
+                  const uint8_t* h, const int32_t* bcomb) {
+  return comb_verify_one(table, rows, key_idx, y_r, sign_r, s, h, bcomb);
 }
 }
 """
@@ -389,3 +401,91 @@ def test_whole_verify_matches_keys_verify_and_plain(lib):
     assert any(want) and not all(want)
     # the identity-key item verifies for any message (cofactorless semantics)
     assert want[10] is True
+
+
+# -------------------------------------------------------------------- comb
+
+
+def _madd_ints(p, ent, neg):
+    """madd-2008-hwcd-3 on Python ints mod p: extended point p (X, Y, Z, T)
+    plus the Niels entry (y+x, y-x, 2dxy), negated when ``neg``."""
+    X, Y, Z, T = p
+    ypx, ymx, xy2d = ent
+    if neg:
+        ypx, ymx, xy2d = ymx, ypx, -xy2d
+    a, b, c, d = (Y - X) * ymx, (Y + X) * ypx, xy2d * T, 2 * Z
+    e, f, g, h = b - a, d - c, d + c, b + a
+    return [v % P for v in (e * f, g * h, f * g, e * h)]
+
+
+def test_comb_negated_niels_madd_fuzz_at_the_bounds(lib):
+    """A negative digit feeds the negated entry (limbs down to -(2^26 - 1))
+    into ge_madd: with the point's limbs at the TIGHT maximum, every sign
+    pattern, and the entry's limbs at the canonical maximum, the result is
+    the formula mod p and TIGHT."""
+    rng = random.Random(101)
+    max_entry = [(1 << 26) - 1 if i % 2 == 0 else (1 << 25) - 1 for i in range(10)]
+    for trial in range(300):
+        if trial % 3 == 0:
+            pt = [rand_limbs(rng, TIGHT_EVEN, TIGHT_ODD) for _ in range(4)]
+        else:
+            pt = [[(TIGHT_EVEN if i % 2 == 0 else TIGHT_ODD) * rng.choice((-1, 1)) for i in range(10)]
+                  for _ in range(4)]
+        if trial % 2:
+            ent = [max_entry for _ in range(3)]
+        else:
+            ent = [list(CV.int_to_limbs25(rng.randrange(P))) for _ in range(3)]
+        neg = trial % 4 >= 2
+        out = np.zeros(40, np.int32)
+        lib.t_comb_madd(ptr(out), ptr(arr(sum(pt, []))), ptr(arr(sum(ent, []))), int(neg))
+        want = _madd_ints([value(c) for c in pt], [value(c) for c in ent], neg)
+        got = [value(out[10 * k : 10 * k + 10]) % P for k in range(4)]
+        assert got == want, trial
+        assert all(is_tight(out[10 * k : 10 * k + 10]) for k in range(4))
+
+
+def test_comb_verify_matches_the_plain_version_lane_for_lane(lib):
+    """The comb header's whole verify (table gather with the index clipped,
+    negated entries, R decode, compare) equals the plain PyTorch comb on
+    every lane, including forged and malformed ones and key indices past
+    either end of the table."""
+    from mochi_tpu_torch.crypto import batch_verify as BV
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+    from mochi_tpu_torch.verifier.spi import VerifyItem
+
+    rng = random.Random(111)
+    seeds = [bytes(rng.randrange(256) for _ in range(32)) for _ in range(3)]
+    pubs = [hf.public_from_seed(sd) for sd in seeds]
+    reg = comb.SignerRegistry("cpu")
+    reg.register_all(pubs)
+    items, kidx = [], []
+    for i in range(14):
+        k = i % 3
+        msg = b"comb host %d" % i
+        sig = bytearray(hf.sign(seeds[k], msg))
+        if i % 4 == 1:
+            sig[40] ^= 4  # flipped S bit
+        elif i % 4 == 2:
+            sig[:32] = bytes.fromhex(ORDER8)  # small-order R
+        items.append(VerifyItem(pubs[k], msg, bytes(sig)))
+        kidx.append(k)
+    kidx[5], kidx[9], kidx[13] = (k + 1) % 3, 1000, -7  # wrong, past the end, negative
+    prep = BV.prepare_packed(items)
+    kidx = np.asarray(kidx, dtype=np.int32)
+    t15 = reg.device_table("cpu")
+    plain = comb.verify_comb_prepared(t15, *CC.from_prepared(kidx, prep, "cpu")).tolist()
+    t25 = arr(CC.to_radix25(t15.numpy()))
+    bcomb = arr(CC.bcomb_table25())
+    _, _, y_r, sign_r, s_b, h_b, _ = prep
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    lib.t_comb_verify.argtypes = [I32P, ctypes.c_longlong, ctypes.c_int, I32P, ctypes.c_int, u8, u8, I32P]
+    host = [
+        bool(lib.t_comb_verify(ptr(t25), t25.shape[0], int(kidx[j]), ptr(arr(y_r[j])), int(sign_r[j]),
+                               s_b[j].ctypes.data_as(u8), h_b[j].ctypes.data_as(u8), ptr(bcomb)))
+        for j in range(len(items))
+    ]
+    assert host == plain
+    want = [keys.verify(it.public_key, it.message, it.signature) for it in items]
+    assert [h and ok for h, ok in zip(host, prep[6])][:5] == want[:5]
+    assert any(host) and not all(host)

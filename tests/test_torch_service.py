@@ -159,6 +159,29 @@ def test_backend_failure_falls_back_to_cpu_and_is_counted():
     run(main())
 
 
+def test_card_verifier_raises_a_kernel_failure_instead_of_verifying_on_the_cpu(monkeypatch):
+    # a CudaBatchVerifier on the card, whose kernel launch is refused; the
+    # card itself is not touched (nothing is built or uploaded)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(BV.TorchBatchBackend, "warmup", lambda self: None)
+
+    def refused(*args, **kwargs):
+        raise RuntimeError("comb kernel launch refused")
+
+    monkeypatch.setattr(BV, "verify_batch", refused)
+
+    async def main():
+        v = CudaBatchVerifier(device="cuda", max_delay_s=0.0)
+        assert v.fallback is None
+        items = [VerifyItem(i.public_key, i.message, i.signature) for i in make_items(3)]
+        with pytest.raises(RuntimeError, match="launch refused"):
+            await v.verify_batch(items)
+        assert v.fallback_batches == 0 and v.items_verified == 0
+        await v.close()
+
+    run(main())
+
+
 def test_cluster_commits_through_the_port_service_and_drops_a_forged_grant():
     from tests.test_byzantine import write1_via_wire
 
