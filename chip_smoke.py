@@ -8,9 +8,9 @@ Phases (any failure exits non-zero and prints no result line):
 1. Device — the card's name, ``nvidia-smi`` name and power limit, compute
    capability, SM count, maximum SM clock, and the host's Ed25519 engine.
    No CUDA device: exit 2.
-2. Build — compile both kernels, ``mochi_tpu_torch/csrc/verify.cu`` and
-   ``comb.cu``, one nvcc each, started together; report ptxas's registers
-   and spills and each kernel's attributes.
+2. Build — compile every kernel, ``mochi_tpu_torch/csrc/verify.cu``,
+   ``comb.cu`` and ``tally.cu``, one nvcc each, started together; report
+   ptxas's registers and spills and each kernel's attributes.
 3. Kernel vs plain — an 8192-item corpus made from ``--seed``: valid
    signatures from 64 signers, forgeries, and adversarial encodings
    (low-order and mixed-order points, non-points, x = 0 with the sign bit,
@@ -55,10 +55,37 @@ Phases (any failure exits non-zero and prints no result line):
    the grants, and nothing may have fallen back to the CPU.  Each kernel is
    held against its plain version at every lane count it launched here.
 
-Phases 5, 8 and 9 drive the main path: each zeroes the launch counts just
-before it and reads them just after.  The last three lines of standard
-output are the kernel table (JSON), the ``nvidia-smi`` name/power-limit
-line, and ``{"ok": true, "device": ...}``.
+10. Sharded service — phase 8's traffic through
+   ``VerifierService(ShardedCudaBatchVerifier(signers=...))`` over every
+   visible card: every bitmap must equal the expected verdicts, every card
+   must have run comb launches, and nothing may have fallen back or crossed
+   over to the CPU; the idle share is recorded as in phases 5 and 8.  Then
+   the single-card and sharded verifiers serve the same traffic in turns,
+   for a comparison inside one run.
+11. Quorum step — ``parallel.make_quorum_step`` on the card, on the mesh of
+   every card and on two slices of one card: phase 3's certificate stream
+   (1,536 certificates x 43 grants = 66,048 lanes, group = certificate,
+   threshold 43, a seeded quarter of the certificates carrying 1-3 more
+   forged grants) with the two lanes the host rejects but the device accepts
+   appended (they must not be counted), and the north-star leg (4 slots x
+   64 voters, 30 forged votes in slot 3: counts [64, 64, 64, 34]).  The
+   counts must equal a numpy oracle of the reference's semantics; the tally
+   kernel must equal its plain version at every lane count it ran and on
+   ids that wrap and drop.  The tally and commit kernels and their library
+   calls are timed on the card alone, as the replay of a CUDA graph of 200
+   calls (an eager call of these kernels is bound by the host's
+   submission, which is kept as ``eager_ms``); the whole step on the host
+   clock.
+12. Multi-process — ``python -m mochi_tpu_torch.parallel.multihost
+   --backend nccl``, one process per visible card: each process's JSON line
+   must equal the closed form for its world size.
+
+Phases 5, 8, 9, 10 and 11 drive the main paths: each zeroes the launch
+counts just before it and reads them just after.  On a machine with several
+cards, phases 10-12 use every card, phase 11 also runs the step on card 0
+alone, and the idle share is recorded per card.  The last three lines of
+standard output are the kernel table (JSON), the ``nvidia-smi``
+name/power-limit line, and ``{"ok": true, "device": ...}``.
 
 To make tens of thousands of distinct valid signatures without a
 pure-Python base multiplication each, this script reuses a few nonces per
@@ -72,6 +99,8 @@ import argparse
 import asyncio
 import hashlib
 import json
+import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -93,6 +122,9 @@ CLIENTS, GRANTS, REQUESTS = 64, 43, 24  # n = 64 replicas, 2f + 1 grants, checks
 # per write); sized to take a minute or two.
 CLUSTER_N, CLUSTER_CLIENTS, CLUSTER_WRITES = 64, 8, 16
 PARTIAL = 37  # lanes short of a full last block in the partial-block check
+NS_SLOTS, NS_VOTERS, NS_FORGED = 4, 64, 30  # the north-star quorum leg: slot 3 loses 30 votes
+MULTIHOST_LANES = 8  # lanes per process of the multi-process leg
+HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's memory rate
 REPEATS = 20  # timed kernel launches at CORPUS lanes
 IMAD_PER_SM_PER_CLOCK = 64  # 32-bit integer multiply-add, compute capability 9.0
 
@@ -361,6 +393,170 @@ def make_traffic(seed: int, signers: List[Signer], clients: int, requests: int, 
     return out
 
 
+B_ENC = bytes.fromhex("5866666666666666666666666666666666666666666666666666666666666666")  # the basepoint
+
+
+def quorum_stream(traffic, seed: int, grants: int):
+    """The certificate stream of the traffic, wave by wave, as quorum-step
+    lanes: certificate c's grants are lanes c*grants .. c*grants+grants-1
+    and vote for slot c.  A seeded quarter of the certificates get 1-3 more
+    forged grants (a flipped bit in S of a grant that was valid).  Returns
+    (items, expected verdicts, group ids, the certificates so forged)."""
+    from mochi_tpu_torch.verifier.spi import VerifyItem
+
+    items, want = traffic_waves(traffic)
+    items, want = list(items), list(want)
+    n_certs = len(items) // grants
+    rng = np.random.default_rng(seed)
+    forged = sorted(rng.choice(n_certs, n_certs // 4, replace=False).tolist())
+    for c in forged:
+        valid = [j for j in range(grants) if want[c * grants + j]]
+        for j in rng.choice(valid, min(len(valid), 1 + _below(rng, 3)), replace=False):
+            k = c * grants + int(j)
+            it = items[k]
+            sig = it.signature[:32] + bytes([it.signature[32] ^ (1 << _below(rng, 8))]) + it.signature[33:]
+            items[k], want[k] = VerifyItem(it.public_key, it.message, sig), False
+    return items, want, np.repeat(np.arange(n_certs, dtype=np.int32), grants), forged
+
+
+def host_rejected_items(signer: Signer):
+    """Two lanes the host prechecks reject while their device lanes accept
+    (the host leaves h = 0 there, so the device checks only [S]B == R): A
+    the non-canonical y = p + 1 with R = B and S = 1, and a valid A with
+    R = B and S = L + 1."""
+    from mochi_tpu_torch.verifier.spi import VerifyItem
+
+    return [VerifyItem((P + 1).to_bytes(32, "little"), b"host-rejected 1", B_ENC + (1).to_bytes(32, "little")),
+            VerifyItem(signer.pub, b"host-rejected 2", B_ENC + (L + 1).to_bytes(32, "little"))]
+
+
+def north_star_votes(signers: List[Signer], slots: int = NS_SLOTS, voters: int = NS_VOTERS,
+                     forged_votes: int = NS_FORGED):
+    """The reference's north-star quorum leg: ``slots`` slots x ``voters``
+    voters (voter v signs as signer v), the first ``forged_votes`` votes of
+    the last slot signed over other bytes.  Returns (items, expected
+    verdicts, group ids)."""
+    from mochi_tpu_torch.verifier.spi import VerifyItem
+
+    items, want, gids = [], [], []
+    for g in range(slots):
+        for v in range(voters):
+            s = signers[v % len(signers)]
+            msg = b"ns vote g%d v%d" % (g, v)
+            sig = sign_with(s, (g + v) % NONCES_PER_SIGNER, msg)
+            forged = g == slots - 1 and v < forged_votes
+            items.append(VerifyItem(s.pub, b"ns FORGED g%d v%d" % (g, v) if forged else msg, sig))
+            want.append(not forged)
+            gids.append(g)
+    return items, want, np.asarray(gids, dtype=np.int32)
+
+
+def quorum_oracle(want, group_ids, n_groups: int) -> np.ndarray:
+    """The reference's tally on the expected verdicts, in numpy: accepted
+    lanes per slot (every id here lies in [0, n_groups))."""
+    return np.bincount(np.asarray(group_ids)[np.asarray(want, dtype=bool)], minlength=n_groups)
+
+
+def run_quorum_leg(mesh, prepared, group_ids, want, n_groups: int, threshold: int) -> dict:
+    """One quorum step over ``mesh``: pad to the mesh, dead lanes to slot
+    n_groups; raise unless the counts equal the oracle, the dead slot is
+    empty, the commits follow the threshold and the verdicts equal
+    ``want``.  Returns the counts and the step's wall-clock time."""
+    from mochi_tpu_torch.parallel import make_quorum_step, pad_to_multiple
+
+    n = len(group_ids)
+    arrays, m = pad_to_multiple((*prepared, np.asarray(group_ids, dtype=np.int32)), n, mesh.size,
+                                dead_group=n_groups)
+    step = make_quorum_step(mesh, n_groups + 1)
+    t0 = time.perf_counter()
+    bitmap, counts, committed = step(*arrays, threshold)
+    wall = time.perf_counter() - t0
+    oracle = quorum_oracle(want, group_ids, n_groups)
+    got = counts.numpy()
+    if bitmap.shape != (m,) or counts.shape != (n_groups + 1,) or committed.shape != (n_groups + 1,):
+        raise AssertionError(f"quorum step shapes {bitmap.shape} {counts.shape} {committed.shape}")
+    if bitmap[:n].numpy().tolist() != [bool(w) for w in want] or bitmap[n:].any():
+        raise AssertionError("quorum step verdicts differ from the expected ones")
+    if got[:n_groups].tolist() != oracle.tolist() or got[n_groups] != 0:
+        bad = np.flatnonzero(got[:n_groups] != oracle)[:5].tolist()
+        raise AssertionError(f"quorum counts differ from the oracle at slots {bad}")
+    if committed.numpy().tolist() != (got >= threshold).tolist():
+        raise AssertionError("committed does not follow the threshold")
+    return {"lanes": n, "padded_lanes": m, "slots": n_groups, "committed": int(committed[:n_groups].sum()),
+            "step_s": wall, "counts": got[:n_groups]}
+
+
+def check_tally_vs_plain(bitmap, pre_ok, group_ids, n_groups: int) -> int:
+    """The tally kernel and its plain version on the same card tensors: the
+    max abs difference of their counts (raises if not 0)."""
+    import torch
+
+    from mochi_tpu_torch.parallel import cuda_tally as CT
+    from mochi_tpu_torch.parallel.sharded import segment_tally
+
+    got = CT.quorum_tally(bitmap, pre_ok, group_ids, n_groups).to(torch.int64)
+    plain = segment_tally(bitmap, pre_ok, group_ids, n_groups).to(torch.int64)
+    err = int((got - plain).abs().max().item()) if n_groups else 0
+    if err:
+        raise AssertionError(f"tally kernel disagrees at {bitmap.shape[0]} lanes: max abs error {err}")
+    return err
+
+
+def multihost_expected(lanes: int, world: int) -> List[int]:
+    """The multi-process leg's counts in closed form: lane i of every process
+    votes for slot i % 3, lanes with i % 4 == 3 are forged."""
+    valid = [0, 0, 0]
+    for i in range(lanes):
+        if i % 4 != 3:
+            valid[i % 3] += 1
+    return [world * v for v in valid]
+
+
+def run_multihost(backend: str, nprocs: int, lanes: int = MULTIHOST_LANES, timeout_s: float = 300.0) -> List[dict]:
+    """Spawn ``python -m mochi_tpu_torch.parallel.multihost`` once per rank
+    (from this checkout; a rendezvous on a free loopback port) and return
+    each process's JSON line, in rank order.  Raises if any process fails;
+    every process is stopped before this returns."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "mochi_tpu_torch.parallel.multihost", "--coordinator", f"127.0.0.1:{port}",
+         "--num-processes", str(nprocs), "--process-id", str(i), "--lanes-per-process", str(lanes),
+         "--backend", backend],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for i in range(nprocs)]
+    try:
+        outs = [p.communicate(timeout=timeout_s) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs = []
+    for i, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"multihost process {i} exited {p.returncode}:\n{err[-3000:]}")
+        recs.append(json.loads(out.strip().splitlines()[-1]))
+    return recs
+
+
+def check_multihost(recs: List[dict], backend: str, lanes: int = MULTIHOST_LANES) -> List[int]:
+    """Every process of the multi-process leg must hold the closed-form
+    tally of the whole group; returns the expected counts."""
+    world = len(recs)
+    want = multihost_expected(lanes, world)
+    per_process = sum(1 for i in range(lanes) if i % 4 != 3)
+    for i, rec in enumerate(recs):
+        got = (rec["process_id"], rec["process_count"], rec["backend"], rec["counts"], rec["committed"],
+               rec["local_valid"], rec["comb_local_valid"])
+        if got != (i, world, backend, want, [c >= 3 for c in want], per_process, per_process):
+            raise AssertionError(f"multihost process {i}: {rec}, expected counts {want}")
+    return want
+
+
 # ------------------------------------------------------------------ phases
 
 
@@ -387,6 +583,50 @@ def _ms_median(fn, warmup: int, repeats: int) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _ms_per_call(fn, calls: int) -> float:
+    """Milliseconds per call of ``fn`` over a run of ``calls`` eager calls
+    back to back between two CUDA events (after one warm-up call): for a
+    kernel far shorter than its launch, the rate at which the host submits
+    it, not the card's time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def _graph_ms(fn, calls: int) -> float:
+    """Milliseconds per call of ``fn`` on the card alone: ``calls`` calls
+    captured in one CUDA graph (after an eager warm-up call, which loads the
+    kernel), the graph's replay timed with CUDA events, median of 5 replays.
+    The host's submission is out of the measurement."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -474,14 +714,18 @@ def device_busy(launch_log, ref0, ref1) -> dict:
 
 
 async def drive_service(traffic, device: str, secret: Optional[bytes], timeout_s: float = 300.0,
-                        signers=()) -> dict:
-    """Boot the verifier service on loopback (with ``signers`` as its known
+                        signers=(), make_verifier=None) -> dict:
+    """Boot the verifier service on loopback over ``make_verifier()`` (by
+    default ``CudaBatchVerifier(device)`` with ``signers`` as its known
     signers) and drive it from one RemoteVerifier per client, concurrently.
     Returns counts and times."""
     from mochi_tpu_torch.verifier.cuda import CudaBatchVerifier
     from mochi_tpu_torch.verifier.service import RemoteVerifier, VerifierService
 
-    verifier = CudaBatchVerifier(device=device, signers=list(signers))
+    if make_verifier is None:
+        verifier = CudaBatchVerifier(device=device, signers=list(signers))
+    else:
+        verifier = make_verifier()
     service = VerifierService(port=0, verifier=verifier, secret=secret)
     await service.start()
     remotes = [RemoteVerifier("127.0.0.1", service.bound_port, timeout_s=timeout_s, secret=secret)
@@ -597,47 +841,69 @@ def _zero_counts():
     from mochi_tpu_torch.crypto import batch_verify as BV
     from mochi_tpu_torch.crypto import cuda_comb as CC
     from mochi_tpu_torch.crypto import cuda_verify as CV
+    from mochi_tpu_torch.parallel import cuda_tally as CT
 
-    CV.launches = CC.launches = 0
+    CV.launches = CC.launches = CT.launches = CT.commit_launches = 0
     BV.reset_counts()
     CV.launch_log, CC.launch_log = [], []
 
 
 def _read_counts(out: dict):
     """Counts and traces read just after a main-path phase; returns the
-    (verify, comb) launch logs and turns tracing off."""
+    (verify, comb) launch logs and turns tracing off.  ``launches_by_card``
+    counts both verify kernels' launches on each card."""
     from mochi_tpu_torch.crypto import batch_verify as BV
     from mochi_tpu_torch.crypto import cuda_comb as CC
     from mochi_tpu_torch.crypto import cuda_verify as CV
+    from mochi_tpu_torch.parallel import cuda_tally as CT
 
     out["verify_launches"] = CV.launches
     out["comb_launches"] = CC.launches
+    out["tally_launches"] = CT.launches
+    out["commit_launches"] = CT.commit_launches
     out["device_items"] = BV.device_item_count()
     out["device_dispatches"] = BV.device_dispatch_count()
     out["routing"] = BV.comb_routing_counts()
     logs = (CV.launch_log, CC.launch_log)
     CV.launch_log = CC.launch_log = None
+    by_card: dict = {}
+    for _, start, _ in logs[0] + logs[1]:
+        by_card[f"cuda:{start.device.index}"] = by_card.get(f"cuda:{start.device.index}", 0) + 1
+    out["launches_by_card"] = by_card
     return logs
 
 
 def _drive(coro_fn, out_key: str, res: dict):
-    """Run one main-path phase between two card events, with the counts
-    zeroed just before and read just after; the kernel-busy share is the
-    union of both kernels' logged launches over the phase's span."""
+    """Run one main-path phase between two events on every card, with the
+    counts zeroed just before and read just after; a card's kernel-busy
+    share is the union of both kernels' logged launches on it over the
+    phase's span ("device" is card 0's; "by_card" each card's, when there
+    are several)."""
     import torch
 
-    ref0, ref1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
+    cards = range(torch.cuda.device_count())
+    refs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in cards]
+    for i in cards:
+        torch.cuda.synchronize(i)
     _zero_counts()
-    ref0.record()
+    for i in cards:
+        refs[i][0].record(torch.cuda.current_stream(i))
     out = asyncio.run(coro_fn())
     logs = _read_counts(out)
-    torch.cuda.synchronize()
-    ref1.record()
-    ref1.synchronize()
-    out["device"] = device_busy(logs[0] + logs[1], ref0, ref1)
-    out["device"]["verify_kernel"] = device_busy(logs[0], ref0, ref1)["launch_ms_by_lanes"]
-    out["device"]["comb_kernel"] = device_busy(logs[1], ref0, ref1)["launch_ms_by_lanes"]
+    for i in cards:
+        torch.cuda.synchronize(i)
+        refs[i][1].record(torch.cuda.current_stream(i))
+        refs[i][1].synchronize()
+
+    def busy(log, card: int) -> dict:
+        # events of different cards cannot be compared: one card at a time
+        return device_busy([ln for ln in log if ln[1].device.index == card], *refs[card])
+
+    out["device"] = busy(logs[0] + logs[1], 0)
+    out["device"]["verify_kernel"] = busy(logs[0], 0)["launch_ms_by_lanes"]
+    out["device"]["comb_kernel"] = busy(logs[1], 0)["launch_ms_by_lanes"]
+    if len(cards) > 1:
+        out["device"]["by_card"] = {f"cuda:{i}": busy(logs[0] + logs[1], i) for i in cards}
     res[out_key] = out
     print(f"[{out_key}] {out}", flush=True)
     return out, logs
@@ -653,6 +919,7 @@ def run(args) -> dict:
     from mochi_tpu_torch.crypto import cuda_verify as CV
     from mochi_tpu_torch.crypto import curve
     from mochi_tpu_torch.crypto import keys
+    from mochi_tpu_torch.parallel import cuda_tally as CT
 
     res: dict = {}
     dev = torch.device("cuda", 0)
@@ -675,9 +942,10 @@ def run(args) -> dict:
     took = kernels.build_all()
     res["build_s"] = time.perf_counter() - t0
     res["build_s_by_kernel"] = took
-    res["kernel_attributes"] = {"verify": CV.kernel_attributes(), "comb": CC.kernel_attributes()}
+    res["kernel_attributes"] = {"verify": CV.kernel_attributes(), "comb": CC.kernel_attributes(),
+                                "tally": CT.kernel_attributes()}
     print(f"[build] {res['build_s']:.1f} s {took}; {res['kernel_attributes']}", flush=True)
-    for name in ("verify", "comb"):
+    for name in ("verify", "comb", "tally"):
         for ln in kernels.build_logs.get(name, "").splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"[build] ptxas {name}: {ln.strip()}", flush=True)
@@ -689,6 +957,7 @@ def run(args) -> dict:
     items, want, kinds = make_corpus(args.seed, CORPUS, signers)
     traffic = make_traffic(args.seed + 1, signers, clients=CLIENTS, requests=REQUESTS, grants=GRANTS)
     res["corpus_s"] = time.perf_counter() - t0
+    secret = hashlib.sha256(b"chip smoke %d" % args.seed).digest()
     prepared = BV.prepare_packed(items)
     pre_ok = prepared[6]
     tens = CV.from_reference_prepared(prepared, dev)
@@ -755,7 +1024,6 @@ def run(args) -> dict:
     print(f"[times] {res['times']}", flush=True)
 
     # 5. service: the main path of the general kernel
-    secret = hashlib.sha256(b"chip smoke %d" % args.seed).digest()
     svc, (vlog, _) = _drive(lambda: drive_service(traffic, "cuda", secret), "service", res)
     svc["kernel_launches"] = svc["verify_launches"]
     svc["launches_per_request"] = svc["kernel_launches"] / svc["requests"]
@@ -779,17 +1047,17 @@ def run(args) -> dict:
         raise AssertionError("; ".join(problems))
 
     # 6. comb vs plain on the card: registered signers
+    t0 = time.perf_counter()
     reg = comb.SignerRegistry(dev)
     reg.register_all([s.pub for s in signers])
     table25 = reg.device_table(dev)
     table15 = torch.from_numpy(reg.host_table()).to(dev)
-    table_mismatch = check_table_radix(table25, table15)
-    t0 = time.perf_counter()
     citems, cwant, ckinds = make_comb_corpus(args.seed + 3, CORPUS, signers)
-    res["comb_corpus_s"] = time.perf_counter() - t0
     cprep = BV.prepare_packed(citems)
     kidx = np.asarray([reg.index_of(it.public_key) for it in citems], dtype=np.int32)
     lanes = CC.from_prepared(kidx, cprep, dev)
+    res["comb_corpus_s"] = time.perf_counter() - t0
+    table_mismatch = check_table_radix(table25, table15)
     cgot = CC.verify_comb_prepared(table25, *lanes).cpu().numpy()
     cfinal = np.logical_and(cgot, cprep[6])
     cwrong = [k for k, g, w in zip(ckinds, cfinal, cwant) if bool(g) != w]
@@ -844,11 +1112,17 @@ def run(args) -> dict:
     }
     print(f"[comb times] {res['comb_times']}", flush=True)
 
+    def check_comb(lane_counts):
+        """The comb kernel against its plain version at each lane count a
+        main path launched that was not checked yet."""
+        for n in sorted(set(lane_counts) - set(ccheck)):
+            ccheck[n] = _check_comb_at(n, table25, table15, lanes, big_lanes, cprep[6], cwant)
+
     # 8. service with known signers: every grant takes the comb kernel
     pubs = [s.pub for s in signers]
-    svc2, (_, clog) = _drive(lambda: drive_service(traffic, "cuda", secret, signers=pubs), "service_signers", res)
-    for n in sorted({n for n, _, _ in clog} - set(ccheck)):
-        ccheck[n] = _check_comb_at(n, table25, table15, lanes, big_lanes, cprep[6], cwant)
+    svc2, (_, clog) = _drive(lambda: drive_service(traffic, "cuda", secret, signers=pubs), "service_signers",
+                                res)
+    check_comb(n for n, _, _ in clog)
     problems = []
     if svc2["mismatched_requests"]:
         problems.append(f"{svc2['mismatched_requests']} bitmaps differ from the expected verdicts")
@@ -862,9 +1136,8 @@ def run(args) -> dict:
 
     # 9. the cluster: the system's main path
     cl, (vlog2, clog2) = _drive(lambda: drive_cluster("cuda", CLUSTER_N, CLUSTER_CLIENTS, CLUSTER_WRITES),
-                                "cluster", res)
-    for n in sorted({n for n, _, _ in clog2} - set(ccheck)):
-        ccheck[n] = _check_comb_at(n, table25, table15, lanes, big_lanes, cprep[6], cwant)
+                                   "cluster", res)
+    check_comb(n for n, _, _ in clog2)
     for n in sorted({n for n, _, _ in vlog2} - set(checked)):
         checked[n] = check_kernel_vs_plain([t[:n] for t in big_t], big[6][:n], flat_want[:n])
     cl["comb_lane_counts_checked_vs_plain"] = sorted({n for n, _, _ in clog2})
@@ -879,6 +1152,10 @@ def run(args) -> dict:
             problems.append(f"cluster: {key} = {cl[key]}")
     if problems:
         raise AssertionError("; ".join(problems))
+
+    # 10-12. several cards: the sharded service, the quorum step, NCCL
+    qres = sharded_phases(args.seed, res, traffic, signers, secret, dev, check_comb)
+    q_tally = qres["tally"]
 
     res["kernels"] = [{
         "name": "ed25519_verify",
@@ -904,8 +1181,212 @@ def run(args) -> dict:
         "bound_ms": cbound(len(citems)),
         "bound_by": res["comb_times"]["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "quorum_tally",
+        "route": "cuda",
+        "source": "mochi_tpu_torch/csrc/tally.cu",
+        "replaces": "mochi_tpu/parallel/sharded.py:216",
+        "launches": qres["launches"]["tally"],
+        "max_abs_err": q_tally["max_abs_err"],
+        "ms": q_tally["ms"],
+        "plain_ms": q_tally["plain_ms"],
+        "bound_ms": q_tally["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": q_tally["library_ms"],
+    }, {
+        "name": "quorum_commit",
+        "route": "cuda",
+        "source": "mochi_tpu_torch/csrc/tally.cu",
+        "replaces": "mochi_tpu/parallel/sharded.py:220",
+        "launches": qres["launches"]["commit"],
+        "max_abs_err": qres["commit"]["max_abs_err"],
+        "ms": qres["commit"]["ms"],
+        "plain_ms": qres["commit"]["plain_ms"],
+        "bound_ms": qres["commit"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": qres["commit"]["library_ms"],
     }]
     return res
+
+
+def sharded_phases(seed: int, res: dict, traffic, signers: List[Signer], secret: bytes, dev, check_comb) -> dict:
+    """Phases 10-12 over every visible card (see the module docstring);
+    ``check_comb(lane_counts)`` holds the comb kernel against its plain
+    version at the lane counts the sharded service launched.  Returns the
+    quorum step's record."""
+    import torch
+
+    from mochi_tpu_torch.verifier.cuda import CudaBatchVerifier, ShardedCudaBatchVerifier
+
+    # 10. the sharded service: phase 8's traffic split over every card
+    pubs = [s.pub for s in signers]
+    n_cards = torch.cuda.device_count()
+    svc3, (_, clog3) = _drive(
+        lambda: drive_service(traffic, "cuda", secret, make_verifier=lambda: ShardedCudaBatchVerifier(signers=pubs)),
+        "sharded_service", res)
+    check_comb(n for n, _, _ in clog3)
+    svc3["cards"] = n_cards
+    problems = []
+    if svc3["mismatched_requests"]:
+        problems.append(f"{svc3['mismatched_requests']} bitmaps differ from the expected verdicts")
+    if svc3["comb_launches"] <= 0 or svc3["routing"]["comb_items"] != svc3["items"]:
+        problems.append(f"comb launches {svc3['comb_launches']}, routing {svc3['routing']} for {svc3['items']} items")
+    idle_cards = [i for i in range(n_cards) if svc3["launches_by_card"].get(f"cuda:{i}", 0) <= 0]
+    if idle_cards:
+        problems.append(f"no comb launches on cards {idle_cards}: {svc3['launches_by_card']}")
+    for key in ("fallback_batches", "crossover_batches", "remote_fallbacks", "verify_launches"):
+        if svc3[key]:
+            problems.append(f"sharded service: {key} = {svc3[key]}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    # the host-bound drives vary between runs: the sharded and single-card
+    # verifiers again, in turns, on the same traffic
+    turns = []
+    for name, make in (("single card", lambda: CudaBatchVerifier(signers=pubs)),
+                       ("sharded", lambda: ShardedCudaBatchVerifier(signers=pubs)),
+                       ("single card", lambda: CudaBatchVerifier(signers=pubs))):
+        r = asyncio.run(drive_service(traffic, "cuda", secret, make_verifier=make))
+        if r["mismatched_requests"] or r["fallback_batches"]:
+            raise AssertionError(f"{name} turn: {r}")
+        turns.append({"verifier": name, **{k: r[k] for k in ("items_per_s", "p50_ms", "p99_ms", "wall_s")}})
+    svc3["turns_after"] = turns
+    print(f"[sharded service] turns {turns}", flush=True)
+
+    # 11. the quorum step on the card
+    qres = quorum_phase(seed, traffic, signers, dev, res)
+
+    # 12. several processes, one card each, one NCCL group
+    t0 = time.perf_counter()
+    recs = run_multihost("nccl", n_cards)
+    want_mh = check_multihost(recs, "nccl")
+    res["multihost"] = {"processes": n_cards, "expected_counts": want_mh, "records": recs,
+                        "seconds": time.perf_counter() - t0}
+    print(f"[multihost] {res['multihost']}", flush=True)
+    return qres
+
+
+def quorum_phase(seed: int, traffic, signers: List[Signer], dev, res: dict) -> dict:
+    """Phase 11: the quorum step on the mesh of every card and on two slices
+    of one card (see the module docstring).  A certificate carries 2f+1
+    grants, so the threshold is the traffic's grants per check.  Records
+    into ``res["quorum"]`` and returns it."""
+    import torch
+
+    from mochi_tpu_torch.crypto import batch_verify as BV
+    from mochi_tpu_torch.crypto import cuda_verify as CV
+    from mochi_tpu_torch.parallel import cuda_tally as CT
+    from mochi_tpu_torch.parallel import make_mesh
+    from mochi_tpu_torch.parallel.sharded import commit, segment_tally
+
+    ns = (NS_SLOTS, NS_VOTERS, NS_FORGED)
+    grants = threshold = len(traffic[0][0][0])
+    t0 = time.perf_counter()
+    qitems, qwant, qgids, forged = quorum_stream(traffic, seed + 5, grants)
+    n_stream, n_certs = len(qitems), len(qitems) // grants
+    full = [c for c in range(n_certs) if all(qwant[c * grants:(c + 1) * grants])]
+    qitems = qitems + host_rejected_items(signers[0])  # voting for an all-valid certificate
+    qwant = qwant + [False, False]
+    qgids = np.concatenate([qgids, [full[0], full[0]]]).astype(np.int32)
+    ns_items, ns_want, ns_gids = north_star_votes(signers, *ns)
+    qprep, nsprep = BV.prepare_packed(qitems), BV.prepare_packed(ns_items)
+    make_s = time.perf_counter() - t0
+
+    # the two host-rejected lanes: the device accepts them, the host does not
+    raw = CV.verify_prepared_packed(*CV.from_reference_prepared(qprep, dev))
+    raw_tail = raw[-2:].cpu().tolist()
+    if raw_tail != [True, True] or qprep[6][-2:].tolist() != [False, False]:
+        raise AssertionError(f"host-rejected lanes: device {raw_tail}, host {qprep[6][-2:].tolist()}")
+
+    meshes = {"all cards": make_mesh(), "two slices of cuda:0": make_mesh(devices=["cuda:0", "cuda:0"])}
+    if torch.cuda.device_count() > 1:
+        meshes["cuda:0 alone"] = make_mesh(devices=["cuda:0"])
+    first_mesh = next(iter(meshes))
+    legs = {"certificate stream": (qprep, qgids, qwant, n_certs),
+            "north star": (nsprep, ns_gids, ns_want, ns[0])}
+    out: dict = {"certificates": n_certs, "lanes": len(qitems), "forged_certificates": len(forged),
+                 "all_valid_certificates": len(full), "host_rejected_lanes_device_verdict": raw_tail,
+                 "seconds_to_make": make_s}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    _zero_counts()
+    legs_out, tally_lanes = {}, set()
+    for mname, mesh in meshes.items():
+        for lname, (prep, gids, want, n_groups) in legs.items():
+            leg = legs_out[f"{lname} / {mname}"] = run_quorum_leg(mesh, prep, gids, want, n_groups, threshold)
+            tally_lanes.add(leg["padded_lanes"] // mesh.size)  # the lanes of each slice's tally
+    counts_out: dict = {}
+    _read_counts(counts_out)
+    out["launches"] = {"verify": counts_out["verify_launches"], "tally": counts_out["tally_launches"],
+                       "commit": counts_out["commit_launches"], "by_card": counts_out["launches_by_card"]}
+    if dev.type == "cuda" and min(out["launches"]["verify"], out["launches"]["tally"],
+                                  out["launches"]["commit"]) <= 0:
+        raise AssertionError(f"the quorum step did not run every kernel: {out['launches']}")
+    ns_counts = legs_out[f"north star / {first_mesh}"]["counts"].tolist()
+    if ns_counts != [ns[1]] * (ns[0] - 1) + [ns[1] - ns[2]]:
+        raise AssertionError(f"north-star counts {ns_counts}")
+    stream = legs_out[f"certificate stream / {first_mesh}"]["counts"]
+    if any(stream[c] != grants for c in full) or any(stream[c] >= threshold for c in forged):
+        raise AssertionError("an all-valid certificate did not commit, or a forged one did")
+    for v in legs_out.values():
+        v["counts"] = v["counts"].tolist() if len(v["counts"]) <= ns[0] else "equal to the oracle"
+    out["legs"] = legs_out
+
+    # the tally kernel against its plain version at every lane count it ran,
+    # and on ids that wrap and drop
+    ok_dev = torch.from_numpy(qprep[6]).to(dev)
+    ids_dev = torch.from_numpy(qgids).to(dev)
+    g = n_certs + 1
+    checked = {n: check_tally_vs_plain(raw[:n], ok_dev[:n], ids_dev[:n], g) for n in sorted(tally_lanes)}
+    wild = torch.from_numpy(np.random.default_rng(seed + 6).integers(-2 * g, 2 * g, len(qgids)).astype(np.int32))
+    wild_err = check_tally_vs_plain(raw, ok_dev, wild.to(dev), g)
+
+    # times at the certificate stream's 66,048 lanes
+    b, o, i = raw[:n_stream], ok_dev[:n_stream], ids_dev[:n_stream]
+    votes = (b & o).to(torch.int32)
+    counts_k = CT.quorum_tally(b, o, i, g)
+    lib = torch.zeros(g, dtype=torch.int32, device=dev).index_add_(0, i, votes)
+    if not torch.equal(lib, counts_k):
+        raise AssertionError("index_add_ and the tally kernel disagree")
+    # "ms" is the card's time per call (a CUDA graph's replay); "eager_ms"
+    # the host's rate of eager calls, which these short kernels are bound by
+    def tally_k():
+        return CT.quorum_tally(b, o, i, g)
+
+    def tally_lib():
+        return torch.zeros(g, dtype=torch.int32, device=dev).index_add_(0, i, votes)
+
+    tally = {
+        "lanes": n_stream, "slots": g, "max_abs_err": max([wild_err, *checked.values()]),
+        "lane_counts_checked": sorted(checked), "wrap_and_drop_ids_max_abs_err": wild_err,
+        "ms": _graph_ms(tally_k, 200), "eager_ms": _ms_per_call(tally_k, 200),
+        "plain_ms": _graph_ms(lambda: segment_tally(b, o, i, g), 5),
+        "library_ms": _graph_ms(tally_lib, 200), "library_eager_ms": _ms_per_call(tally_lib, 200),
+        "library_call": "torch.zeros(slots).index_add_(0, group_ids, votes)",
+        "bound_ms": 1e3 * (n_stream * CT.BYTES_PER_LANE + g * 4) / HBM_BYTES_PER_S,
+    }
+    committed_k = CT.quorum_commit(counts_k, threshold)
+    c_err = int((committed_k.to(torch.int64) - commit(counts_k, threshold).to(torch.int64)).abs().max().item())
+    if c_err:
+        raise AssertionError("the commit kernel disagrees with its plain version")
+    out["commit"] = {
+        "slots": g, "max_abs_err": c_err,
+        "ms": _graph_ms(lambda: CT.quorum_commit(counts_k, threshold), 200),
+        "eager_ms": _ms_per_call(lambda: CT.quorum_commit(counts_k, threshold), 200),
+        "plain_ms": _graph_ms(lambda: commit(counts_k, threshold), 200),
+        "library_ms": _graph_ms(lambda: torch.ge(counts_k, threshold), 200),
+        "library_call": "torch.ge(counts, threshold)",
+        "bound_ms": 1e3 * g * (4 + 1) / HBM_BYTES_PER_S,
+    }
+    out["tally"] = tally
+    # the whole step (host prepare excluded: inputs already packed), host clock
+    step_s = {}
+    for mname, mesh in meshes.items():
+        walls = [run_quorum_leg(mesh, qprep, qgids, qwant, n_certs, threshold)["step_s"] for _ in range(3)]
+        step_s[mname] = {"median_ms": 1e3 * statistics.median(walls), "runs_ms": [1e3 * w for w in walls]}
+    out["step_ms"] = step_s
+    res["quorum"] = out
+    print(f"[quorum] {out}", flush=True)
+    return out
 
 
 def _check_comb_at(n, table25, table15, lanes, big_lanes, pre_ok, want) -> int:

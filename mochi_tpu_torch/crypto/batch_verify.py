@@ -244,19 +244,21 @@ def comb_enabled() -> bool:
 _streams: dict = {}
 
 
-def _thread_stream(device: torch.device) -> torch.cuda.Stream:
-    """One CUDA stream per (thread, device), so concurrent callers overlap."""
-    key = (threading.get_ident(), str(device))
+def _thread_stream(device: torch.device, k: int = 0) -> torch.cuda.Stream:
+    """One CUDA stream per (thread, device, slice ``k``), so concurrent
+    callers, and the slices of one sharded batch on one card, overlap."""
+    key = (threading.get_ident(), str(device), k)
     s = _streams.get(key)
     if s is None:
         s = _streams[key] = torch.cuda.Stream(device=device)
     return s
 
 
-def _dispatch(prepared, device: torch.device, key_idx=None, table=None):
+def _dispatch(prepared, device: torch.device, key_idx=None, table=None, k: int = 0):
     """Send one prepared chunk to the device and launch; no readback.
     With ``key_idx`` and ``table`` (the comb table pinned at routing time)
-    the comb kernel runs, else the general kernel.  Returns (bitmap or
+    the comb kernel runs, else the general kernel.  On a card it runs on
+    the stream of (this thread, ``device``, slice ``k``).  Returns (bitmap or
     None, stream, what must stay alive until readback, pre_ok)."""
     *arrays, pre_ok = prepared
     if not pre_ok.any():
@@ -272,8 +274,8 @@ def _dispatch(prepared, device: torch.device, key_idx=None, table=None):
     if device.type == "cpu":
         return kernel(*host), None, None, pre_ok
     hosts = [h.pin_memory() for h in host]
-    stream = _thread_stream(device)
-    with torch.cuda.stream(stream):
+    stream = _thread_stream(device, k)
+    with torch.cuda.device(device), torch.cuda.stream(stream):
         bitmap = kernel(*(h.to(device, non_blocking=True) for h in hosts))
     # The pinned inputs and the pinned comb table stay referenced until the
     # readback synchronises: a registration that rebuilds the registry's
@@ -281,15 +283,15 @@ def _dispatch(prepared, device: torch.device, key_idx=None, table=None):
     return bitmap, stream, (hosts, table), pre_ok
 
 
-def _readback(launched) -> List[bool]:
+def _readback(launched) -> np.ndarray:
     """Block on one launched chunk (a synchronising copy on the stream it
-    ran on) and AND the bitmap with the host prechecks."""
+    ran on) and AND the bitmap with the host prechecks: (n,) bool."""
     bitmap, stream, _hosts, pre_ok = launched
     if bitmap is None:  # all-rejected chunk: no device work was done
-        return [False] * len(pre_ok)
+        return np.zeros(len(pre_ok), dtype=bool)
     with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
         host = bitmap.cpu().numpy()
-    return [bool(b) for b in np.logical_and(host, pre_ok)]
+    return np.logical_and(host, pre_ok)
 
 
 def verify_batch(items: Sequence[VerifyItem], device="cuda", registry=None,
@@ -329,7 +331,7 @@ def verify_batch(items: Sequence[VerifyItem], device="cuda", registry=None,
         launched.append(_dispatch(prepare_packed(chunk), device))
     out: List[bool] = [False] * len(items)
     for j, ok in zip(comb_pos + gen_pos, (ok for chunk in launched for ok in _readback(chunk))):
-        out[j] = ok
+        out[j] = bool(ok)
     return out
 
 
@@ -395,4 +397,8 @@ class TorchBatchBackend:
             with self._lock:
                 self.crossover_batches += 1
             return [_keys.verify(it.public_key, it.message, it.signature) for it in items]
+        return self._verify(items)
+
+    def _verify(self, items: Sequence[VerifyItem]) -> List[bool]:
+        """The device path of one batch (a sharded backend overrides it)."""
         return verify_batch(items, self.device, self.registry)

@@ -27,7 +27,8 @@ rejects unMAC'd requests; a client with a secret rejects unMAC'd responses
 (falling back to LOCAL CPU verification, never to trusting the network).
 
 Run:  ``python -m mochi_tpu_torch.verifier.service --port 18200 [--secret-file f]``
-(on the card; ``--backend cpu`` verifies on the host instead).  The HTTP
+(on the card; ``--backend cuda-sharded`` splits every batch over all the
+visible cards; ``--backend cpu`` verifies on the host instead).  The HTTP
 status endpoint (``--admin-port``) is not part of this package yet.
 """
 
@@ -268,6 +269,17 @@ async def amain(args) -> None:
         verifier = CpuVerifier()
         if signers:
             verifier.register_signers(signers)
+    elif args.backend == "cuda-sharded":
+        from .cuda import ShardedCudaBatchVerifier
+
+        t0 = time.time()
+        verifier = ShardedCudaBatchVerifier(signers=signers)
+        LOG.info(
+            "sharded verifier over %d devices (warmup %.1fs, %d known signers)",
+            verifier.backend.n_devices,
+            time.time() - t0,
+            len(signers),
+        )
     else:
         from .cuda import CudaBatchVerifier
 
@@ -300,10 +312,11 @@ def main(argv=None) -> None:
     parser.add_argument("--port", type=int, default=18200)
     parser.add_argument(
         "--backend",
-        choices=("cuda", "cpu"),
+        choices=("cuda", "cuda-sharded", "cpu"),
         default="cuda",
-        help="cuda: the CUDA verify kernel on the card (the default; fails "
-        "when no card is present); cpu: host verification per item",
+        help="cuda: the CUDA kernels on one card (the default; fails "
+        "when no card is present); cuda-sharded: each batch split over "
+        "every visible card (fails likewise); cpu: host verification per item",
     )
     parser.add_argument(
         "--secret-file",

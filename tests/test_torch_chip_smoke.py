@@ -165,3 +165,91 @@ def test_cluster_drive_counts_on_cpu():
     routed = BV.comb_routing_counts()
     assert routed["comb_items"] >= 4 * 5 and BV.comb_dispatch_count() > 0
     assert CV.launches == CC.launches == 0  # the plain versions on the CPU launch no kernel
+
+
+# ------------------------------------------- multi-device phases (10-12)
+
+
+def test_quorum_stream_forges_a_quarter_of_the_certificates(signers):
+    traffic = cs.make_traffic(21, signers, clients=4, requests=2, grants=5, forge_rate=0.0)
+    items, want, gids, forged = cs.quorum_stream(traffic, 3, 5)
+    flat, flat_want = cs.traffic_waves(traffic)
+    assert len(items) == 40 and gids.tolist() == [c for c in range(8) for _ in range(5)]
+    assert len(forged) == 2 and all(flat_want)
+    changed = [k for k in range(40) if items[k] != flat[k]]
+    assert 2 <= len(changed) <= 6 and {k // 5 for k in changed} == set(forged)
+    assert [keys.verify(i.public_key, i.message, i.signature) for i in items] == want
+    assert [k for k, w in enumerate(want) if not w] == changed
+    counts = cs.quorum_oracle(want, gids, 8)
+    assert [c for c in range(8) if counts[c] == 5] == [c for c in range(8) if c not in forged]
+
+
+def test_north_star_votes_and_host_rejected_items(signers):
+    items, want, gids = cs.north_star_votes(signers, slots=2, voters=6, forged_votes=3)
+    assert gids.tolist() == [0] * 6 + [1] * 6 and want == [True] * 6 + [False] * 3 + [True] * 3
+    assert [keys.verify(i.public_key, i.message, i.signature) for i in items] == want
+    assert cs.quorum_oracle(want, gids, 2).tolist() == [6, 3]
+    bad = cs.host_rejected_items(signers[0])
+    assert [keys.verify(i.public_key, i.message, i.signature) for i in bad] == [False, False]
+    prepared = BV.prepare_packed(bad)
+    assert prepared[6].tolist() == [False, False]
+    assert CV.verify_prepared_packed(*CV.from_reference_prepared(prepared, "cpu")).tolist() == [True, True]
+
+
+def test_quorum_phase_rehearsal_on_cpu(signers, monkeypatch):
+    """Phase 11 at a small size: its cards become CPU slices, its north-star
+    leg shrinks, and the CUDA timers stand aside."""
+    import mochi_tpu_torch.parallel as P
+
+    real_make_mesh = P.make_mesh
+    monkeypatch.setattr(P, "make_mesh", lambda devices=None: real_make_mesh(
+        devices=["cpu"] if devices is None else ["cpu"] * len(devices)))
+    monkeypatch.setattr(cs, "NS_SLOTS", 2)
+    monkeypatch.setattr(cs, "NS_VOTERS", 6)
+    monkeypatch.setattr(cs, "NS_FORGED", 3)
+    monkeypatch.setattr(cs, "_graph_ms", lambda fn, calls: 0.0)
+    monkeypatch.setattr(cs, "_ms_per_call", lambda fn, calls: 0.0)
+    traffic = cs.make_traffic(23, signers, clients=2, requests=2, grants=5, forge_rate=0.0)
+    res = {}
+    out = cs.quorum_phase(7, traffic, signers, torch.device("cpu"), res)
+    assert res["quorum"] is out and out["certificates"] == 4 and out["lanes"] == 22
+    assert out["forged_certificates"] == 1 and out["host_rejected_lanes_device_verdict"] == [True, True]
+    assert out["legs"]["north star / two slices of cuda:0"]["counts"] == [6, 3]
+    assert out["legs"]["certificate stream / all cards"]["committed"] == 3
+    assert out["tally"]["lane_counts_checked"] == [6, 11, 12, 22]
+    assert out["tally"]["max_abs_err"] == 0 and out["commit"]["max_abs_err"] == 0
+    assert out["launches"]["tally"] == out["launches"]["commit"] == 0  # the plain versions launch nothing
+
+
+def test_tally_check_raises_on_a_wrong_count(monkeypatch):
+    from mochi_tpu_torch.parallel import cuda_tally as CT
+
+    b = torch.ones(6, dtype=torch.bool)
+    ids = torch.tensor([0, 1, 2, -1, 5, 2], dtype=torch.int32)
+    assert cs.check_tally_vs_plain(b, b, ids, 3) == 0
+    monkeypatch.setattr(CT, "quorum_tally", lambda *a: torch.tensor([1, 1, 4], dtype=torch.int32))
+    with pytest.raises(AssertionError, match="max abs error 1"):
+        cs.check_tally_vs_plain(b, b, ids, 3)
+
+
+def test_sharded_service_drive_counts_on_cpu(signers):
+    from mochi_tpu_torch.verifier.cuda import ShardedCudaBatchVerifier
+
+    traffic = cs.make_traffic(17, signers, clients=3, requests=2, grants=5)
+    pubs = [s.pub for s in signers]
+    BV.reset_counts()
+    svc = asyncio.run(asyncio.wait_for(cs.drive_service(
+        traffic, "cpu", b"k" * 32,
+        make_verifier=lambda: ShardedCudaBatchVerifier(devices=["cpu", "cpu"], signers=pubs)), 240))
+    assert svc["requests"] == 6 and svc["items"] == 30 and svc["mismatched_requests"] == 0
+    assert BV.comb_routing_counts()["comb_items"] == 30 and BV.device_item_count() == 30
+    assert svc["fallback_batches"] == svc["crossover_batches"] == svc["remote_fallbacks"] == 0
+
+
+def test_multihost_leg_on_cpu_with_gloo():
+    recs = cs.run_multihost("gloo", 1, lanes=8, timeout_s=240)
+    assert cs.check_multihost(recs, "gloo") == [2, 2, 2]
+    assert cs.multihost_expected(8, 4) == [8, 8, 8]
+    wrong = [dict(recs[0], counts=[2, 2, 1])]
+    with pytest.raises(AssertionError, match="expected counts"):
+        cs.check_multihost(wrong, "gloo")

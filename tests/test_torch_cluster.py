@@ -23,6 +23,11 @@ from mochi_tpu_torch.verifier.cuda import CudaBatchVerifier
 from mochi_tpu_torch.verifier.spi import verifier_stats
 
 
+# The SDK request timeout for a cluster whose replicas verify on the plain
+# PyTorch versions (see the 16-replica test).
+PLAIN_PATH_TIMEOUT_S = 240.0
+
+
 def run(coro, timeout=300):
     return asyncio.run(asyncio.wait_for(coro, timeout))
 
@@ -72,7 +77,13 @@ def test_scripted_run_commits_what_the_reference_commits():
 def test_sixteen_replicas_verify_their_certificates_on_the_comb_path():
     """n = 16, rf = 16 (f = 5, 11-grant certificates); all replicas share one
     CudaBatchVerifier on the CPU, which registers the cluster's identities
-    at boot and is closed once."""
+    at boot and is closed once.
+
+    The client's request timeout is sized to the plain versions: every
+    replica checks the Write2 certificate through the plain PyTorch comb,
+    16 x 11 lanes, which takes about a second on an idle host and tens of
+    seconds on a loaded one.  With the SDK's 10 s default no replica
+    answered the Write2 in time under a parallel test run."""
     verifier = CudaBatchVerifier(device="cpu")
     closes = []
     real_close = verifier.close
@@ -87,7 +98,7 @@ def test_sixteen_replicas_verify_their_certificates_on_the_comb_path():
         before = BV.comb_routing_counts()["comb_items"]
         async with VirtualCluster(16, rf=16, verifier_factory=lambda: verifier) as vc:
             assert vc.config.quorum == 11
-            client = vc.client()
+            client = vc.client(timeout_s=PLAIN_PATH_TIMEOUT_S)
             await client.execute_write_transaction(TransactionBuilder().write("k16", b"v16").build())
             res = await client.execute_read_transaction(TransactionBuilder().read("k16").build())
             assert _outcome(res) == [(b"v16", True, 11)]

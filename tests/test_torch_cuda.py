@@ -1,4 +1,4 @@
-"""The CUDA kernels (general verify and comb) on the card.
+"""The CUDA kernels (general verify, comb, quorum tally) on the card.
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA card and
 skips elsewhere.  On the card (this file imports no JAX, so the JAX-bound
@@ -137,3 +137,118 @@ def test_routed_mixed_batch_on_the_card(card, comb_setup):
     after = BV.comb_routing_counts()
     assert after["comb_items"] - before["comb_items"] == len(items)
     assert after["ladder_items"] - before["ladder_items"] == 5
+
+
+# ------------------------------------------------ quorum tally and sharding
+
+
+@pytest.mark.parametrize("n,g", [(0, 4), (1, 1), (1000, 37), (5000, 0), (66048, 1537)])
+def test_tally_kernel_equals_plain_version_on_wrapping_and_dropped_ids(card, n, g):
+    from mochi_tpu_torch.parallel import cuda_tally as CT
+    from mochi_tpu_torch.parallel import sharded as S
+
+    rng = np.random.default_rng(n + g)
+    bitmap = torch.from_numpy(rng.random(n) < 0.8).to(card)
+    ok = torch.from_numpy(rng.random(n) < 0.9).to(card)
+    ids = torch.from_numpy(rng.integers(-2 * g - 1, 2 * g + 2, n).astype(np.int32)).to(card)
+    before, before_c = CT.launches, CT.commit_launches
+    got = CT.quorum_tally(bitmap, ok, ids, g)
+    committed = CT.quorum_commit(got, 3)
+    assert (CT.launches, CT.commit_launches) == (before + 1, before_c + 1)
+    assert got.dtype == torch.int32 and got.device == card
+    assert torch.equal(got, S.segment_tally(bitmap, ok, ids, g))
+    assert torch.equal(committed, S.commit(got, 3))
+
+
+def test_tally_wrapper_rejects_what_the_kernel_does_not_take(card):
+    from mochi_tpu_torch.parallel import cuda_tally as CT
+
+    b = torch.ones(8, dtype=torch.bool, device=card)
+    ids = torch.zeros(8, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        CT.quorum_tally(b, b, ids.to(torch.int64), 2)
+    with pytest.raises(ValueError):
+        CT.quorum_tally(b, b[:4], ids, 2)
+    with pytest.raises(ValueError):
+        CT.quorum_tally(b, b, ids, -1)
+    with pytest.raises(TypeError):
+        CT.quorum_commit(torch.zeros(3, dtype=torch.int64, device=card), 1)
+
+
+def test_quorum_step_on_the_card_equals_the_plain_step(card, corpus):
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+    from mochi_tpu_torch.parallel import cuda_tally as CT
+    from mochi_tpu_torch.parallel import make_mesh, make_quorum_step
+
+    items, want, _ = corpus
+    n, g = 600, 23
+    prepared = BV.prepare_packed(items[:n])
+    ids = np.random.default_rng(9).integers(-g, g + 3, n).astype(np.int32)
+    plain = make_quorum_step(make_mesh(devices=["cpu"] * 2), g)(*prepared, ids, 4)
+    assert plain[0].tolist() == want[:n]
+    for devices in ([card, card], None):
+        mesh = make_mesh(devices=devices)
+        before = (CV.launches, CT.launches, CT.commit_launches, CC.launches)
+        got = make_quorum_step(mesh, g)(*prepared, ids, 4)
+        after = (CV.launches, CT.launches, CT.commit_launches, CC.launches)
+        assert after == (before[0] + mesh.size, before[1] + mesh.size, before[2] + 1, before[3])
+        for a, b in zip(got, plain):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_sharded_backend_on_two_slices_of_the_card(card, comb_setup):
+    from mochi_tpu_torch.crypto import keys
+    from mochi_tpu_torch.parallel import make_mesh
+    from mochi_tpu_torch.verifier.cuda import ShardedCudaBatchBackend
+
+    reg, items, want = comb_setup
+    backend = ShardedCudaBatchBackend(make_mesh(devices=[card, card]), min_device_items=0)
+    backend.register_signers(reg.public_keys())
+    backend.warmup()
+    before = BV.comb_routing_counts()
+    assert backend(items) == want
+    stranger = keys.generate_keypair()
+    extra = [VerifyItem(stranger.public_key, b"x", stranger.sign(b"x"))]
+    assert backend(items[:7] + extra) == want[:7] + [True]
+    after = BV.comb_routing_counts()
+    assert after["comb_items"] - before["comb_items"] == len(items)
+    assert after["ladder_items"] - before["ladder_items"] == 8
+
+
+def test_service_cli_cuda_sharded_serves_on_the_card(card, corpus, tmp_path):
+    """``python -m mochi_tpu_torch.verifier.service --backend cuda-sharded``:
+    the sharded verifier's log line, READY, and bitmaps equal to the
+    expected verdicts with no fallback (the known signers on the comb
+    kernel, every other key on the general one)."""
+    import asyncio
+    import re
+    import subprocess
+    import sys
+
+    from mochi_tpu_torch.verifier.service import RemoteVerifier
+
+    items, want, kinds = corpus
+    pubs = sorted({it.public_key for it, k in zip(items, kinds) if k == "valid"})
+    (tmp_path / "signers.txt").write_text("".join(p.hex() + "\n" for p in pubs))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mochi_tpu_torch.verifier.service", "--port", "0", "--backend", "cuda-sharded",
+         "--signers-file", str(tmp_path / "signers.txt")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+
+    async def ask(port):
+        rv = RemoteVerifier("127.0.0.1", port, timeout_s=120)
+        try:
+            return await rv.verify_batch(items), rv.fallback_batches
+        finally:
+            await rv.close()
+
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("READY verifier-service "), line
+        assert asyncio.run(ask(int(line.split()[-1]))) == (want, 0)
+    finally:
+        proc.terminate()
+        _, err = proc.communicate(timeout=60)
+    n = torch.cuda.device_count()
+    assert re.search(rf"sharded verifier over {n} devices \(warmup [0-9.]+s, {len(pubs)} known signers\)", err), err

@@ -235,7 +235,7 @@ def test_cli_backend_choice_and_loaders(tmp_path):
     out = subprocess.run([sys.executable, "-m", "mochi_tpu_torch.verifier.service", "--help"],
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0
-    assert "--backend {cuda,cpu}" in out.stdout and "--admin-port" in out.stdout
+    assert "--backend {cuda,cuda-sharded,cpu}" in out.stdout and "--admin-port" in out.stdout
     if not torch.cuda.is_available():
         out = subprocess.run(
             [sys.executable, "-m", "mochi_tpu_torch.verifier.service", "--port", "0"],
