@@ -9,8 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
    capability, SM count, maximum SM clock, and the host's Ed25519 engine.
    No CUDA device: exit 2.
 2. Build — compile every kernel, ``mochi_tpu_torch/csrc/verify.cu``,
-   ``comb.cu`` and ``tally.cu``, one nvcc each, started together; report
-   ptxas's registers and spills and each kernel's attributes.
+   ``comb.cu``, ``comb_tree.cu`` and ``tally.cu``, one nvcc each, started
+   together; report ptxas's registers and spills and each kernel's
+   attributes.
 3. Kernel vs plain — an 8192-item corpus made from ``--seed``: valid
    signatures from 64 signers, forgeries, and adversarial encodings
    (low-order and mixed-order points, non-points, x = 0 with the sign bit,
@@ -39,13 +40,23 @@ Phases (any failure exits non-zero and prints no result line):
    The kernel's bitmap must equal the plain version's on the card and the
    expected verdicts, 256 sampled lanes must equal ``keys.verify``, and the
    uploaded kernel-radix table must equal the 17 x 15 rows integer for
-   integer.
-7. Comb times — CUDA events at 8192 and 65536 lanes, a launch-size sweep,
-   the plain version at 8192, the bound, and one lone 43-grant certificate
-   through ``verify_batch`` with the registry.
+   integer.  The tree kernel (``MOCHI_COMB_IMPL=tree``, ``comb_tree.cu``)
+   must equal the plain tree at both lane counts, the chain kernel's bitmap
+   lane for lane, and ``keys.verify`` on the same 256 lanes.
+7. Comb times — for the chain and the tree kernel: CUDA events at 8192 and
+   65536 lanes, a launch-size sweep (1024 ... 262144), the plain version at
+   8192, the bound (the function's, one for both: they compute the same
+   bitmap), the tree's two passes apart by ``torch.profiler``, and one lone
+   43-grant certificate through ``verify_batch`` with the registry (the
+   tree's under its switch).
 8. Service with signers — phase 5's traffic through
    ``CudaBatchVerifier(signers=...)``: every item must take the comb kernel
    and every bitmap must equal the expected verdicts.
+8t. The same under the tree switch (``comb.COMB_IMPL = "tree"``, restored
+   after): every item must take the tree kernel and none the chain or the
+   general kernel, every bitmap must equal the expected verdicts, nothing
+   may fall back; the idle share is recorded, and the tree kernel is held
+   against its plain version at every lane count it launched.
 9. Cluster — the main path of the system: ``VirtualCluster(64, rf=64)``
    (f = 21, quorum 43) with one ``CudaBatchVerifier(device="cuda")`` shared
    by all 64 replicas (the replicas register the cluster identities, so
@@ -80,8 +91,9 @@ Phases (any failure exits non-zero and prints no result line):
    --backend nccl``, one process per visible card: each process's JSON line
    must equal the closed form for its world size.
 
-Phases 5, 8, 9, 10 and 11 drive the main paths: each zeroes the launch
-counts just before it and reads them just after.  On a machine with several
+Phases 5, 8, 8t, 9, 10 and 11 drive the main paths: each zeroes the launch
+counts just before it and reads them just after.  Every phase but 8t runs
+the comb's default accumulation, the chain.  On a machine with several
 cards, phases 10-12 use every card, phase 11 also runs the step on card 0
 alone, and the idle share is recorded per card.  The last three lines of
 standard output are the kernel table (JSON), the ``nvidia-smi``
@@ -630,6 +642,36 @@ def _graph_ms(fn, calls: int) -> float:
     return statistics.median(times)
 
 
+def kernel_split_ms(fn, repeats: int = 10) -> dict:
+    """Device milliseconds per call of each of the port's kernels that
+    ``fn`` launches (a kernel whose name holds "mochi"), from
+    ``torch.profiler``'s per-kernel sums over ``repeats`` calls after a
+    warm-up call.  A profiler that traces no device time gives {}, one that
+    cannot start says so; an error of ``fn`` raises."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError as exc:  # no device tracing (CUPTI) on this machine
+        return {"not measured": repr(exc)}
+    try:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        prof.stop()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
+        if us and "mochi" in ev.key:
+            out[ev.key.split("(")[0]] = us / 1e3 / repeats
+    return out
+
+
 def check_kernel_vs_plain(tens, pre_ok, want) -> int:
     """Kernel and plain version on the same card tensors: the max abs
     difference of their bitmaps.  Raises if the kernel's verdicts (ANDed
@@ -647,20 +689,22 @@ def check_kernel_vs_plain(tens, pre_ok, want) -> int:
     return err
 
 
-def check_comb_vs_plain(table25, table15, lanes, pre_ok, want) -> int:
-    """The comb kernel and its plain version on the same card tensors: the
-    max abs difference of their bitmaps.  Raises if the kernel's verdicts
-    (ANDed with ``pre_ok``) differ from ``want``."""
+def check_comb_vs_plain(table25, table15, lanes, pre_ok, want, impl: str = "chain") -> int:
+    """The comb kernel of ``impl`` (``chain`` or ``tree``) and its plain
+    version on the same card tensors: the max abs difference of their
+    bitmaps.  Raises if the kernel's verdicts (ANDed with ``pre_ok``) differ
+    from ``want``."""
     from mochi_tpu_torch.crypto import comb
     from mochi_tpu_torch.crypto import cuda_comb as CC
 
-    got = CC.verify_comb_prepared(table25, *lanes)
-    plain = comb.verify_comb_prepared(table15, *lanes)
+    got = CC.verify_comb_prepared(table25, *lanes, impl=impl)
+    plain = comb.verify_comb_prepared(table15, *lanes, impl=impl)
     got_np, plain_np = got.cpu().numpy(), plain.cpu().numpy()
     err = int(np.abs(got_np.astype(np.int64) - plain_np.astype(np.int64)).max())
     wrong = int(np.sum(np.logical_and(got_np, pre_ok) != np.asarray(want, dtype=bool)))
     if err or wrong:
-        raise AssertionError(f"comb kernel disagrees at {len(want)} lanes: vs plain {err}, {wrong} wrong verdicts")
+        raise AssertionError(f"comb {impl} kernel disagrees at {len(want)} lanes: vs plain {err}, "
+                             f"{wrong} wrong verdicts")
     return err
 
 
@@ -843,40 +887,49 @@ def _zero_counts():
     from mochi_tpu_torch.crypto import cuda_verify as CV
     from mochi_tpu_torch.parallel import cuda_tally as CT
 
-    CV.launches = CC.launches = CT.launches = CT.commit_launches = 0
+    CV.launches = CT.launches = CT.commit_launches = 0
     BV.reset_counts()
-    CV.launch_log, CC.launch_log = [], []
+    CV.launch_log = []
+    for impl in CC.launches:
+        CC.launches[impl], CC.launch_logs[impl] = 0, []
 
 
 def _read_counts(out: dict):
     """Counts and traces read just after a main-path phase; returns the
-    (verify, comb) launch logs and turns tracing off.  ``launches_by_card``
-    counts both verify kernels' launches on each card."""
+    verify kernel's launch log and the comb kernels' (keyed by impl) and
+    turns tracing off.  ``comb_launches`` is keyed by impl;
+    ``launches_by_card`` counts the verify kernels' launches on each card."""
     from mochi_tpu_torch.crypto import batch_verify as BV
     from mochi_tpu_torch.crypto import cuda_comb as CC
     from mochi_tpu_torch.crypto import cuda_verify as CV
     from mochi_tpu_torch.parallel import cuda_tally as CT
 
     out["verify_launches"] = CV.launches
-    out["comb_launches"] = CC.launches
+    out["comb_launches"] = dict(CC.launches)
     out["tally_launches"] = CT.launches
     out["commit_launches"] = CT.commit_launches
     out["device_items"] = BV.device_item_count()
     out["device_dispatches"] = BV.device_dispatch_count()
     out["routing"] = BV.comb_routing_counts()
-    logs = (CV.launch_log, CC.launch_log)
-    CV.launch_log = CC.launch_log = None
+    vlog, clogs = CV.launch_log, dict(CC.launch_logs)
+    CV.launch_log = None
+    CC.launch_logs.update(dict.fromkeys(clogs))
     by_card: dict = {}
-    for _, start, _ in logs[0] + logs[1]:
+    for _, start, _ in vlog + sum(clogs.values(), []):
         by_card[f"cuda:{start.device.index}"] = by_card.get(f"cuda:{start.device.index}", 0) + 1
     out["launches_by_card"] = by_card
-    return logs
+    return vlog, clogs
+
+
+def _other_comb_launches(out: dict, impl: Optional[str] = None) -> dict:
+    """The comb launches a phase made of every impl but ``impl``."""
+    return {k: n for k, n in out["comb_launches"].items() if k != impl and n}
 
 
 def _drive(coro_fn, out_key: str, res: dict):
     """Run one main-path phase between two events on every card, with the
     counts zeroed just before and read just after; a card's kernel-busy
-    share is the union of both kernels' logged launches on it over the
+    share is the union of the verify kernels' logged launches on it over the
     phase's span ("device" is card 0's; "by_card" each card's, when there
     are several)."""
     import torch
@@ -899,11 +952,13 @@ def _drive(coro_fn, out_key: str, res: dict):
         # events of different cards cannot be compared: one card at a time
         return device_busy([ln for ln in log if ln[1].device.index == card], *refs[card])
 
-    out["device"] = busy(logs[0] + logs[1], 0)
-    out["device"]["verify_kernel"] = busy(logs[0], 0)["launch_ms_by_lanes"]
-    out["device"]["comb_kernel"] = busy(logs[1], 0)["launch_ms_by_lanes"]
+    vlog, clogs = logs
+    every = vlog + sum(clogs.values(), [])
+    out["device"] = busy(every, 0)
+    out["device"]["verify_kernel"] = busy(vlog, 0)["launch_ms_by_lanes"]
+    out["device"]["comb_kernels"] = {impl: busy(log, 0)["launch_ms_by_lanes"] for impl, log in clogs.items()}
     if len(cards) > 1:
-        out["device"]["by_card"] = {f"cuda:{i}": busy(logs[0] + logs[1], i) for i in cards}
+        out["device"]["by_card"] = {f"cuda:{i}": busy(every, i) for i in cards}
     res[out_key] = out
     print(f"[{out_key}] {out}", flush=True)
     return out, logs
@@ -943,11 +998,13 @@ def run(args) -> dict:
     res["build_s"] = time.perf_counter() - t0
     res["build_s_by_kernel"] = took
     res["kernel_attributes"] = {"verify": CV.kernel_attributes(), "comb": CC.kernel_attributes(),
-                                "tally": CT.kernel_attributes()}
+                                "comb_tree": CC.kernel_attributes("tree"), "tally": CT.kernel_attributes()}
     print(f"[build] {res['build_s']:.1f} s {took}; {res['kernel_attributes']}", flush=True)
-    for name in ("verify", "comb", "tally"):
+    res["ptxas"] = {}
+    for name in ("verify", "comb", "comb_tree", "tally"):
         for ln in kernels.build_logs.get(name, "").splitlines():
             if "registers" in ln or "spill" in ln:
+                res["ptxas"].setdefault(name, []).append(ln.strip())
                 print(f"[build] ptxas {name}: {ln.strip()}", flush=True)
 
     # 3. kernel vs plain on the card
@@ -1040,9 +1097,11 @@ def run(args) -> dict:
         problems.append("the kernel was never launched")
     if svc["device_items"] != svc["items"]:
         problems.append(f"{svc['device_items']} items on the device, {svc['items']} sent")
-    for key in ("fallback_batches", "crossover_batches", "remote_fallbacks", "comb_launches"):
+    for key in ("fallback_batches", "crossover_batches", "remote_fallbacks"):
         if svc[key]:
             problems.append(f"service: {key} = {svc[key]}")
+    if _other_comb_launches(svc):
+        problems.append(f"service: comb launches {svc['comb_launches']}")
     if problems:
         raise AssertionError("; ".join(problems))
 
@@ -1067,6 +1126,25 @@ def run(args) -> dict:
     csample = np.random.default_rng(args.seed + 4).choice(len(citems), 256, replace=False).tolist()
     csample_wrong = [j for j in csample if keys.verify(citems[j].public_key, citems[j].message,
                                                        citems[j].signature) != bool(cfinal[j])]
+    # the tree kernel: against the plain tree, the chain kernel's bitmap and
+    # the same 256 lanes of keys.verify, at 8192 lanes and a partial block
+    tgot = CC.verify_comb_prepared(table25, *lanes, impl="tree").cpu().numpy()
+    tfinal = np.logical_and(tgot, cprep[6])
+    tcheck = {len(citems): check_comb_vs_plain(table25, table15, lanes, cprep[6], cwant, "tree")}
+    tcheck[part] = check_comb_vs_plain(table25, table15, [t[:part] for t in lanes], cprep[6][:part], cwant[:part],
+                                       "tree")
+    tree_vs_chain = int(np.sum(tgot != cgot))
+    tsample_wrong = [j for j in csample if keys.verify(citems[j].public_key, citems[j].message,
+                                                       citems[j].signature) != bool(tfinal[j])]
+    res["comb_tree_corpus"] = {
+        "items": len(citems), "accepted": int(tfinal.sum()), "kernel_vs_plain_max_abs_err": max(tcheck.values()),
+        "lane_counts_checked": sorted(tcheck), "lanes_differing_from_the_chain_kernel": tree_vs_chain,
+        "sample_vs_keys_verify_wrong": len(tsample_wrong),
+    }
+    print(f"[comb tree vs plain] {res['comb_tree_corpus']}", flush=True)
+    if tree_vs_chain or tsample_wrong:
+        raise AssertionError(f"comb tree kernel disagrees: {tree_vs_chain} lanes with the chain kernel, "
+                             f"sample lanes {tsample_wrong[:10]}")
     res["comb_corpus"] = {
         "items": len(citems), "accepted": int(cfinal.sum()), "kinds": len(set(ckinds)),
         "registered_signers": len(reg), "table_rows": int(table25.shape[0]),
@@ -1086,10 +1164,10 @@ def run(args) -> dict:
     c64k = _ms_median(lambda: CC.verify_comb_prepared(table25, *big_lanes), 2, REPEATS // 2)
     cplain = _ms_median(lambda: comb.verify_comb_prepared(table15, *lanes), 1, 3)
     BV.verify_batch(cert, dev, registry=reg)
-    l0, t0 = CC.launches, time.perf_counter()
+    l0, t0 = CC.launches["chain"], time.perf_counter()
     for _ in range(10):
         BV.verify_batch(cert, dev, registry=reg)
-    ccert_ms, ccert_launches = 1e2 * (time.perf_counter() - t0), (CC.launches - l0) / 10
+    ccert_ms, ccert_launches = 1e2 * (time.perf_counter() - t0), (CC.launches["chain"] - l0) / 10
     ctiled = [torch.cat([t] * 4) for t in big_lanes]
     csweep = {}
     for n in (1024, 4096, 8192, 16384, 32768, 65536, 131072, 262144):
@@ -1099,12 +1177,50 @@ def run(args) -> dict:
     # the bound: operations (IMADs) or bytes (each lane's inputs and verdict,
     # plus one read of the signer table and the basepoint comb)
     cbytes = lambda n: n * CC.BYTES_PER_SIGNATURE + (table25.shape[0] + 576) * CC.ENTRY_BYTES  # noqa: E731
+    # the bound of the function, so of both kernels: the tree computes the same
+    # bitmap from the same inputs, and its extra multiplies and its record
+    # between the passes are the kernel's own cost, not the function's
     cbound = lambda n: 1e3 * max(n * CC.IMADS_PER_SIGNATURE / rate, cbytes(n) / 3.35e12)  # noqa: E731
+    cbound_by = "operations" if len(citems) * CC.IMADS_PER_SIGNATURE / rate > cbytes(len(citems)) / 3.35e12 \
+        else "bytes"
+    t8k = _ms_median(lambda: CC.verify_comb_prepared(table25, *lanes, impl="tree"), 3, REPEATS)
+    t64k = _ms_median(lambda: CC.verify_comb_prepared(table25, *big_lanes, impl="tree"), 2, REPEATS // 2)
+    tplain = _ms_median(lambda: comb.verify_comb_prepared(table15, *lanes, impl="tree"), 1, 3)
+    tsweep = {}
+    for n in csweep:
+        part_l = [t[:n] for t in ctiled]
+        ms = _ms_median(lambda: CC.verify_comb_prepared(table25, *part_l, impl="tree"), 1, 5)
+        tsweep[n] = {"ms": ms, "sigs_per_s": n / (ms / 1e3), "chain_ms": csweep[n]["ms"]}
+    # the tree's two passes apart, by the profiler (the chain beside them)
+    tsplit = {n: kernel_split_ms(lambda: CC.verify_comb_prepared(table25, *[t[:n] for t in ctiled], impl="tree"))
+              for n in (1024, 8192, BIG)}
+    tsplit["chain_8192"] = kernel_split_ms(lambda: CC.verify_comb_prepared(table25, *lanes, impl="chain"))
+    impl0 = comb.COMB_IMPL  # MOCHI_COMB_IMPL, restored after each tree leg
+    try:  # one lone certificate through verify_batch under the tree switch
+        comb.COMB_IMPL = "tree"
+        BV.verify_batch(cert, dev, registry=reg)
+        l0, t0 = CC.launches["tree"], time.perf_counter()
+        for _ in range(10):
+            BV.verify_batch(cert, dev, registry=reg)
+        tcert_ms, tcert_launches = 1e2 * (time.perf_counter() - t0), (CC.launches["tree"] - l0) / 10
+    finally:
+        comb.COMB_IMPL = impl0
+    res["comb_tree_times"] = {
+        "kernel_ms_8192": t8k, "kernel_ms_65536": t64k, "plain_ms_8192": tplain,
+        "bound_ms_8192": cbound(len(citems)), "bound_ms_65536": cbound(BIG), "bound_by": cbound_by,
+        "sigs_per_s_8192": len(citems) / (t8k / 1e3), "sigs_per_s_65536": BIG / (t64k / 1e3),
+        "imads_per_signature": CC.IMADS_PER_SIGNATURE, "imads_issued_per_signature": CC.IMADS_PER_SIGNATURE_TREE,
+        "issued_bound_ms_8192": 1e3 * len(citems) * CC.IMADS_PER_SIGNATURE_TREE / rate,
+        "launch_size_sweep": tsweep,
+        "cert43_verify_batch_ms": tcert_ms, "cert43_launches": tcert_launches,
+        "chain_over_tree_ms_8192": c8k / t8k, "profiler_ms_per_pass": tsplit,
+        "attributes": res["kernel_attributes"]["comb_tree"],
+        "ptxas": res["ptxas"].get("comb_tree", []),
+    }
+    print(f"[comb tree times] {res['comb_tree_times']}", flush=True)
     res["comb_times"] = {
         "kernel_ms_8192": c8k, "kernel_ms_65536": c64k, "plain_ms_8192": cplain,
-        "bound_ms_8192": cbound(len(citems)), "bound_ms_65536": cbound(BIG),
-        "bound_by": "operations" if len(citems) * CC.IMADS_PER_SIGNATURE / rate > cbytes(len(citems)) / 3.35e12
-        else "bytes",
+        "bound_ms_8192": cbound(len(citems)), "bound_ms_65536": cbound(BIG), "bound_by": cbound_by,
         "sigs_per_s_8192": len(citems) / (c8k / 1e3), "sigs_per_s_65536": BIG / (c64k / 1e3),
         "imads_per_signature": CC.IMADS_PER_SIGNATURE, "launch_size_sweep": csweep,
         "cert43_verify_batch_ms": ccert_ms, "cert43_launches": ccert_launches,
@@ -1120,13 +1236,14 @@ def run(args) -> dict:
 
     # 8. service with known signers: every grant takes the comb kernel
     pubs = [s.pub for s in signers]
-    svc2, (_, clog) = _drive(lambda: drive_service(traffic, "cuda", secret, signers=pubs), "service_signers",
-                                res)
-    check_comb(n for n, _, _ in clog)
+    svc2, (_, clogs) = _drive(lambda: drive_service(traffic, "cuda", secret, signers=pubs), "service_signers",
+                              res)
+    check_comb(n for n, _, _ in clogs["chain"])
     problems = []
     if svc2["mismatched_requests"]:
         problems.append(f"{svc2['mismatched_requests']} bitmaps differ from the expected verdicts")
-    if svc2["comb_launches"] <= 0 or svc2["routing"]["comb_items"] != svc2["items"]:
+    if (svc2["comb_launches"]["chain"] <= 0 or _other_comb_launches(svc2, "chain")
+            or svc2["routing"]["comb_items"] != svc2["items"]):
         problems.append(f"comb launches {svc2['comb_launches']}, routing {svc2['routing']} for {svc2['items']} items")
     for key in ("fallback_batches", "crossover_batches", "remote_fallbacks", "verify_launches"):
         if svc2[key]:
@@ -1134,9 +1251,37 @@ def run(args) -> dict:
     if problems:
         raise AssertionError("; ".join(problems))
 
+    # 8t. the same traffic under MOCHI_COMB_IMPL=tree: every grant takes the
+    # tree kernel
+    try:
+        comb.COMB_IMPL = "tree"
+        svc2t, (_, tlogs) = _drive(lambda: drive_service(traffic, "cuda", secret, signers=pubs),
+                                   "service_signers_tree", res)
+    finally:
+        comb.COMB_IMPL = impl0
+    tlog = tlogs["tree"]
+    for n in sorted({n for n, _, _ in tlog} - set(tcheck)):
+        tcheck[n] = _check_comb_at(n, table25, table15, lanes, big_lanes, cprep[6], cwant, "tree")
+    svc2t["tree_lane_counts_checked_vs_plain"] = sorted({n for n, _, _ in tlog})
+    print(f"[service with signers, tree] tree kernel equals plain at lane counts "
+          f"{svc2t['tree_lane_counts_checked_vs_plain']}", flush=True)
+    problems = []
+    if svc2t["mismatched_requests"]:
+        problems.append(f"{svc2t['mismatched_requests']} bitmaps differ from the expected verdicts")
+    if (svc2t["comb_launches"]["tree"] <= 0 or _other_comb_launches(svc2t, "tree")
+            or svc2t["routing"]["comb_items"] != svc2t["items"]):
+        problems.append(f"comb launches {svc2t['comb_launches']}, routing {svc2t['routing']} "
+                        f"for {svc2t['items']} items")
+    for key in ("fallback_batches", "crossover_batches", "remote_fallbacks", "verify_launches"):
+        if svc2t[key]:
+            problems.append(f"service with signers under the tree: {key} = {svc2t[key]}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+
     # 9. the cluster: the system's main path
-    cl, (vlog2, clog2) = _drive(lambda: drive_cluster("cuda", CLUSTER_N, CLUSTER_CLIENTS, CLUSTER_WRITES),
-                                   "cluster", res)
+    cl, (vlog2, clogs2) = _drive(lambda: drive_cluster("cuda", CLUSTER_N, CLUSTER_CLIENTS, CLUSTER_WRITES),
+                                 "cluster", res)
+    clog2 = clogs2["chain"]
     check_comb(n for n, _, _ in clog2)
     for n in sorted({n for n, _, _ in vlog2} - set(checked)):
         checked[n] = check_kernel_vs_plain([t[:n] for t in big_t], big[6][:n], flat_want[:n])
@@ -1145,8 +1290,10 @@ def run(args) -> dict:
     print(f"[cluster] comb kernel equals plain at lane counts {cl['comb_lane_counts_checked_vs_plain']}, "
           f"general kernel at {cl['verify_lane_counts_checked_vs_plain']}", flush=True)
     problems = []
-    if cl["comb_launches"] <= 0 or cl["routing"]["comb_items"] <= 0:
+    if cl["comb_launches"]["chain"] <= 0 or cl["routing"]["comb_items"] <= 0:
         problems.append(f"the comb kernel carried nothing: {cl['comb_launches']} launches, {cl['routing']}")
+    if _other_comb_launches(cl, "chain"):
+        problems.append(f"cluster: comb launches {cl['comb_launches']}")
     for key in ("fallback_batches", "crossover_batches"):
         if cl[key]:
             problems.append(f"cluster: {key} = {cl[key]}")
@@ -1174,12 +1321,24 @@ def run(args) -> dict:
         "route": "cuda",
         "source": "mochi_tpu_torch/csrc/comb.cu",
         "replaces": "mochi_tpu/crypto/comb.py:512",
-        "launches": cl["comb_launches"],
+        "launches": cl["comb_launches"]["chain"],
         "max_abs_err": max(ccheck.values()),
         "ms": c8k,
         "plain_ms": cplain,
         "bound_ms": cbound(len(citems)),
         "bound_by": res["comb_times"]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "comb_tree_verify",
+        "route": "cuda",
+        "source": "mochi_tpu_torch/csrc/comb_tree.cu",
+        "replaces": "mochi_tpu/crypto/comb.py:428",
+        "launches": svc2t["comb_launches"]["tree"],
+        "max_abs_err": max(tcheck.values()),
+        "ms": t8k,
+        "plain_ms": tplain,
+        "bound_ms": cbound(len(citems)),
+        "bound_by": res["comb_tree_times"]["bound_by"],
         "library_ms": None,
     }, {
         "name": "quorum_tally",
@@ -1221,15 +1380,16 @@ def sharded_phases(seed: int, res: dict, traffic, signers: List[Signer], secret:
     # 10. the sharded service: phase 8's traffic split over every card
     pubs = [s.pub for s in signers]
     n_cards = torch.cuda.device_count()
-    svc3, (_, clog3) = _drive(
+    svc3, (_, clogs3) = _drive(
         lambda: drive_service(traffic, "cuda", secret, make_verifier=lambda: ShardedCudaBatchVerifier(signers=pubs)),
         "sharded_service", res)
-    check_comb(n for n, _, _ in clog3)
+    check_comb(n for n, _, _ in clogs3["chain"])
     svc3["cards"] = n_cards
     problems = []
     if svc3["mismatched_requests"]:
         problems.append(f"{svc3['mismatched_requests']} bitmaps differ from the expected verdicts")
-    if svc3["comb_launches"] <= 0 or svc3["routing"]["comb_items"] != svc3["items"]:
+    if (svc3["comb_launches"]["chain"] <= 0 or _other_comb_launches(svc3, "chain")
+            or svc3["routing"]["comb_items"] != svc3["items"]):
         problems.append(f"comb launches {svc3['comb_launches']}, routing {svc3['routing']} for {svc3['items']} items")
     idle_cards = [i for i in range(n_cards) if svc3["launches_by_card"].get(f"cuda:{i}", 0) <= 0]
     if idle_cards:
@@ -1389,13 +1549,13 @@ def quorum_phase(seed: int, traffic, signers: List[Signer], dev, res: dict) -> d
     return out
 
 
-def _check_comb_at(n, table25, table15, lanes, big_lanes, pre_ok, want) -> int:
-    """The comb kernel against its plain version at ``n`` lanes of the comb
-    corpus (tiled past its length)."""
+def _check_comb_at(n, table25, table15, lanes, big_lanes, pre_ok, want, impl: str = "chain") -> int:
+    """The comb kernel of ``impl`` against its plain version at ``n`` lanes
+    of the comb corpus (tiled past its length)."""
     src = lanes if n <= lanes[0].shape[0] else big_lanes
     reps = -(-n // len(want))
     return check_comb_vs_plain(table25, table15, [t[:n] for t in src], np.tile(pre_ok, reps)[:n],
-                               (list(want) * reps)[:n])
+                               (list(want) * reps)[:n], impl)
 
 
 def main(argv=None) -> int:

@@ -15,7 +15,11 @@ Routing (``verify_batch(..., registry=...)``): items whose key is registered
 below the pinned generation take the comb kernel, the rest the general
 kernel; a mixed batch launches both kernels before reading either back and
 merges one bitmap.  ``MOCHI_COMB=0`` turns the comb path off (every item
-takes the general kernel), as in the reference.
+takes the general kernel), as in the reference.  ``MOCHI_COMB_IMPL``
+(``comb.COMB_IMPL``: ``chain`` by default, or ``tree``) chooses which comb
+kernel every comb launch runs, as the reference's switch reaches every comb
+caller: the verifier service, ``CudaBatchVerifier``, the sharded backend and
+the replica all launch through :func:`_dispatch`.
 
 Requests larger than the launch size are cut into chunks.  Every chunk is
 launched before any is read back, so chunk k+1's host prepare runs while
@@ -42,6 +46,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from . import comb as _comb
 from . import cuda_comb
 from . import cuda_verify
 from . import field as F
@@ -257,9 +262,10 @@ def _thread_stream(device: torch.device, k: int = 0) -> torch.cuda.Stream:
 def _dispatch(prepared, device: torch.device, key_idx=None, table=None, k: int = 0):
     """Send one prepared chunk to the device and launch; no readback.
     With ``key_idx`` and ``table`` (the comb table pinned at routing time)
-    the comb kernel runs, else the general kernel.  On a card it runs on
-    the stream of (this thread, ``device``, slice ``k``).  Returns (bitmap or
-    None, stream, what must stay alive until readback, pre_ok)."""
+    the comb kernel of ``comb.COMB_IMPL`` runs, else the general kernel.  On
+    a card it runs on the stream of (this thread, ``device``, slice ``k``).
+    Returns (bitmap or None, stream, what must stay alive until readback,
+    pre_ok)."""
     *arrays, pre_ok = prepared
     if not pre_ok.any():
         return None, None, None, pre_ok
@@ -267,7 +273,8 @@ def _dispatch(prepared, device: torch.device, key_idx=None, table=None, k: int =
     _note_dispatch(len(pre_ok), comb=comb)
     if comb:
         host = cuda_comb.from_prepared(key_idx, arrays, "cpu")
-        kernel = lambda *t: cuda_comb.verify_comb_prepared(table, *t)  # noqa: E731
+        impl = _comb.COMB_IMPL
+        kernel = lambda *t: cuda_comb.verify_comb_prepared(table, *t, impl=impl)  # noqa: E731
     else:
         host = cuda_verify.from_reference_prepared(arrays, "cpu")
         kernel = cuda_verify.verify_prepared_packed
@@ -381,7 +388,7 @@ class TorchBatchBackend:
         for either."""
         if self.device.type == "cuda":
             cuda_verify._lib()  # builds every missing kernel at once
-            cuda_comb._lib()
+            cuda_comb._lib(_comb.COMB_IMPL)
             if len(self.registry):
                 self.registry.device_table(self.device)
 

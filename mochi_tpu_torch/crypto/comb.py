@@ -21,14 +21,20 @@ Three layers live here:
   on a device, pinned per generation.  On a CUDA device the table is
   converted once to the kernel's radix-2^25.5 layout
   (:func:`mochi_tpu_torch.crypto.cuda_comb.to_radix25`).
-* :func:`verify_comb_prepared` — the plain PyTorch version of the comb
-  kernel (``csrc/comb.cu``), limb-equal to the reference's ``impl="chain"``.
-  The CPU tests run it and the chip smoke test holds the kernel against it;
-  it is never on the main path when a card is present.
+* :func:`verify_comb_prepared` — the plain PyTorch version of both comb
+  kernels, limb-equal to the reference's two accumulations: ``impl="chain"``
+  (``csrc/comb.cu``, 128 dependent mixed additions) and ``impl="tree"``
+  (``csrc/comb_tree.cu``, the 128 window points converted from Niels to
+  extended form and summed by a 7-level balanced tree of complete
+  additions).  The CPU tests run it and the chip smoke test holds the
+  kernels against it; it is never on the main path when a card is present.
 
-The reference's ``impl="tree"`` form (a one-hot float32 matmul select and a
-balanced reduction, off by default) is not ported: a float matmul is exact
-here only while nothing turns on TF32 (ROADMAP.md, Queue C).
+``MOCHI_COMB_IMPL`` (``chain``, the default, or ``tree``), read at import
+into :data:`COMB_IMPL` as the reference reads it, chooses the accumulation
+for every caller that does not name one.  The reference selects the tree's
+basepoint rows with a one-hot float32 matmul; here that select is an exact
+integer gather, so no float product (exact only while TF32 is off,
+ROADMAP.md Queue C) is anywhere on either path.
 
 Verdict semantics are the general path's: the same host prechecks, R's RFC
 8032 decode on the device, the same cofactorless equation.  Registration
@@ -38,6 +44,7 @@ then simply takes the general kernel.
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -51,6 +58,26 @@ N_WINDOWS = 64
 N_ENTRIES = 9  # signed 4-bit digits: magnitudes 0..8
 ROWS_PER_SIGNER = N_WINDOWS * N_ENTRIES
 ROW_WIDTH = 3 * F.NLIMBS  # ypx | ymx | xy2d
+
+COMB_IMPLS = ("chain", "tree")
+
+
+def check_impl(impl: Optional[str]) -> str:
+    """``impl``, or :data:`COMB_IMPL` when None; any other name than
+    ``chain`` or ``tree`` is refused."""
+    impl = COMB_IMPL if impl is None else impl
+    if impl not in COMB_IMPLS:
+        raise ValueError(f"comb accumulation {impl!r} (MOCHI_COMB_IMPL or impl=): expected 'chain' or 'tree'")
+    return impl
+
+
+# The accumulation every comb verify runs unless its caller names one.
+COMB_IMPL = check_impl(os.environ.get("MOCHI_COMB_IMPL", "chain"))
+
+# (p+1)/2: multiplying by it halves a field element (Niels y+x, y-x -> x, y)
+_INV2_INT = (F.P_INT + 1) // 2
+# 1/(2d): recovers t = x*y from the Niels xy2d coordinate
+_INV_2D_INT = pow(2 * F.D_INT % F.P_INT, F.P_INT - 2, F.P_INT)
 
 
 # --------------------------------------------------------------------------
@@ -315,17 +342,47 @@ class SignerRegistry:
 # The plain version of the comb kernel
 
 
-def verify_comb_prepared(table_flat, key_idx, y_r, sign_r, s_bytes, h_bytes) -> torch.Tensor:
+def _tree_accumulate(ypx, ymx, xy2d, n_points: int, lanes_n: int) -> curve.Point:
+    """Balanced-tree sum of ``n_points`` Niels points per lane.
+
+    Coordinates arrive limbs leading over a fused point * lane axis,
+    (17, P*B) with the point axis MAJOR, signs already applied.  Each point
+    becomes extended (x, y, 1, xy) with 3 constant multiplies, then each of
+    log2(P) levels adds point i to point i + P/2 with the complete addition:
+    the reference's ``_tree_accumulate`` step for step.
+    """
+    lanes = ypx.shape[1:]
+    inv2 = F.const(_INV2_INT, lanes, ypx.device)
+    inv2d = F.const(_INV_2D_INT, lanes, ypx.device)
+    x = F.mul(F.sub(ypx, ymx), inv2)
+    y = F.mul(F.add(ypx, ymx), inv2)
+    t = F.mul(xy2d, inv2d)
+    pt = curve.Point(x, y, F.one(lanes, ypx.device), t)
+    p = n_points
+    while p > 1:
+        half = p // 2
+        split = [c.reshape(F.NLIMBS, p, lanes_n) for c in pt]
+        lo = curve.Point(*(c[:, :half].reshape(F.NLIMBS, half * lanes_n) for c in split))
+        hi = curve.Point(*(c[:, half:].reshape(F.NLIMBS, half * lanes_n) for c in split))
+        pt = curve.add(lo, hi)
+        p = half
+    return pt
+
+
+def verify_comb_prepared(table_flat, key_idx, y_r, sign_r, s_bytes, h_bytes,
+                         impl: Optional[str] = None) -> torch.Tensor:
     """Batched comb verify -> (B,) bool bitmap, in plain PyTorch.
 
     ``table_flat``: (K*576, 51) int32 signer tables in the 17 x 15 layout
     (row [k*576 + w*9 + d] = Niels [d*16^w](-A_k)); ``key_idx``: (B,) int32
     registry indices; ``y_r`` (B, 17) int32 limbs and ``sign_r`` (B,) int32,
     the R encodings; ``s_bytes``/``h_bytes`` (B, 32) uint8 little-endian
-    scalars.  The row index ``key_idx*576 + w*9 + |h_w|`` is clipped into
-    the table, as the reference's ``jnp.take(..., mode="clip")`` does.
-    Every intermediate equals the reference's ``impl="chain"`` limb for limb.
+    scalars; ``impl``: ``chain`` or ``tree`` (default :data:`COMB_IMPL`).
+    The row index ``key_idx*576 + w*9 + |h_w|`` is clipped into the table,
+    as the reference's ``jnp.take(..., mode="clip")`` does.  Every
+    intermediate equals the reference's of the same ``impl`` limb for limb.
     """
+    impl = check_impl(impl)
     dev = y_r.device
     s_mag, s_neg = curve.recode_signed4(curve.digits4_from_bytes(s_bytes))
     h_mag, h_neg = curve.recode_signed4(curve.digits4_from_bytes(h_bytes))
@@ -342,10 +399,20 @@ def verify_comb_prepared(table_flat, key_idx, y_r, sign_r, s_bytes, h_bytes) -> 
         ypx, ymx, xy2d = row[: F.NLIMBS], row[F.NLIMBS : 2 * F.NLIMBS], row[2 * F.NLIMBS :]
         return F.select(neg, ymx, ypx), F.select(neg, ypx, ymx), F.select(neg, F.neg(xy2d), xy2d)
 
-    q = curve.identity(lanes, dev)
-    for w in range(N_WINDOWS):
-        q = curve.madd_niels(q, *signed(a_rows[w].T, h_neg[w]))
-        q = curve.madd_niels(q, *signed(b_tab[w][s_mag[w]].T, s_neg[w]))
+    if impl == "tree":
+        n = lanes[0]
+        # every window's basepoint row at once: the exact integer gather
+        # b_tab[w][s_mag[w]] (the reference's one-hot f32 matmul selects the
+        # same integers)
+        b_rows = b_tab[win, s_mag]  # (64, B, 51)
+        a = signed(a_rows.reshape(N_WINDOWS * n, ROW_WIDTH).T, h_neg.reshape(-1))
+        b = signed(b_rows.reshape(N_WINDOWS * n, ROW_WIDTH).T, s_neg.reshape(-1))
+        q = _tree_accumulate(*(torch.cat([ca, cb], dim=1) for ca, cb in zip(a, b)), 2 * N_WINDOWS, n)
+    else:
+        q = curve.identity(lanes, dev)
+        for w in range(N_WINDOWS):
+            q = curve.madd_niels(q, *signed(a_rows[w].T, h_neg[w]))
+            q = curve.madd_niels(q, *signed(b_tab[w][s_mag[w]].T, s_neg[w]))
     eq_x = F.eq(q.x, F.mul(r_point.x, q.z))
     eq_y = F.eq(q.y, F.mul(r_point.y, q.z))
     return ok_r & eq_x & eq_y

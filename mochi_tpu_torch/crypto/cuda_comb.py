@@ -1,11 +1,17 @@
-"""Known-signer (comb) Ed25519 verification on the card: the CUDA kernel's
-wrapper.
+"""Known-signer (comb) Ed25519 verification on the card: the wrapper of
+the two CUDA comb kernels.
 
-Counterpart of the reference package's ``comb._verify_comb_jit``.  The
-kernel (``csrc/comb.cu``, arithmetic in ``csrc/comb25519.cuh``) runs one
-signature per thread: 64 windows of two Niels mixed additions from the
-signer's table and the basepoint comb, R's decode, the projective compare.
-Its source note says what bounds it and what the design does about that.
+Counterpart of the reference package's ``comb._verify_comb_jit`` with its
+two accumulations.  ``impl="chain"`` launches ``csrc/comb.cu`` (arithmetic
+in ``csrc/comb25519.cuh``): one signature per thread, 64 windows of two
+Niels mixed additions from the signer's table and the basepoint comb, R's
+decode, the projective compare.  ``impl="tree"`` launches
+``csrc/comb_tree.cu`` (arithmetic in ``csrc/comb_tree.cuh``): a prepare
+pass (R's decode and the digit recoding, one thread per signature) and an
+accumulate pass (the 128 window points summed by a 7-level tree, one warp
+per signature).  ``impl=None`` takes :data:`comb.COMB_IMPL`, the
+``MOCHI_COMB_IMPL`` switch.  Each source note says what bounds its kernel
+and what the design does about that.
 
 :func:`verify_comb_prepared` takes the reference's public layout for the
 lanes (``key_idx`` (B,) int32, ``y_r`` (B, 17) int32 15-bit limbs,
@@ -13,10 +19,10 @@ lanes (``key_idx`` (B,) int32, ``y_r`` (B, 17) int32 15-bit limbs,
 in the layout of its device, as
 :meth:`~mochi_tpu_torch.crypto.comb.SignerRegistry.device_table` returns it:
 on a CUDA device the kernel-radix (rows, 3, 10) int32 table, and the kernel
-is launched on the current stream or the call raises; on the CPU the
-(rows, 51) int32 17 x 15 table, and the plain version
-(:func:`mochi_tpu_torch.crypto.comb.verify_comb_prepared`) runs.  The kernel
-does not synchronise: the caller reads the bitmap back.
+of ``impl`` is launched on the current stream or the call raises; on the
+CPU the (rows, 51) int32 17 x 15 table, and the plain version of the same
+``impl`` (:func:`mochi_tpu_torch.crypto.comb.verify_comb_prepared`) runs.
+The kernels do not synchronise: the caller reads the bitmap back.
 """
 
 from __future__ import annotations
@@ -32,20 +38,31 @@ from . import comb
 from . import field as F
 from .cuda_verify import _BITS, _OFFS, _check
 
-# Launches of the kernel (a plain count; the chip smoke test zeroes it
-# before driving the main path and reads it after).
-launches = 0
+# Launches of each impl's kernel, keyed by impl (plain counts; the chip
+# smoke test zeroes them before driving a main path and reads them after).
+# The tree counts one per call, both passes.
+launches = dict.fromkeys(comb.COMB_IMPLS, 0)
 _count_lock = threading.Lock()
 
-# Launch trace, off when None.  When a list, each launch appends (lanes,
-# start, end): CUDA events recorded on the launch's stream just before and
-# just after the kernel.
-launch_log = None
+# Launch traces of each impl's kernel, keyed by impl, off when None.  When a
+# list, each launch appends (lanes, start, end): CUDA events recorded on the
+# launch's stream just before and just after the kernel (the tree's: both
+# passes).
+launch_logs = dict.fromkeys(comb.COMB_IMPLS)
 
-# 32x32->64 integer multiply-adds one signature costs the kernel (comb.cu's
-# source note): 917 field multiplies of 100 products and 255 squarings of
-# 55.  The data-dependent sqrt(-1) multiply of the decode is left out.
+# 32x32->64 integer multiply-adds one signature's verdict takes (the
+# source notes): the chain's 917 field multiplies of 100 products and 255
+# squarings of 55, the least of the two accumulations, so the bound of
+# either kernel.  The data-dependent sqrt(-1) multiply of the decode is
+# left out.
 IMADS_PER_SIGNATURE = 917 * 100 + 255 * 55
+# What the tree kernel issues for the same verdict: 1,228 multiplies and the
+# same 255 squarings (the lanes that compute unread sums are not counted).
+IMADS_PER_SIGNATURE_TREE = 1228 * 100 + 255 * 55
+
+# The tree's per-signature record between its passes (comb_tree.cuh):
+# R's x and y, R's verdict, 128 int8 digits.
+TREE_RECORD_INTS = 53
 
 # Bytes per signature in and out: key_idx, y_r, sign_r, s, h, the verdict.
 BYTES_PER_SIGNATURE = 4 + 17 * 4 + 4 + 32 + 32 + 1
@@ -86,9 +103,21 @@ def _bcomb_on(device: str) -> torch.Tensor:
     return torch.from_numpy(bcomb_table25()).to(device)
 
 
-def _lib():
+def _lib(impl: str = "chain"):
+    """The loaded library of ``impl``'s kernel, built on first use."""
     from .. import kernels
 
+    if impl == "tree":
+        lib = kernels.load("comb_tree")
+        if not getattr(lib, "_mochi_typed", False):
+            lib.mochi_comb_tree_verify.argtypes = (
+                [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
+            )
+            lib.mochi_comb_tree_verify.restype = ctypes.c_int
+            lib.mochi_comb_tree_verify_attrs.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
+            lib.mochi_comb_tree_verify_attrs.restype = ctypes.c_int
+            lib._mochi_typed = True
+        return lib
     lib = kernels.load("comb")
     if not getattr(lib, "_mochi_typed", False):
         lib.mochi_comb_verify.argtypes = (
@@ -101,22 +130,34 @@ def _lib():
     return lib
 
 
-def kernel_attributes() -> dict:
+_ATTR_NAMES = ("registers", "local_bytes", "shared_bytes", "threads")
+
+
+def kernel_attributes(impl: str = "chain") -> dict:
     """Registers per thread, local bytes per thread, static shared bytes and
-    threads per block of the compiled kernel (cudaFuncGetAttributes)."""
-    vals = [ctypes.c_int(0) for _ in range(4)]
-    rc = _lib().mochi_comb_verify_attrs(*[ctypes.byref(v) for v in vals])
-    if rc:
-        raise RuntimeError(f"cudaFuncGetAttributes failed with CUDA error {rc}")
-    return dict(zip(("registers", "local_bytes", "shared_bytes", "threads"), (v.value for v in vals)))
+    threads per block of ``impl``'s compiled kernel (cudaFuncGetAttributes);
+    for the tree, one such dict for each pass (``prepare``, ``accumulate``)."""
+
+    def query(fn, *which):
+        vals = [ctypes.c_int(0) for _ in range(4)]
+        rc = fn(*which, *[ctypes.byref(v) for v in vals])
+        if rc:
+            raise RuntimeError(f"cudaFuncGetAttributes failed with CUDA error {rc}")
+        return dict(zip(_ATTR_NAMES, (v.value for v in vals)))
+
+    if comb.check_impl(impl) == "tree":
+        fn = _lib("tree").mochi_comb_tree_verify_attrs
+        return {"prepare": query(fn, 0), "accumulate": query(fn, 1)}
+    return query(_lib().mochi_comb_verify_attrs)
 
 
-def verify_comb_prepared(table, key_idx, y_r, sign_r, s_bytes, h_bytes) -> torch.Tensor:
-    """(B,) bool bitmap of the comb verify (see module docstring)."""
-    global launches
+def verify_comb_prepared(table, key_idx, y_r, sign_r, s_bytes, h_bytes, impl=None) -> torch.Tensor:
+    """(B,) bool bitmap of the comb verify with ``impl``'s accumulation
+    (default ``comb.COMB_IMPL``; see the module docstring)."""
+    impl = comb.check_impl(impl)
     device = y_r.device
     if device.type == "cpu":
-        return comb.verify_comb_prepared(table, key_idx, y_r, sign_r, s_bytes, h_bytes)
+        return comb.verify_comb_prepared(table, key_idx, y_r, sign_r, s_bytes, h_bytes, impl=impl)
     if device.type != "cuda":
         raise ValueError(f"no comb kernel for device {device}")
     n = y_r.shape[0]
@@ -131,27 +172,32 @@ def verify_comb_prepared(table, key_idx, y_r, sign_r, s_bytes, h_bytes) -> torch
     out = torch.empty(n, dtype=torch.bool, device=device)
     if n == 0:
         return out
-    lib = _lib()
+    tree = impl == "tree"
+    lib = _lib(impl)
     bcomb = _bcomb_on(str(device))
-    log = launch_log
+    log = launch_logs[impl]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device)
         if log is not None:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record(stream)
-        rc = lib.mochi_comb_verify(
-            table.data_ptr(), table.shape[0], key_idx.data_ptr(), y_r.data_ptr(),
-            sign_r.data_ptr(), s_bytes.data_ptr(), h_bytes.data_ptr(), bcomb.data_ptr(),
-            out.data_ptr(), n, stream.cuda_stream,
-        )
+        args = (table.data_ptr(), table.shape[0], key_idx.data_ptr(), y_r.data_ptr(), sign_r.data_ptr(),
+                s_bytes.data_ptr(), h_bytes.data_ptr(), bcomb.data_ptr())
+        if tree:
+            # allocated on this stream: the caching allocator reuses it only
+            # after work queued here, so the passes below own it
+            scratch = torch.empty((n, TREE_RECORD_INTS), dtype=torch.int32, device=device)
+            rc = lib.mochi_comb_tree_verify(*args, scratch.data_ptr(), out.data_ptr(), n, stream.cuda_stream)
+        else:
+            rc = lib.mochi_comb_verify(*args, out.data_ptr(), n, stream.cuda_stream)
         if log is not None:
             end.record(stream)
     if rc:
-        raise RuntimeError(f"comb kernel launch failed with CUDA error {rc}")
+        raise RuntimeError(f"comb {impl} kernel launch failed with CUDA error {rc}")
     if log is not None:
         log.append((n, start, end))
     with _count_lock:
-        launches += 1
+        launches[impl] += 1
     return out
 
 

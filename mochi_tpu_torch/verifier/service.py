@@ -281,14 +281,16 @@ async def amain(args) -> None:
             len(signers),
         )
     else:
+        from ..crypto.comb import COMB_IMPL
         from .cuda import CudaBatchVerifier
 
         t0 = time.time()
         verifier = CudaBatchVerifier(device="cuda", signers=signers)
         LOG.info(
-            "CUDA kernels ready in %.1fs (%d known signers on the comb kernel)",
+            "CUDA kernels ready in %.1fs (%d known signers on the comb kernel, %s accumulation)",
             time.time() - t0,
             len(signers),
+            COMB_IMPL,
         )
     secret = None
     if args.secret_file:

@@ -611,8 +611,12 @@ def verifier_stats(verifier) -> dict:
         from ..crypto import batch_verify as _bv
 
         routed = _bv.comb_routing_counts()
+        from ..crypto import comb as _comb
+
         st["comb"] = {
             "registered_signers": len(registry),
+            # the accumulation every comb launch runs (MOCHI_COMB_IMPL)
+            "impl": _comb.COMB_IMPL,
             "device_dispatches_process_total": _bv.comb_dispatch_count(),
             # routing occupancy (process-global): items the router sent
             # down each kernel, and batches that carried both

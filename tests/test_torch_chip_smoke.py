@@ -153,10 +153,33 @@ def test_table_radix_check_counts_a_wrong_entry(signers):
     assert cs.check_table_radix(t25, t15) == 1
 
 
+def test_tree_service_phase_rehearsal_on_cpu(signers, monkeypatch):
+    """Phase 8t at a small size: the service with signers under the tree
+    switch sends every item down the comb path's tree (its plain version on
+    the CPU, which launches nothing), with every bitmap as expected."""
+    from mochi_tpu_torch.crypto import comb
+
+    traffic = cs.make_traffic(19, signers, clients=3, requests=2, grants=5)
+    monkeypatch.setattr(comb, "COMB_IMPL", "tree")
+    seen = []
+    real = comb.verify_comb_prepared
+    monkeypatch.setattr(comb, "verify_comb_prepared", lambda *a, impl=None: seen.append(impl) or real(*a, impl=impl))
+    cs._zero_counts()
+    svc = asyncio.run(asyncio.wait_for(
+        cs.drive_service(traffic, "cpu", b"k" * 32, signers=[s.pub for s in signers]), 240))
+    logs = cs._read_counts(svc)
+    assert svc["requests"] == 6 and svc["items"] == 30 and svc["mismatched_requests"] == 0
+    assert svc["routing"]["comb_items"] == 30 and svc["routing"]["ladder_items"] == 0
+    assert svc["fallback_batches"] == svc["crossover_batches"] == svc["remote_fallbacks"] == 0
+    assert svc["comb_launches"] == {"chain": 0, "tree": 0} and svc["verify_launches"] == 0
+    assert logs == ([], {"chain": [], "tree": []}) and seen and set(seen) == {"tree"}
+
+
 def test_cluster_drive_counts_on_cpu():
     from mochi_tpu_torch.crypto import cuda_comb as CC
 
-    CV.launches = CC.launches = 0
+    CV.launches = 0
+    CC.launches.update(chain=0, tree=0)
     BV.reset_counts()
     out = asyncio.run(asyncio.wait_for(cs.drive_cluster("cpu", 7, 2, 2), 300))
     assert out["quorum"] == 5 and out["writes"] == out["acked"] == out["read_back"] == 4
@@ -164,7 +187,7 @@ def test_cluster_drive_counts_on_cpu():
     assert out["registered_signers"] == 7 and out["txn_per_s"] > 0
     routed = BV.comb_routing_counts()
     assert routed["comb_items"] >= 4 * 5 and BV.comb_dispatch_count() > 0
-    assert CV.launches == CC.launches == 0  # the plain versions on the CPU launch no kernel
+    assert CV.launches == 0 and CC.launches == {"chain": 0, "tree": 0}  # the plain versions on the CPU launch no kernel
 
 
 # ------------------------------------------- multi-device phases (10-12)

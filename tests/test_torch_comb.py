@@ -4,13 +4,22 @@ Host tables and the registry are held byte for byte against
 ``mochi_tpu.crypto.comb``; the plain PyTorch comb against the reference's
 jitted comb program on JAX's CPU backend (exact: both are verdict bitmaps)
 and against OpenSSL; the router against the reference's verdicts, with the
-``MOCHI_COMB=0`` switch and generation pinning.  Inputs are made from numpy
-seeds.  The CUDA kernel itself is held against the plain version in
+``MOCHI_COMB=0`` switch and generation pinning.  The tree accumulation
+(``MOCHI_COMB_IMPL=tree``) is held limb for limb against the reference's
+``_tree_accumulate`` and by verdict against the chain, OpenSSL and the
+reference's programs.  Inputs are made from numpy seeds; every comparison
+is exact (integer arithmetic).  The CUDA kernel itself is held against the plain version in
 ``tests/test_torch_kernel_host.py`` (its g++ build) and on the card.
 """
 
 import asyncio
+import os
+import subprocess
+import sys
+from functools import partial
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -18,11 +27,13 @@ import torch
 import chip_smoke as cs
 from mochi_tpu.crypto import batch_verify as JBV
 from mochi_tpu.crypto import comb as JC
+from mochi_tpu.crypto import field as JF
 from mochi_tpu.crypto import keys as jkeys
 from mochi_tpu.verifier.spi import VerifyItem as JItem
 from mochi_tpu_torch.crypto import batch_verify as BV
 from mochi_tpu_torch.crypto import comb as TC
 from mochi_tpu_torch.crypto import cuda_comb as CC
+from mochi_tpu_torch.crypto import field as F
 from mochi_tpu_torch.crypto import keys
 from mochi_tpu_torch.verifier.spi import VerifyItem, verifier_stats
 
@@ -206,3 +217,113 @@ def test_backend_registration_and_comb_stats(signers):
             await v.close()
 
     asyncio.run(asyncio.wait_for(main(), 240))
+
+
+# ---------------------------------------------------------------------- tree
+
+
+@pytest.mark.parametrize("n_points,lanes_n", [(8, 3), (128, 2), (128, 4)])
+def test_tree_accumulate_equals_the_reference_limb_for_limb(n_points, lanes_n):
+    """The plain ``_tree_accumulate`` against the reference's, jitted on
+    JAX-CPU: seeded rows of the basepoint comb and a signer table, signs
+    applied by the reference's own negation, every coordinate of the sum
+    equal limb for limb."""
+    rng = np.random.default_rng(31 + n_points + lanes_n)
+    tables = np.concatenate([JC._b_comb().reshape(-1, 51),
+                             JC.signer_table(keys.keypair_from_seed(rng.bytes(32)).public_key).reshape(-1, 51)])
+    rows = tables[rng.integers(0, len(tables), n_points * lanes_n)]  # point-major fused axis
+    neg = rng.random(n_points * lanes_n) < 0.5
+    ypx, ymx, xy2d = (np.ascontiguousarray(rows[:, 17 * k : 17 * k + 17].T) for k in range(3))
+    signed = (np.where(neg, ymx, ypx), np.where(neg, ypx, ymx),
+              np.where(neg, np.asarray(JF.neg(jnp.asarray(xy2d))), xy2d))
+    ref = jax.jit(partial(JC._tree_accumulate, n_points=n_points, lanes_n=lanes_n))(*map(jnp.asarray, signed))
+    mine = TC._tree_accumulate(*(torch.from_numpy(c.astype(np.int64)) for c in signed), n_points, lanes_n)
+    for r, m in zip(ref, mine):
+        assert m.shape == (17, lanes_n)
+        assert np.array_equal(np.asarray(r), m.numpy())
+
+
+def test_plain_tree_equals_the_chain_the_reference_chain_and_openssl(corpus, registries):
+    """The plain tree's raw bitmap equals the plain chain's and the
+    reference's chain program's on the comb corpus, key indices past the
+    table included; ANDed with the host prechecks it is OpenSSL's verdict."""
+    items, want, _ = corpus
+    jreg, treg = registries
+    prep = BV.prepare_packed(items)
+    kidx = np.asarray([treg.index_of(it.public_key) for it in items], dtype=np.int32)
+    final = TC.verify_comb_prepared(treg.device_table("cpu"), *CC.from_prepared(kidx, prep, "cpu"), impl="tree")
+    assert np.logical_and(final.numpy(), prep[6]).tolist() == want == _openssl(items)
+    kidx[3], kidx[7], kidx[11] = 9999, -2, treg.generation  # clipped into the table
+    lanes = CC.from_prepared(kidx, prep, "cpu")
+    tree = TC.verify_comb_prepared(treg.device_table("cpu"), *lanes, impl="tree")
+    chain = TC.verify_comb_prepared(treg.device_table("cpu"), *lanes, impl="chain")
+    _, _, y_r, sign_r, s_b, h_b, _ = prep
+    # the reference's default program (its chain), the compile the chain's
+    # own differential above already made
+    ref = np.asarray(JC._verify_comb_jit(jreg.device_table(), kidx, y_r, sign_r, s_b, h_b))
+    assert tree.tolist() == chain.tolist() == ref.tolist()
+    # the CPU wrapper runs the plain version of the impl it is asked for
+    assert CC.verify_comb_prepared(treg.device_table("cpu"), *lanes, impl="tree").tolist() == tree.tolist()
+    assert ref.any() and not ref.all()
+
+
+def test_comb_impl_switch_parsing_and_refusal(monkeypatch):
+    assert TC.COMB_IMPLS == ("chain", "tree")
+    assert TC.COMB_IMPL == os.environ.get("MOCHI_COMB_IMPL", "chain")
+    for bad in ("Tree", "", "mxu", "tree ", "ladder"):
+        with pytest.raises(ValueError, match="MOCHI_COMB_IMPL"):
+            TC.check_impl(bad)
+    monkeypatch.setattr(TC, "COMB_IMPL", "tree")
+    assert TC.check_impl(None) == "tree" and TC.check_impl("chain") == "chain"
+    # read at import: "tree" is taken, an unknown value stops the import
+    env = dict(os.environ, MOCHI_COMB_IMPL="tree")
+    proc = subprocess.run([sys.executable, "-c", "from mochi_tpu_torch.crypto import comb; print(comb.COMB_IMPL)"],
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "tree"
+    env["MOCHI_COMB_IMPL"] = "mxu"
+    proc = subprocess.run([sys.executable, "-c", "import mochi_tpu_torch.crypto.comb"], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "comb accumulation 'mxu' (MOCHI_COMB_IMPL" in proc.stderr
+
+
+def test_routing_under_the_tree_switch_and_its_stats(signers, monkeypatch):
+    """With ``COMB_IMPL`` set to the tree every comb launch runs the tree
+    (here its plain version), verdicts unchanged, and the verifier's stats
+    name the impl in use."""
+    from mochi_tpu_torch.verifier.cuda import CudaBatchVerifier
+
+    monkeypatch.setattr(TC, "COMB_IMPL", "tree")
+    seen = []
+    real = TC.verify_comb_prepared
+    monkeypatch.setattr(TC, "verify_comb_prepared", lambda *a, impl=None: seen.append(impl) or real(*a, impl=impl))
+
+    async def main():
+        v = CudaBatchVerifier(device="cpu", signers=[s.pub for s in signers])
+        try:
+            items = _mixed(signers, np.random.default_rng(27))
+            BV.reset_counts()
+            assert await v.verify_batch(items) == _openssl(items)
+            st = verifier_stats(v)["comb"]
+            assert st["impl"] == "tree" and st["items_comb_routed_process_total"] == 12
+        finally:
+            await v.close()
+
+    asyncio.run(asyncio.wait_for(main(), 240))
+    assert seen and set(seen) == {"tree"}
+
+
+@pytest.mark.slow
+def test_plain_tree_equals_the_reference_tree_program(corpus, registries):
+    """The plain tree against ``_verify_comb_jit(..., impl="tree")`` on
+    JAX-CPU (a compile-heavy program, slow as the reference's own tree
+    test), raw bitmaps with key indices past the table."""
+    items, _, _ = corpus
+    jreg, treg = registries
+    kidx = np.asarray([treg.index_of(it.public_key) for it in items], dtype=np.int32)
+    kidx[3], kidx[7], kidx[11] = 9999, -2, treg.generation
+    prep = BV.prepare_packed(items)
+    _, _, y_r, sign_r, s_b, h_b, _ = prep
+    ref = np.asarray(JC._verify_comb_jit(jreg.device_table(), kidx, y_r, sign_r, s_b, h_b, impl="tree"))
+    mine = TC.verify_comb_prepared(treg.device_table("cpu"), *CC.from_prepared(kidx, prep, "cpu"), impl="tree")
+    assert mine.tolist() == ref.tolist()
+    assert ref.any() and not ref.all()

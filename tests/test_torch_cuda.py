@@ -1,4 +1,4 @@
-"""The CUDA kernels (general verify, comb, quorum tally) on the card.
+"""The CUDA kernels (general verify, comb chain and tree, quorum tally) on the card.
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA card and
 skips elsewhere.  On the card (this file imports no JAX, so the JAX-bound
@@ -102,9 +102,9 @@ def test_comb_kernel_equals_plain_version_and_expected_verdicts(card, comb_setup
     kidx = np.asarray([reg.index_of(it.public_key) for it in items], dtype=np.int32)
     kidx[5], kidx[9] = 10 ** 6, -4  # clipped into the table, never read past it
     lanes = CC.from_prepared(kidx, prepared, card)
-    before = CC.launches
+    before = CC.launches["chain"]
     got = CC.verify_comb_prepared(reg.device_table(card), *lanes)
-    assert CC.launches == before + 1
+    assert CC.launches["chain"] == before + 1
     plain = comb.verify_comb_prepared(torch.from_numpy(reg.host_table()).to(card), *lanes)
     assert torch.equal(got, plain)
     ok = (got.cpu().numpy() & prepared[6]).tolist()
@@ -137,6 +137,132 @@ def test_routed_mixed_batch_on_the_card(card, comb_setup):
     after = BV.comb_routing_counts()
     assert after["comb_items"] - before["comb_items"] == len(items)
     assert after["ladder_items"] - before["ladder_items"] == 5
+
+
+# ------------------------------------------------------------- comb tree
+
+
+def test_comb_tree_kernel_equals_plain_tree_and_chain_kernel(card, comb_setup):
+    """The tree kernel against the plain tree and the chain kernel on the
+    comb corpus: 600 lanes (a partial last block of the accumulate pass's 4
+    signatures and of the prepare pass's 128), indices past the table, and
+    the expected verdicts."""
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    reg, items, want = comb_setup
+    prepared = BV.prepare_packed(items)
+    kidx = np.asarray([reg.index_of(it.public_key) for it in items], dtype=np.int32)
+    kidx[5], kidx[9] = 10 ** 6, -4  # clipped into the table, never read past it
+    table15 = torch.from_numpy(reg.host_table()).to(card)
+    for n in (len(items), len(items) - 37, 1):
+        lanes = [t[:n] for t in CC.from_prepared(kidx, prepared, card)]
+        before = dict(CC.launches)
+        got = CC.verify_comb_prepared(reg.device_table(card), *lanes, impl="tree")
+        assert CC.launches == {"chain": before["chain"], "tree": before["tree"] + 1}
+        chain = CC.verify_comb_prepared(reg.device_table(card), *lanes, impl="chain")
+        plain = comb.verify_comb_prepared(table15, *lanes, impl="tree")
+        assert torch.equal(got, plain) and torch.equal(got, chain)
+    ok = (got.cpu().numpy() & prepared[6][:1]).tolist()
+    assert ok == want[:1]
+    full = CC.verify_comb_prepared(reg.device_table(card), *CC.from_prepared(kidx, prepared, card), impl="tree")
+    ok = (full.cpu().numpy() & prepared[6]).tolist()
+    assert [w for j, w in enumerate(want) if j not in (5, 9)] == [o for j, o in enumerate(ok) if j not in (5, 9)]
+    attrs = CC.kernel_attributes("tree")
+    assert attrs["accumulate"]["threads"] % 32 == 0 and attrs["prepare"]["registers"] > 0
+
+
+def test_comb_tree_wrapper_rejects_what_the_kernel_does_not_take(card, comb_setup):
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    reg, items, _ = comb_setup
+    kidx = np.zeros(8, dtype=np.int32)
+    lanes = list(CC.from_prepared(kidx, BV.prepare_packed(items[:8]), card))
+    table = reg.device_table(card)
+    with pytest.raises(ValueError):  # the 17 x 15 table is the plain version's
+        CC.verify_comb_prepared(torch.from_numpy(reg.host_table()).to(card), *lanes, impl="tree")
+    bad = [t.clone() for t in lanes]
+    bad[0] = bad[0].to(torch.int64)
+    with pytest.raises(TypeError):
+        CC.verify_comb_prepared(table, *bad, impl="tree")
+    bad = [t.clone() for t in lanes]
+    bad[1] = bad[1][:4]
+    with pytest.raises(ValueError):
+        CC.verify_comb_prepared(table, *bad, impl="tree")
+    bad = [t.clone() for t in lanes]
+    bad[3] = bad[3].cpu()
+    with pytest.raises(ValueError):
+        CC.verify_comb_prepared(table, *bad, impl="tree")
+    with pytest.raises(ValueError):
+        CC.verify_comb_prepared(table, *lanes, impl="mxu")
+    assert CC.verify_comb_prepared(table, *(t[:0] for t in lanes), impl="tree").shape == (0,)
+
+
+def test_verifier_with_signers_under_the_tree_switch(card, comb_setup, monkeypatch):
+    """``CudaBatchVerifier(signers=...)`` with ``COMB_IMPL`` at the tree:
+    every item takes the tree kernel, none the chain, verdicts as expected."""
+    import asyncio
+
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+    from mochi_tpu_torch.verifier.cuda import CudaBatchVerifier
+    from mochi_tpu_torch.verifier.spi import verifier_stats
+
+    reg, items, want = comb_setup
+    monkeypatch.setattr(comb, "COMB_IMPL", "tree")
+
+    async def main():
+        v = CudaBatchVerifier(device=card, signers=reg.public_keys())
+        try:
+            before = (CC.launches["chain"], CC.launches["tree"], BV.comb_routing_counts()["comb_items"])
+            got = await v.verify_batch(items)
+            after = (CC.launches["chain"], CC.launches["tree"], BV.comb_routing_counts()["comb_items"])
+            return got, before, after, verifier_stats(v)["comb"]["impl"]
+        finally:
+            await v.close()
+
+    got, before, after, impl = asyncio.run(asyncio.wait_for(main(), 300))
+    assert got == want and impl == "tree"
+    assert after[0] == before[0] and after[1] > before[1] and after[2] - before[2] == len(items)
+
+
+def test_service_cli_serves_a_certificate_on_the_tree(card, tmp_path):
+    """``python -m mochi_tpu_torch.verifier.service`` started with
+    ``MOCHI_COMB_IMPL=tree``: its log line names the tree, and a 43-grant
+    certificate of its known signers comes back over RPC as expected."""
+    import asyncio
+    import os
+    import subprocess
+    import sys
+
+    from mochi_tpu_torch.verifier.service import RemoteVerifier
+
+    signers = cs.make_signers(np.random.default_rng(5), 43)
+    traffic = cs.make_traffic(6, signers, clients=1, requests=1, grants=43, forge_rate=0.1)
+    items, want = traffic[0][0]
+    (tmp_path / "signers.txt").write_text("".join(s.pub.hex() + "\n" for s in signers))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mochi_tpu_torch.verifier.service", "--port", "0",
+         "--signers-file", str(tmp_path / "signers.txt")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=dict(os.environ, MOCHI_COMB_IMPL="tree"),
+    )
+
+    async def ask(port):
+        rv = RemoteVerifier("127.0.0.1", port, timeout_s=120)
+        try:
+            return await rv.verify_batch(items), rv.fallback_batches
+        finally:
+            await rv.close()
+
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("READY verifier-service "), line
+        assert asyncio.run(ask(int(line.split()[-1]))) == (want, 0)
+    finally:
+        proc.terminate()
+        _, err = proc.communicate(timeout=60)
+    assert "43 known signers on the comb kernel, tree accumulation" in err, err
+    assert 0 < sum(want) < 43
 
 
 # ------------------------------------------------ quorum tally and sharding
@@ -188,9 +314,9 @@ def test_quorum_step_on_the_card_equals_the_plain_step(card, corpus):
     assert plain[0].tolist() == want[:n]
     for devices in ([card, card], None):
         mesh = make_mesh(devices=devices)
-        before = (CV.launches, CT.launches, CT.commit_launches, CC.launches)
+        before = (CV.launches, CT.launches, CT.commit_launches, dict(CC.launches))
         got = make_quorum_step(mesh, g)(*prepared, ids, 4)
-        after = (CV.launches, CT.launches, CT.commit_launches, CC.launches)
+        after = (CV.launches, CT.launches, CT.commit_launches, dict(CC.launches))
         assert after == (before[0] + mesh.size, before[1] + mesh.size, before[2] + 1, before[3])
         for a, b in zip(got, plain):
             assert a.dtype == b.dtype and torch.equal(a, b)

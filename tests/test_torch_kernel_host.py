@@ -1,14 +1,16 @@
 """The CUDA kernels' arithmetic, compiled for the host and fuzzed.
 
-``mochi_tpu_torch/csrc/fe25519.cuh``, ``ge25519.cuh`` and ``comb25519.cuh``
-are plain ``__host__ __device__`` code, so ``g++`` builds them here into a
-small ctypes library (the test-only shim below).  The fuzz holds every field
-op against Python integers, with inputs at the edges of the bounds the
-header states (maximum loose limbs, every sign pattern), and decode, one
-ladder window, the whole verify, the comb's negated-Niels mixed addition
-and the whole comb verify against Python integers and the port's plain
-PyTorch versions.  The port never loads this build; it exists to catch radix
-and bounds faults before the kernels reach a card.
+``mochi_tpu_torch/csrc/fe25519.cuh``, ``ge25519.cuh``, ``comb25519.cuh`` and
+``comb_tree.cuh`` are plain ``__host__ __device__`` code, so ``g++`` builds
+them here into a small ctypes library (the test-only shim below), with
+``-fwrapv`` so that a signed int32 overflow wraps as it does on the card.
+The fuzz holds every field op against Python integers, with inputs at the
+edges of the bounds the header states (maximum loose limbs, every sign
+pattern), and decode, one ladder window, the whole verify, the comb's
+negated-Niels mixed addition, the whole comb verify, the tree's leaf
+conversion, its 7-level sum and its whole verify against Python integers
+and the port's plain PyTorch versions.  The port never loads this build; it
+exists to catch radix and bounds faults before the kernels reach a card.
 """
 
 import ctypes
@@ -38,6 +40,7 @@ SHIM = r"""
 #include <string.h>
 #include "ge25519.cuh"
 #include "comb25519.cuh"
+#include "comb_tree.cuh"
 
 extern "C" {
 void t_fe_mul(int32_t* h, const int32_t* f, const int32_t* g) {
@@ -83,6 +86,26 @@ int t_comb_verify(const int32_t* table, long long rows, int key_idx,
                   const uint8_t* h, const int32_t* bcomb) {
   return comb_verify_one(table, rows, key_idx, y_r, sign_r, s, h, bcomb);
 }
+void t_tree_leaf(int32_t* r, const int32_t* entry, int neg) {
+  comb_tree_leaf((ge_p3*)r, entry, neg);
+}
+// The leaf's y without the carry of ypx + ymx: what the carry protects.
+void t_tree_leaf_y_uncarried(int32_t* y, const int32_t* entry, int neg) {
+  ge_niels n;
+  comb_load_niels(&n, entry, neg);
+  fe c, t;
+  fe_const_inv2(&c);
+  fe_add(&t, &n.ypx, &n.ymx);
+  fe_mul((fe*)y, &c, &t);
+}
+void t_tree_sum(int32_t* q, const int32_t* entries, const int8_t* neg) {
+  comb_tree_sum_serial((ge_p3*)q, entries, neg);
+}
+int t_tree_verify(const int32_t* table, long long rows, int key_idx,
+                  const int32_t* y_r, int sign_r, const uint8_t* s,
+                  const uint8_t* h, const int32_t* bcomb) {
+  return comb_tree_verify_one(table, rows, key_idx, y_r, sign_r, s, h, bcomb);
+}
 }
 """
 
@@ -99,7 +122,7 @@ def lib(tmp_path_factory):
     src.write_text(SHIM)
     so = d / "shim.so"
     proc = subprocess.run(
-        [gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall", "-Werror",
+        [gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-fwrapv", "-Wall", "-Werror",
          "-I", str(kernels.CSRC), "-o", str(so), str(src)],
         capture_output=True, text=True,
     )
@@ -482,6 +505,135 @@ def test_comb_verify_matches_the_plain_version_lane_for_lane(lib):
     lib.t_comb_verify.argtypes = [I32P, ctypes.c_longlong, ctypes.c_int, I32P, ctypes.c_int, u8, u8, I32P]
     host = [
         bool(lib.t_comb_verify(ptr(t25), t25.shape[0], int(kidx[j]), ptr(arr(y_r[j])), int(sign_r[j]),
+                               s_b[j].ctypes.data_as(u8), h_b[j].ctypes.data_as(u8), ptr(bcomb)))
+        for j in range(len(items))
+    ]
+    assert host == plain
+    want = [keys.verify(it.public_key, it.message, it.signature) for it in items]
+    assert [h and ok for h, ok in zip(host, prep[6])][:5] == want[:5]
+    assert any(host) and not all(host)
+
+
+# -------------------------------------------------------------------- tree
+
+MAX_ENTRY = [(1 << 26) - 1 if i % 2 == 0 else (1 << 25) - 1 for i in range(10)]
+INV2 = (P + 1) // 2
+INV2D = pow(2 * F.D_INT % P, P - 2, P)
+
+
+def _leaf_ints(ent, neg):
+    """The leaf conversion on Python ints: Niels (y+x, y-x, 2dxy), negated
+    when ``neg``, -> (x, y, 1, xy) mod p."""
+    ypx, ymx, xy2d = ent
+    if neg:
+        ypx, ymx, xy2d = ymx, ypx, -xy2d
+    return [(ypx - ymx) * INV2 % P, (ypx + ymx) * INV2 % P, 1, xy2d * INV2D % P]
+
+
+def test_tree_leaf_fuzz_at_the_bound(lib):
+    """Canonical and negated entries, with every limb of a coordinate at
+    2^26 - 1 / 2^25 - 1 or random: the leaf is the formula mod p and TIGHT.
+    The same inputs without the carry of ypx + ymx come out wrong (its even
+    limbs reach 2^27 - 2, and 19 times that overflows int32)."""
+    rng = random.Random(121)
+    uncarried_wrong = 0
+    for trial in range(240):
+        ent = [MAX_ENTRY if rng.random() < 0.5 or trial < 8 else list(CV.int_to_limbs25(rng.randrange(P)))
+               for _ in range(3)]
+        neg = trial % 2
+        out = np.zeros(40, np.int32)
+        lib.t_tree_leaf(ptr(out), ptr(arr(sum(ent, []))), neg)
+        want = _leaf_ints([value(c) for c in ent], neg)
+        got = [value(out[10 * k : 10 * k + 10]) % P for k in (0, 1, 2, 3)]
+        assert [got[0], got[1], got[2], got[3]] == want, trial
+        assert all(is_tight(out[10 * k : 10 * k + 10]) for k in range(4))
+        y = np.zeros(10, np.int32)
+        lib.t_tree_leaf_y_uncarried(ptr(y), ptr(arr(sum(ent, []))), neg)
+        uncarried_wrong += value(y) % P != want[1]
+    assert uncarried_wrong > 0
+
+
+def _tree_entries(seed):
+    """128 leaf entries of a real signer table and the basepoint comb, in
+    the reference's point order (signer windows, then basepoint windows),
+    with random digits: (kernel-radix entries (128, 30), 17 x 15 rows
+    (128, 51), negation flags (128,))."""
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    rng = random.Random(seed)
+    tab = comb.signer_table(hf.public_from_seed(bytes(rng.randrange(256) for _ in range(32))))
+    rows = np.stack([tab[w, rng.randrange(9)] for w in range(64)]
+                    + [comb._b_comb()[w, rng.randrange(9)] for w in range(64)])
+    neg = np.array([rng.randrange(2) for _ in range(128)], dtype=np.int8)
+    return arr(CC.to_radix25(rows).reshape(128, 30)), rows, neg
+
+
+def test_tree_sum_serial_equals_the_plain_tree_and_python_ints(lib):
+    """The header's 7-level sum of 128 window points: its affine value
+    equals the plain PyTorch tree's and the sum of the points on Python
+    ints."""
+    from mochi_tpu_torch.crypto import comb
+
+    for seed in (131, 132, 133):
+        ent25, rows, neg = _tree_entries(seed)
+        q = np.zeros(40, np.int32)
+        lib.t_tree_sum(ptr(q), ptr(ent25), neg.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)))
+        t15 = torch.from_numpy(rows.astype(np.int64)).T  # (51, 128): the point axis major, one lane
+        ngt = torch.from_numpy(neg.astype(bool))
+        ypx, ymx, xy2d = t15[:17], t15[17:34], t15[34:]
+        pt = comb._tree_accumulate(F.select(ngt, ymx, ypx), F.select(ngt, ypx, ymx),
+                                   F.select(ngt, F.neg(xy2d), xy2d), 128, 1)
+        X, Y, Z = (F.limbs_to_int(c) for c in pt[:3])
+        zi = pow(Z % P, P - 2, P)
+        want = (0, 1)
+        for r, ng in zip(rows, neg):
+            x, y = _leaf_ints([F.limbs_to_int(r[17 * k : 17 * k + 17]) for k in range(3)], ng)[:2]
+            want = C._py_edwards_add(want, (x, y))
+        assert _affine(q) == (X * zi % P, Y * zi % P) == want, seed
+        assert all(is_tight(q[10 * k : 10 * k + 10]) for k in range(4))
+
+
+def test_tree_verify_matches_the_plain_tree_lane_for_lane(lib):
+    """The tree header's whole verify (prepare record, clipped gathers,
+    negated entries, the 7-level sum, compare) equals the plain PyTorch
+    tree and the plain chain on every lane, including forged and malformed
+    ones and key indices past either end of the table."""
+    from mochi_tpu_torch.crypto import batch_verify as BV
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+    from mochi_tpu_torch.verifier.spi import VerifyItem
+
+    rng = random.Random(141)
+    seeds = [bytes(rng.randrange(256) for _ in range(32)) for _ in range(3)]
+    pubs = [hf.public_from_seed(sd) for sd in seeds]
+    reg = comb.SignerRegistry("cpu")
+    reg.register_all(pubs)
+    items, kidx = [], []
+    for i in range(16):
+        k = i % 3
+        msg = b"tree host %d" % i
+        sig = bytearray(hf.sign(seeds[k], msg))
+        if i % 4 == 1:
+            sig[41] ^= 8  # flipped S bit
+        elif i % 4 == 2:
+            sig[:32] = bytes.fromhex(ORDER8)  # small-order R
+        items.append(VerifyItem(pubs[k], msg, bytes(sig)))
+        kidx.append(k)
+    kidx[5], kidx[9], kidx[13] = (k + 1) % 3, 1000, -7  # wrong, past the end, negative
+    prep = BV.prepare_packed(items)
+    kidx = np.asarray(kidx, dtype=np.int32)
+    t15 = reg.device_table("cpu")
+    lanes = CC.from_prepared(kidx, prep, "cpu")
+    plain = comb.verify_comb_prepared(t15, *lanes, impl="tree").tolist()
+    assert plain == comb.verify_comb_prepared(t15, *lanes, impl="chain").tolist()
+    t25 = arr(CC.to_radix25(t15.numpy()))
+    bcomb = arr(CC.bcomb_table25())
+    _, _, y_r, sign_r, s_b, h_b, _ = prep
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    lib.t_tree_verify.argtypes = [I32P, ctypes.c_longlong, ctypes.c_int, I32P, ctypes.c_int, u8, u8, I32P]
+    host = [
+        bool(lib.t_tree_verify(ptr(t25), t25.shape[0], int(kidx[j]), ptr(arr(y_r[j])), int(sign_r[j]),
                                s_b[j].ctypes.data_as(u8), h_b[j].ctypes.data_as(u8), ptr(bcomb)))
         for j in range(len(items))
     ]
