@@ -9,9 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
    capability, SM count, maximum SM clock, and the host's Ed25519 engine.
    No CUDA device: exit 2.
 2. Build — compile every kernel, ``mochi_tpu_torch/csrc/verify.cu``,
-   ``comb.cu``, ``comb_tree.cu`` and ``tally.cu``, one nvcc each, started
-   together; report ptxas's registers and spills and each kernel's
-   attributes.
+   ``verify_mxu.cu``, ``comb.cu``, ``comb_tree.cu`` and ``tally.cu``, one
+   nvcc each, started together; report ptxas's registers and spills and
+   each kernel's attributes.
 3. Kernel vs plain — an 8192-item corpus made from ``--seed``: valid
    signatures from 64 signers, forgeries, and adversarial encodings
    (low-order and mixed-order points, non-points, x = 0 with the sign bit,
@@ -24,6 +24,17 @@ Phases (any failure exits non-zero and prints no result line):
 4. Times — CUDA events, median over repeats after a warm-up: the kernel at
    8192 and 65536 lanes, the plain version at 8192, host prepare per item,
    and the bound (integer multiply-adds over the card's IMAD rate).
+3m. The mxu kernel (``MOCHI_SKEW_IMPL=mxu``, ``verify_mxu.cu``, every
+   field multiply's column reduction on the integer tensor cores) on phase
+   3's corpus and on a partial last block: its bitmap must equal the plain
+   version under the same switch on the card, ``verify.cu``'s bitmap lane
+   for lane and the expected verdicts, and phase 3's 256 sampled lanes must
+   equal ``keys.verify``.  Its multiply alone (``fe_mul_mxu``) on 65,536
+   random pairs, some with every limb at the limb maximum, must equal the
+   plain ``_mul_mxu`` limb for limb.
+4m. Its times — CUDA events, median over repeats: the kernel at 8192 and
+   65536 lanes, the plain version at 8192, the multiply at 65,536 pairs,
+   each beside its bound.
 5. Service — the main path: ``VerifierService(CudaBatchVerifier())`` on
    loopback with a shared secret, driven by 64 concurrent ``RemoteVerifier``
    clients (one per replica of an n=64, f=21 cluster), each sending
@@ -33,6 +44,12 @@ Phases (any failure exits non-zero and prints no result line):
    may have fallen back to the CPU.  Each launch is timed with CUDA events on
    its own stream (``cuda_verify.launch_log``); the union of those intervals
    over the drive's span is the card's kernel-busy share.
+5m. The same traffic under ``MOCHI_SKEW_IMPL=mxu`` (``field.SKEW_IMPL =
+   "mxu"``, restored after): every item must take the mxu kernel and none
+   the general (``pad``) or a comb kernel, every bitmap must equal the
+   expected verdicts, nothing may fall back; the idle share is recorded,
+   and the mxu kernel is held against its plain version at every lane count
+   it launched.
 6. Comb vs plain — the comb kernel (registered signers): an 8192-lane corpus
    signed by the 64 registered signers (valid, forged, another registered
    signer's key, adversarial R — small order, non-point, x = 0 with the sign
@@ -91,9 +108,10 @@ Phases (any failure exits non-zero and prints no result line):
    --backend nccl``, one process per visible card: each process's JSON line
    must equal the closed form for its world size.
 
-Phases 5, 8, 8t, 9, 10 and 11 drive the main paths: each zeroes the launch
-counts just before it and reads them just after.  Every phase but 8t runs
-the comb's default accumulation, the chain.  On a machine with several
+Phases 5, 5m, 8, 8t, 9, 10 and 11 drive the main paths: each zeroes the
+launch counts just before it and reads them just after.  Every phase but 8t
+runs the comb's default accumulation, the chain, and every phase but 3m-5m
+the default multiply, ``pad``.  On a machine with several
 cards, phases 10-12 use every card, phase 11 also runs the step on card 0
 alone, and the idle share is recorded per card.  The last three lines of
 standard output are the kernel table (JSON), the ``nvidia-smi``
@@ -139,6 +157,7 @@ MULTIHOST_LANES = 8  # lanes per process of the multi-process leg
 HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's memory rate
 REPEATS = 20  # timed kernel launches at CORPUS lanes
 IMAD_PER_SM_PER_CLOCK = 64  # 32-bit integer multiply-add, compute capability 9.0
+INT8_OPS_PER_S = 1.979e15  # the H100 SXM's dense int8 tensor-core rate
 
 # Small-order encodings (order divides 8) and their sign-bit variants.
 ID_ENC = (1).to_bytes(32, "little")  # identity, y = 1
@@ -689,6 +708,41 @@ def check_kernel_vs_plain(tens, pre_ok, want) -> int:
     return err
 
 
+def mul_operands(seed: int, n: int):
+    """Two (17, n) int32 operands of the mxu multiply: random limbs in [0,
+    LOOSE], the first 64 columns of ``a`` and columns 32-95 of ``b`` with
+    every limb at LOOSE (the limb maximum), column 96 zero."""
+    from mochi_tpu_torch.crypto import field as F
+
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, F.LOOSE + 1, (F.NLIMBS, n)).astype(np.int32)
+    b = rng.integers(0, F.LOOSE + 1, (F.NLIMBS, n)).astype(np.int32)
+    a[:, :64] = F.LOOSE
+    b[:, 32:96] = F.LOOSE
+    a[:, 96] = 0
+    return a, b
+
+
+def mxu_service_problems(svc: dict, launched: bool = True) -> List[str]:
+    """What phase 5m must not show: a bitmap off the expected verdicts, no
+    mxu launch (when ``launched``, as on a card), a launch of the general
+    (``pad``) or a comb kernel, an item that missed the device, a fallback."""
+    problems = []
+    if svc["mismatched_requests"]:
+        problems.append(f"{svc['mismatched_requests']} bitmaps differ from the expected verdicts")
+    if launched and svc["verify_mxu_launches"] <= 0:
+        problems.append("the mxu kernel was never launched")
+    if svc["verify_launches"] or any(svc["comb_launches"].values()):
+        problems.append(f"service under mxu: general launches {svc['verify_launches']}, "
+                        f"comb launches {svc['comb_launches']}")
+    if svc["device_items"] != svc["items"]:
+        problems.append(f"{svc['device_items']} items on the device, {svc['items']} sent")
+    for key in ("fallback_batches", "crossover_batches", "remote_fallbacks"):
+        if svc[key]:
+            problems.append(f"service under mxu: {key} = {svc[key]}")
+    return problems
+
+
 def check_comb_vs_plain(table25, table15, lanes, pre_ok, want, impl: str = "chain") -> int:
     """The comb kernel of ``impl`` (``chain`` or ``tree``) and its plain
     version on the same card tensors: the max abs difference of their
@@ -887,38 +941,42 @@ def _zero_counts():
     from mochi_tpu_torch.crypto import cuda_verify as CV
     from mochi_tpu_torch.parallel import cuda_tally as CT
 
-    CV.launches = CT.launches = CT.commit_launches = 0
+    CT.launches = CT.commit_launches = 0
     BV.reset_counts()
-    CV.launch_log = []
+    for skew in CV.launches:
+        CV.launches[skew], CV.launch_logs[skew] = 0, []
     for impl in CC.launches:
         CC.launches[impl], CC.launch_logs[impl] = 0, []
 
 
 def _read_counts(out: dict):
     """Counts and traces read just after a main-path phase; returns the
-    verify kernel's launch log and the comb kernels' (keyed by impl) and
-    turns tracing off.  ``comb_launches`` is keyed by impl;
-    ``launches_by_card`` counts the verify kernels' launches on each card."""
+    general kernels' launch logs (keyed by skew) and the comb kernels' (keyed
+    by impl) and turns tracing off.  ``verify_launches`` counts the general
+    kernel's (``pad``) launches, ``verify_mxu_launches`` the mxu kernel's,
+    ``comb_launches`` is keyed by impl; ``launches_by_card`` counts the
+    verify kernels' launches on each card."""
     from mochi_tpu_torch.crypto import batch_verify as BV
     from mochi_tpu_torch.crypto import cuda_comb as CC
     from mochi_tpu_torch.crypto import cuda_verify as CV
     from mochi_tpu_torch.parallel import cuda_tally as CT
 
-    out["verify_launches"] = CV.launches
+    out["verify_launches"] = CV.launches["pad"]
+    out["verify_mxu_launches"] = CV.launches["mxu"]
     out["comb_launches"] = dict(CC.launches)
     out["tally_launches"] = CT.launches
     out["commit_launches"] = CT.commit_launches
     out["device_items"] = BV.device_item_count()
     out["device_dispatches"] = BV.device_dispatch_count()
     out["routing"] = BV.comb_routing_counts()
-    vlog, clogs = CV.launch_log, dict(CC.launch_logs)
-    CV.launch_log = None
+    vlogs, clogs = dict(CV.launch_logs), dict(CC.launch_logs)
+    CV.launch_logs.update(dict.fromkeys(vlogs))
     CC.launch_logs.update(dict.fromkeys(clogs))
     by_card: dict = {}
-    for _, start, _ in vlog + sum(clogs.values(), []):
+    for _, start, _ in sum(vlogs.values(), []) + sum(clogs.values(), []):
         by_card[f"cuda:{start.device.index}"] = by_card.get(f"cuda:{start.device.index}", 0) + 1
     out["launches_by_card"] = by_card
-    return vlog, clogs
+    return vlogs, clogs
 
 
 def _other_comb_launches(out: dict, impl: Optional[str] = None) -> dict:
@@ -952,10 +1010,11 @@ def _drive(coro_fn, out_key: str, res: dict):
         # events of different cards cannot be compared: one card at a time
         return device_busy([ln for ln in log if ln[1].device.index == card], *refs[card])
 
-    vlog, clogs = logs
-    every = vlog + sum(clogs.values(), [])
+    vlogs, clogs = logs
+    every = sum(vlogs.values(), []) + sum(clogs.values(), [])
     out["device"] = busy(every, 0)
-    out["device"]["verify_kernel"] = busy(vlog, 0)["launch_ms_by_lanes"]
+    out["device"]["verify_kernel"] = busy(vlogs["pad"], 0)["launch_ms_by_lanes"]
+    out["device"]["verify_mxu_kernel"] = busy(vlogs["mxu"], 0)["launch_ms_by_lanes"]
     out["device"]["comb_kernels"] = {impl: busy(log, 0)["launch_ms_by_lanes"] for impl, log in clogs.items()}
     if len(cards) > 1:
         out["device"]["by_card"] = {f"cuda:{i}": busy(every, i) for i in cards}
@@ -973,6 +1032,7 @@ def run(args) -> dict:
     from mochi_tpu_torch.crypto import cuda_comb as CC
     from mochi_tpu_torch.crypto import cuda_verify as CV
     from mochi_tpu_torch.crypto import curve
+    from mochi_tpu_torch.crypto import field as F
     from mochi_tpu_torch.crypto import keys
     from mochi_tpu_torch.parallel import cuda_tally as CT
 
@@ -997,11 +1057,12 @@ def run(args) -> dict:
     took = kernels.build_all()
     res["build_s"] = time.perf_counter() - t0
     res["build_s_by_kernel"] = took
-    res["kernel_attributes"] = {"verify": CV.kernel_attributes(), "comb": CC.kernel_attributes(),
-                                "comb_tree": CC.kernel_attributes("tree"), "tally": CT.kernel_attributes()}
+    res["kernel_attributes"] = {"verify": CV.kernel_attributes(), "verify_mxu": CV.kernel_attributes("mxu"),
+                                "comb": CC.kernel_attributes(), "comb_tree": CC.kernel_attributes("tree"),
+                                "tally": CT.kernel_attributes()}
     print(f"[build] {res['build_s']:.1f} s {took}; {res['kernel_attributes']}", flush=True)
     res["ptxas"] = {}
-    for name in ("verify", "comb", "comb_tree", "tally"):
+    for name in ("verify", "verify_mxu", "comb", "comb_tree", "tally"):
         for ln in kernels.build_logs.get(name, "").splitlines():
             if "registers" in ln or "spill" in ln:
                 res["ptxas"].setdefault(name, []).append(ln.strip())
@@ -1055,10 +1116,10 @@ def run(args) -> dict:
     # one lone 43-grant certificate check through verify_batch, end to end
     cert = traffic[0][0][0]
     BV.verify_batch(cert, dev)
-    l0, t0 = CV.launches, time.perf_counter()
+    l0, t0 = CV.launches["pad"], time.perf_counter()
     for _ in range(10):
         BV.verify_batch(cert, dev)
-    cert_ms, cert_launches = 1e2 * (time.perf_counter() - t0), (CV.launches - l0) / 10
+    cert_ms, cert_launches = 1e2 * (time.perf_counter() - t0), (CV.launches["pad"] - l0) / 10
     # launch size: one launch of n lanes, n from 1024 to 4 x the large launch
     tiled = [torch.cat([t] * 4) for t in big_t]
     sweep = {}
@@ -1081,7 +1142,8 @@ def run(args) -> dict:
     print(f"[times] {res['times']}", flush=True)
 
     # 5. service: the main path of the general kernel
-    svc, (vlog, _) = _drive(lambda: drive_service(traffic, "cuda", secret), "service", res)
+    svc, (vlogs, _) = _drive(lambda: drive_service(traffic, "cuda", secret), "service", res)
+    vlog = vlogs["pad"]
     svc["kernel_launches"] = svc["verify_launches"]
     svc["launches_per_request"] = svc["kernel_launches"] / svc["requests"]
     # kernel vs plain at every lane count the service launched
@@ -1100,8 +1162,65 @@ def run(args) -> dict:
     for key in ("fallback_batches", "crossover_batches", "remote_fallbacks"):
         if svc[key]:
             problems.append(f"service: {key} = {svc[key]}")
-    if _other_comb_launches(svc):
-        problems.append(f"service: comb launches {svc['comb_launches']}")
+    if _other_comb_launches(svc) or svc["verify_mxu_launches"]:
+        problems.append(f"service: comb launches {svc['comb_launches']}, mxu launches {svc['verify_mxu_launches']}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+    # 3m-5m. the mxu kernel: on the corpus, its times, the service under it
+    skew0 = F.SKEW_IMPL  # MOCHI_SKEW_IMPL, restored after
+    try:
+        F.SKEW_IMPL = "mxu"
+        mgot = CV.verify_prepared_packed(*tens).cpu().numpy()
+        mfinal = np.logical_and(mgot, pre_ok)
+        mwrong = [k for k, g, w in zip(kinds, mfinal, want) if bool(g) != w]
+        msample_wrong = [j for j in sample if keys.verify(items[j].public_key, items[j].message,
+                                                          items[j].signature) != bool(mfinal[j])]
+        part = len(items) - PARTIAL
+        mcheck = {n: check_kernel_vs_plain([t[:n] for t in tens], pre_ok[:n], want[:n]) for n in (len(items), part)}
+        mvs_pad = int(np.sum(mgot != got_np))  # verify.cu's bitmap, lane for lane
+        mul_a, mul_b = mul_operands(args.seed + 7, BIG)
+        mul_at, mul_bt = torch.from_numpy(mul_a).to(dev), torch.from_numpy(mul_b).to(dev)
+        mul_err = int((CV.fe_mul_mxu(mul_at, mul_bt).to(F.DTYPE)
+                       - F._mul_mxu(mul_at.to(F.DTYPE), mul_bt.to(F.DTYPE))).abs().max().item())
+        res["mxu_corpus"] = {
+            "items": len(items), "accepted": int(mfinal.sum()), "kernel_vs_plain_max_abs_err": max(mcheck.values()),
+            "lane_counts_checked": sorted(mcheck), "lanes_differing_from_verify_cu": mvs_pad,
+            "wrong_verdicts": len(mwrong), "sample_vs_keys_verify_wrong": len(msample_wrong),
+            "mul_pairs": BIG, "mul_vs_plain_max_abs_err": mul_err,
+        }
+        print(f"[mxu vs plain] {res['mxu_corpus']}", flush=True)
+        if mvs_pad or mwrong or msample_wrong or mul_err:
+            raise AssertionError(f"mxu kernel disagrees: {mvs_pad} lanes with verify.cu, wrong kinds "
+                                 f"{sorted(set(mwrong))[:10]}, sample lanes {msample_wrong[:10]}, multiply {mul_err}")
+        mxu_8k = _ms_median(lambda: CV.verify_prepared_packed(*tens), 2, REPEATS)
+        mxu_64k = _ms_median(lambda: CV.verify_prepared_packed(*big_t), 1, REPEATS // 4)
+        mxu_plain = _ms_median(lambda: curve.verify_prepared_packed(*tens), 1, 3)
+        mul_ms = _ms_median(lambda: CV.fe_mul_mxu(mul_at, mul_bt), 3, REPEATS)
+        mul_bounds = {
+            "bytes": 1e3 * BIG * CV.BYTES_PER_MUL / HBM_BYTES_PER_S,
+            "imad": 1e3 * BIG * CV.PRODUCTS_PER_MUL / rate,
+            "tensor_int8": 1e3 * BIG * 2 * CV.MMA_MACS_PER_MUL / INT8_OPS_PER_S,
+        }
+        res["mxu_times"] = {
+            "kernel_ms_8192": mxu_8k, "kernel_ms_65536": mxu_64k, "plain_ms_8192": mxu_plain,
+            "bound_ms_8192": bound(len(items)), "bound_ms_65536": bound(len(flat)),
+            "sigs_per_s_8192": len(items) / (mxu_8k / 1e3), "sigs_per_s_65536": len(flat) / (mxu_64k / 1e3),
+            "over_verify_cu_ms_8192": mxu_8k / ms_8k,
+            "mul_ms_65536": mul_ms, "mul_bounds_ms": mul_bounds,
+            "mul_bound_by": max(mul_bounds, key=mul_bounds.get),
+            "attributes": res["kernel_attributes"]["verify_mxu"], "ptxas": res["ptxas"].get("verify_mxu", []),
+        }
+        print(f"[mxu times] {res['mxu_times']}", flush=True)
+        # 5m. the service under the switch: every item on the mxu kernel
+        svc_m, (vlogs_m, _) = _drive(lambda: drive_service(traffic, "cuda", secret), "service_mxu", res)
+        for n in sorted({n for n, _, _ in vlogs_m["mxu"]} - set(mcheck)):
+            mcheck[n] = check_kernel_vs_plain([t[:n] for t in big_t], big[6][:n], flat_want[:n])
+        svc_m["mxu_lane_counts_checked_vs_plain"] = sorted({n for n, _, _ in vlogs_m["mxu"]})
+    finally:
+        F.SKEW_IMPL = skew0
+    print(f"[service, mxu] mxu kernel equals plain at lane counts {sorted(mcheck)}", flush=True)
+    problems = mxu_service_problems(svc_m)
     if problems:
         raise AssertionError("; ".join(problems))
 
@@ -1245,7 +1364,8 @@ def run(args) -> dict:
     if (svc2["comb_launches"]["chain"] <= 0 or _other_comb_launches(svc2, "chain")
             or svc2["routing"]["comb_items"] != svc2["items"]):
         problems.append(f"comb launches {svc2['comb_launches']}, routing {svc2['routing']} for {svc2['items']} items")
-    for key in ("fallback_batches", "crossover_batches", "remote_fallbacks", "verify_launches"):
+    for key in ("fallback_batches", "crossover_batches", "remote_fallbacks", "verify_launches",
+                "verify_mxu_launches"):
         if svc2[key]:
             problems.append(f"service with signers: {key} = {svc2[key]}")
     if problems:
@@ -1272,16 +1392,17 @@ def run(args) -> dict:
             or svc2t["routing"]["comb_items"] != svc2t["items"]):
         problems.append(f"comb launches {svc2t['comb_launches']}, routing {svc2t['routing']} "
                         f"for {svc2t['items']} items")
-    for key in ("fallback_batches", "crossover_batches", "remote_fallbacks", "verify_launches"):
+    for key in ("fallback_batches", "crossover_batches", "remote_fallbacks", "verify_launches",
+                "verify_mxu_launches"):
         if svc2t[key]:
             problems.append(f"service with signers under the tree: {key} = {svc2t[key]}")
     if problems:
         raise AssertionError("; ".join(problems))
 
     # 9. the cluster: the system's main path
-    cl, (vlog2, clogs2) = _drive(lambda: drive_cluster("cuda", CLUSTER_N, CLUSTER_CLIENTS, CLUSTER_WRITES),
-                                 "cluster", res)
-    clog2 = clogs2["chain"]
+    cl, (vlogs2, clogs2) = _drive(lambda: drive_cluster("cuda", CLUSTER_N, CLUSTER_CLIENTS, CLUSTER_WRITES),
+                                  "cluster", res)
+    vlog2, clog2 = vlogs2["pad"], clogs2["chain"]
     check_comb(n for n, _, _ in clog2)
     for n in sorted({n for n, _, _ in vlog2} - set(checked)):
         checked[n] = check_kernel_vs_plain([t[:n] for t in big_t], big[6][:n], flat_want[:n])
@@ -1292,8 +1413,8 @@ def run(args) -> dict:
     problems = []
     if cl["comb_launches"]["chain"] <= 0 or cl["routing"]["comb_items"] <= 0:
         problems.append(f"the comb kernel carried nothing: {cl['comb_launches']} launches, {cl['routing']}")
-    if _other_comb_launches(cl, "chain"):
-        problems.append(f"cluster: comb launches {cl['comb_launches']}")
+    if _other_comb_launches(cl, "chain") or cl["verify_mxu_launches"]:
+        problems.append(f"cluster: comb launches {cl['comb_launches']}, mxu launches {cl['verify_mxu_launches']}")
     for key in ("fallback_batches", "crossover_batches"):
         if cl[key]:
             problems.append(f"cluster: {key} = {cl[key]}")
@@ -1316,6 +1437,22 @@ def run(args) -> dict:
         "bound_ms": bound(len(items)),
         "bound_by": "operations",
         "library_ms": None,
+    }, {
+        "name": "ed25519_verify_mxu",
+        "route": "cuda",
+        "source": "mochi_tpu_torch/csrc/verify_mxu.cu",
+        "replaces": "mochi_tpu/crypto/field.py:330",
+        "launches": svc_m["verify_mxu_launches"],
+        "max_abs_err": max([*mcheck.values(), mul_err]),
+        "ms": mxu_8k,
+        "ms_65536": mxu_64k,
+        "plain_ms": mxu_plain,
+        "bound_ms": bound(len(items)),
+        "bound_by": "operations",
+        "library_ms": None,
+        "mul_ms_65536": mul_ms,
+        "mul_bound_ms": max(mul_bounds.values()),
+        "mul_bound_by": res["mxu_times"]["mul_bound_by"],
     }, {
         "name": "comb_verify",
         "route": "cuda",
@@ -1394,7 +1531,8 @@ def sharded_phases(seed: int, res: dict, traffic, signers: List[Signer], secret:
     idle_cards = [i for i in range(n_cards) if svc3["launches_by_card"].get(f"cuda:{i}", 0) <= 0]
     if idle_cards:
         problems.append(f"no comb launches on cards {idle_cards}: {svc3['launches_by_card']}")
-    for key in ("fallback_batches", "crossover_batches", "remote_fallbacks", "verify_launches"):
+    for key in ("fallback_batches", "crossover_batches", "remote_fallbacks", "verify_launches",
+                "verify_mxu_launches"):
         if svc3[key]:
             problems.append(f"sharded service: {key} = {svc3[key]}")
     if problems:

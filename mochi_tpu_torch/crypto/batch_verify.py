@@ -19,7 +19,9 @@ takes the general kernel), as in the reference.  ``MOCHI_COMB_IMPL``
 (``comb.COMB_IMPL``: ``chain`` by default, or ``tree``) chooses which comb
 kernel every comb launch runs, as the reference's switch reaches every comb
 caller: the verifier service, ``CudaBatchVerifier``, the sharded backend and
-the replica all launch through :func:`_dispatch`.
+the replica all launch through :func:`_dispatch`.  ``MOCHI_SKEW_IMPL=mxu``
+(``field.SKEW_IMPL``) reaches every general launch the same way: they run
+the tensor-core kernel (:mod:`.cuda_verify`).
 
 Requests larger than the launch size are cut into chunks.  Every chunk is
 launched before any is read back, so chunk k+1's host prepare runs while
@@ -387,7 +389,7 @@ class TorchBatchBackend:
         upload the comb table of the registered signers, so no request waits
         for either."""
         if self.device.type == "cuda":
-            cuda_verify._lib()  # builds every missing kernel at once
+            cuda_verify._lib(cuda_verify.skew())  # builds every missing kernel at once
             cuda_comb._lib(_comb.COMB_IMPL)
             if len(self.registry):
                 self.registry.device_table(self.device)

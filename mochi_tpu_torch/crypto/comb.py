@@ -29,12 +29,13 @@ Three layers live here:
   additions).  The CPU tests run it and the chip smoke test holds the
   kernels against it; it is never on the main path when a card is present.
 
-``MOCHI_COMB_IMPL`` (``chain``, the default, or ``tree``), read at import
-into :data:`COMB_IMPL` as the reference reads it, chooses the accumulation
-for every caller that does not name one.  The reference selects the tree's
-basepoint rows with a one-hot float32 matmul; here that select is an exact
-integer gather, so no float product (exact only while TF32 is off,
-ROADMAP.md Queue C) is anywhere on either path.
+``MOCHI_COMB_IMPL``, read at import into :data:`COMB_IMPL` as the
+reference reads it, chooses the accumulation for every caller that does not
+name one: ``tree`` the tree, any other value the chain (the default), as the
+reference runs the chain for every value but ``tree``.  The reference
+selects the tree's basepoint rows with a one-hot float32 matmul; here that
+select is an exact integer gather, so no float product (exact only while
+TF32 is off, ROADMAP.md Queue C) is anywhere on either path.
 
 Verdict semantics are the general path's: the same host prechecks, R's RFC
 8032 decode on the device, the same cofactorless equation.  Registration
@@ -45,6 +46,7 @@ then simply takes the general kernel.
 from __future__ import annotations
 
 import os
+import sys
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -62,13 +64,21 @@ ROW_WIDTH = 3 * F.NLIMBS  # ypx | ymx | xy2d
 COMB_IMPLS = ("chain", "tree")
 
 
+_substituted: set = set()
+
+
 def check_impl(impl: Optional[str]) -> str:
-    """``impl``, or :data:`COMB_IMPL` when None; any other name than
-    ``chain`` or ``tree`` is refused."""
+    """The accumulation that runs for ``impl`` (:data:`COMB_IMPL` when
+    None): ``tree`` for ``tree``, ``chain`` for any other value, as the
+    reference does; a name other than the two is said once on stderr."""
     impl = COMB_IMPL if impl is None else impl
-    if impl not in COMB_IMPLS:
-        raise ValueError(f"comb accumulation {impl!r} (MOCHI_COMB_IMPL or impl=): expected 'chain' or 'tree'")
-    return impl
+    if impl == "tree":
+        return "tree"
+    if impl != "chain" and impl not in _substituted:
+        _substituted.add(impl)
+        print(f"mochi_tpu_torch: comb accumulation {impl!r} (MOCHI_COMB_IMPL or impl=) runs the chain, "
+              "as the reference does for any value but 'tree'", file=sys.stderr)
+    return "chain"
 
 
 # The accumulation every comb verify runs unless its caller names one.

@@ -28,6 +28,7 @@ The kernels do not synchronise: the caller reads the bitmap back.
 from __future__ import annotations
 
 import ctypes
+import sys
 import threading
 from functools import lru_cache
 
@@ -151,15 +152,27 @@ def kernel_attributes(impl: str = "chain") -> dict:
     return query(_lib().mochi_comb_verify_attrs)
 
 
+# The multiply every comb kernel runs: its own radix-2^25.5 schoolbook,
+# whatever MOCHI_SKEW_IMPL says (the comb kernels' mxu multiply is not
+# ported yet); said once on stderr when a launch runs under mxu.
+MULTIPLY = "pad"
+_said_mxu = False
+
+
 def verify_comb_prepared(table, key_idx, y_r, sign_r, s_bytes, h_bytes, impl=None) -> torch.Tensor:
     """(B,) bool bitmap of the comb verify with ``impl``'s accumulation
     (default ``comb.COMB_IMPL``; see the module docstring)."""
+    global _said_mxu
     impl = comb.check_impl(impl)
     device = y_r.device
     if device.type == "cpu":
         return comb.verify_comb_prepared(table, key_idx, y_r, sign_r, s_bytes, h_bytes, impl=impl)
     if device.type != "cuda":
         raise ValueError(f"no comb kernel for device {device}")
+    if F.SKEW_IMPL == "mxu" and not _said_mxu:
+        _said_mxu = True
+        print(f"mochi_tpu_torch: the comb kernels run their own {MULTIPLY} multiply under MOCHI_SKEW_IMPL=mxu "
+              "(their mxu multiply is not ported yet)", file=sys.stderr)
     n = y_r.shape[0]
     if table.dim() != 3 or tuple(table.shape[1:]) != (3, 10) or table.shape[0] == 0:
         raise ValueError(f"table has shape {tuple(table.shape)}, expected (rows, 3, 10) in the kernel radix")

@@ -19,10 +19,22 @@ algorithm is unchanged): limbs in ``[0, LOOSE]`` with ``LOOSE = 2^15 + 96``;
 products <= LOOSE^2 < 2^31; columns < 2^21; folded columns < 2^26; two
 carry passes restore the invariant.  Exact reduction happens only in
 :func:`canonical`.
+
+``MOCHI_SKEW_IMPL`` (:data:`SKEW_IMPL`, read at import as the reference
+reads it) chooses how a multiply reduces its 17 x 17 products to columns.
+``mxu`` sends every multiply and squaring of two rank-2 ``(17, B)``
+operands through :func:`_mul_mxu`, the column reduction as one matrix
+product against a constant 0/1 matrix (the reference's MXU form); the
+general verify kernel then becomes ``csrc/verify_mxu.cu``, the same
+reduction on the integer tensor cores.  Every other value (``pad``, the
+default, ``reshape`` and ``shift``, which are layouts of the same columns
+in the reference, or an unknown name, which the reference also runs as
+``pad``) takes the one schoolbook multiply here.  Both give the same limbs.
 """
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 
 import numpy as np
@@ -47,6 +59,13 @@ BX_INT = 15112221349535400772501151409588531511454012693041857206046113283949847
 BY_INT = 46316835694926478169428394003475163141307993866256225615783033603165251855960
 
 DTYPE = torch.int64
+
+# How a multiply reduces its products to columns (see the module docstring).
+SKEW_IMPL = os.environ.get("MOCHI_SKEW_IMPL", "pad")
+
+
+def available_skews():
+    return ("pad", "reshape", "shift", "mxu")
 
 
 # ------------------------------------------------------------ host helpers
@@ -178,10 +197,53 @@ def neg(a: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------------- multiply
 
 
+def _build_mxu_matrix() -> np.ndarray:
+    """The reduction matrix of :func:`_mul_mxu`, (34, 578) of 0/1: row k
+    sums the lo halves of the products with i + j == k (column i*17 + j)
+    and the hi halves with i + j + 1 == k (column 289 + i*17 + j), as the
+    reference builds it."""
+    m = np.zeros((2 * NLIMBS, 2 * NLIMBS * NLIMBS), dtype=np.float64)
+    for i in range(NLIMBS):
+        for j in range(NLIMBS):
+            m[i + j, i * NLIMBS + j] = 1.0
+            m[i + j + 1, NLIMBS * NLIMBS + i * NLIMBS + j] = 1.0
+    return m
+
+
+@lru_cache(maxsize=None)
+def _mxu_matrix(device: str) -> torch.Tensor:
+    return torch.from_numpy(_build_mxu_matrix()).to(device)
+
+
+def _mul_mxu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The multiply of two (17, B) operands with its column reduction as
+    one matrix product: the 289 products split into lo (15 bits) and hi,
+    stacked as a (578, B) operand, multiplied by the constant (34, 578) 0/1
+    matrix; the top 17 columns fold by 19, then :func:`_carry2`.  Limb for
+    limb the reference's ``_mul_mxu`` and :func:`mul`'s schoolbook.
+
+    The product is float64: every entry is an integer below 2^16 and every
+    sum one below 2^21 < 2^53, so the result is exact in any summation
+    order, and float64 matmuls run on the card (int64 ones do not) and
+    never go through TF32.  The reference's float32 is exact only at
+    ``precision=HIGHEST``; no float32 product is used here."""
+    prod = a[:, None] * b[None, :]  # (17, 17, B), <= LOOSE^2 < 2^31
+    lanes = prod.shape[2:]
+    lo = (prod & MASK).reshape(NLIMBS * NLIMBS, *lanes)
+    hi = (prod >> RADIX).reshape(NLIMBS * NLIMBS, *lanes)
+    p = torch.cat([lo, hi], dim=0).to(torch.float64)  # (578, B)
+    cols = (_mxu_matrix(str(p.device)) @ p).to(DTYPE)  # (34, B), exact
+    return _carry2(cols[:NLIMBS] + 19 * cols[NLIMBS:])
+
+
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Schoolbook 17x17 multiply with the reference's lo/hi split: the
     15-bit halves of every product are summed into columns (lo at i+j, hi
-    at i+j+1), the top 17 columns fold at 2^255 = 19, two carry passes."""
+    at i+j+1), the top 17 columns fold at 2^255 = 19, two carry passes.
+    Under ``SKEW_IMPL == "mxu"`` two rank-2 operands take
+    :func:`_mul_mxu` (the same limbs), as in the reference."""
+    if SKEW_IMPL == "mxu" and a.dim() == 2 == b.dim():
+        return _mul_mxu(a, b)
     prod = a[:, None] * b[None, :]  # (17, 17, *lanes)
     lanes = prod.shape[2:]
     idx = _column_index(str(prod.device))
@@ -195,7 +257,8 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def square(a: torch.Tensor) -> torch.Tensor:
     """a^2.  The reference's symmetric schoolbook produces exactly the
-    columns of ``mul(a, a)``, so this is that."""
+    columns of ``mul(a, a)``, so this is that (under ``mxu`` a rank-2
+    square takes :func:`_mul_mxu`, as the reference's does)."""
     return mul(a, a)
 
 

@@ -21,25 +21,45 @@
 //   * the projective compare X_Q == x_R Z_Q and Y_Q == y_R Z_Q.
 // Table lookups are direct indexed loads: verification works on public
 // data, so data-dependent indexing is allowed here.
+//
+// The formulas are templates over the field type FE: `fe` (fe25519.cuh,
+// the kernels' radix 2^25.5) and `fe17` (fe17.cuh, the reference's 17 x
+// 15-bit limbs with the tensor-core multiply of verify_mxu.cu).  A field
+// type supplies fe_0/fe_1/fe_copy/fe_add/fe_sub/fe_neg/fe_carry/fe_mul/
+// fe_sq/fe_eq/fe_is_zero/fe_canonical/fe_pow22523/fe_from_limbs15, the
+// constants fe_const_d/_d2/_sqrtm1, fe_mul_sqrtm1_if and fe_neg_if (the
+// decode's conditional multiply and parity flip) and fe_select.  Where the
+// kernel radix branches on a lane's data (those two, the ladder's
+// signed-digit selects), it keeps its own non-template code below; any
+// other field type takes a branchless form: a warp-cooperative multiply
+// needs every lane of the warp converged at every call, and a lane that
+// branched on its own data need not be.
 #pragma once
 
 #include "fe25519.cuh"
 
-typedef struct {
-  fe X, Y, Z, T;
-} ge_p3;
+template <class FE>
+struct ge_p3_t {
+  FE X, Y, Z, T;
+};
 
 // (Y+X, Y-X, Z, 2dT): the addend form of a variable point.
-typedef struct {
-  fe YplusX, YminusX, Z, T2d;
-} ge_cached;
+template <class FE>
+struct ge_cached_t {
+  FE YplusX, YminusX, Z, T2d;
+};
 
 // (y+x, y-x, 2dxy) of an affine point: the addend form of a table constant.
 // Entries are canonical (< 2^26 / 2^25 per limb, within LOOSE) and only
 // ever enter a multiply.
-typedef struct {
-  fe ypx, ymx, xy2d;
-} ge_niels;
+template <class FE>
+struct ge_niels_t {
+  FE ypx, ymx, xy2d;
+};
+
+typedef ge_p3_t<fe> ge_p3;
+typedef ge_cached_t<fe> ge_cached;
+typedef ge_niels_t<fe> ge_niels;
 
 MOCHI_HD void fe_const_d(fe* h) {
   const int32_t c[10] = {56195235, 13857412, 51736253, 6949390, 114729,
@@ -59,15 +79,34 @@ MOCHI_HD void fe_const_sqrtm1(fe* h) {
   for (int i = 0; i < 10; ++i) h->v[i] = c[i];
 }
 
-MOCHI_HD void ge_identity(ge_p3* r) {
+// The kernel radix's conditional multiply of the decode: a branch, as
+// verify.cu has always run it (a thread's own chain, nothing to keep in
+// step with).
+MOCHI_HD void fe_mul_sqrtm1_if(fe* x, int cond) {
+  if (cond) {
+    fe s;
+    fe_const_sqrtm1(&s);
+    fe_mul(x, x, &s);
+  }
+}
+
+// x = -x when `cond` (the decode's parity flip): a branch in the kernel
+// radix.
+MOCHI_HD void fe_neg_if(fe* x, int cond) {
+  if (cond) fe_neg(x, x);
+}
+
+template <class FE>
+MOCHI_HD void ge_identity(ge_p3_t<FE>* r) {
   fe_0(&r->X);
   fe_1(&r->Y);
   fe_1(&r->Z);
   fe_0(&r->T);
 }
 
-MOCHI_HD void ge_to_cached(ge_cached* r, const ge_p3* p) {
-  fe d2;
+template <class FE>
+MOCHI_HD void ge_to_cached(ge_cached_t<FE>* r, const ge_p3_t<FE>* p) {
+  FE d2;
   fe_const_d2(&d2);
   fe_add(&r->YplusX, &p->Y, &p->X);   // 2 TIGHT terms
   fe_sub(&r->YminusX, &p->Y, &p->X);  // 2 TIGHT terms
@@ -76,8 +115,9 @@ MOCHI_HD void ge_to_cached(ge_cached* r, const ge_p3* p) {
 }
 
 // r = p + q (add-2008-hwcd-3, 8 multiplies).  r may alias p.
-MOCHI_HD void ge_add(ge_p3* r, const ge_p3* p, const ge_cached* q) {
-  fe a, b, c, d, e, f, g, h, t;
+template <class FE>
+MOCHI_HD void ge_add(ge_p3_t<FE>* r, const ge_p3_t<FE>* p, const ge_cached_t<FE>* q) {
+  FE a, b, c, d, e, f, g, h, t;
   fe_sub(&t, &p->Y, &p->X);
   fe_mul(&a, &t, &q->YminusX);
   fe_add(&t, &p->Y, &p->X);
@@ -96,8 +136,9 @@ MOCHI_HD void ge_add(ge_p3* r, const ge_p3* p, const ge_cached* q) {
 }
 
 // r = p + q for a table constant q (madd-2008-hwcd-3, 7 multiplies).
-MOCHI_HD void ge_madd(ge_p3* r, const ge_p3* p, const ge_niels* q) {
-  fe a, b, c, d, e, f, g, h, t;
+template <class FE>
+MOCHI_HD void ge_madd(ge_p3_t<FE>* r, const ge_p3_t<FE>* p, const ge_niels_t<FE>* q) {
+  FE a, b, c, d, e, f, g, h, t;
   fe_sub(&t, &p->Y, &p->X);
   fe_mul(&a, &t, &q->ymx);
   fe_add(&t, &p->Y, &p->X);
@@ -117,8 +158,9 @@ MOCHI_HD void ge_madd(ge_p3* r, const ge_p3* p, const ge_niels* q) {
 // r = 2p (dbl-2008-hwcd, 4 squarings + 3 or 4 multiplies).  The formula
 // never reads p->T, so T is computed only when the caller needs it (the
 // last of the four doublings of a window).  r may alias p.
-MOCHI_HD void ge_dbl(ge_p3* r, const ge_p3* p, int need_t) {
-  fe a, b, c, e, f, g, h, t;
+template <class FE>
+MOCHI_HD void ge_dbl(ge_p3_t<FE>* r, const ge_p3_t<FE>* p, int need_t) {
+  FE a, b, c, e, f, g, h, t;
   fe_sq(&a, &p->X);
   fe_sq(&b, &p->Y);
   fe_sq(&t, &p->Z);
@@ -139,8 +181,9 @@ MOCHI_HD void ge_dbl(ge_p3* r, const ge_p3* p, int need_t) {
 // RFC 8032 section 5.1.3 decode of (y, sign) with y given as 17 15-bit
 // limbs.  Returns 1 for a point, 0 for a non-point (no square root, or
 // x = 0 with sign = 1).  The point is written even when rejected.
-MOCHI_HD int ge_decode(ge_p3* r, const int32_t* y15, int stride, int sign) {
-  fe y, yy, u, v, v3, v7, t, x, vxx, one, dc;
+template <class FE>
+MOCHI_HD int ge_decode(ge_p3_t<FE>* r, const int32_t* y15, int stride, int sign) {
+  FE y, yy, u, v, v3, v7, t, x, vxx, one, dc;
   fe_from_limbs15(&t, y15, stride);
   fe_carry(&y, &t);
   fe_1(&one);
@@ -162,18 +205,14 @@ MOCHI_HD int ge_decode(ge_p3* r, const int32_t* y15, int stride, int sign) {
   const int root_ok = fe_eq(&vxx, &u);
   fe_add(&t, &vxx, &u);
   const int root_neg = fe_is_zero(&t);  // v x^2 == -u
-  if (root_neg) {
-    fe s;
-    fe_const_sqrtm1(&s);
-    fe_mul(&x, &x, &s);
-  }
+  fe_mul_sqrtm1_if(&x, root_neg);
   int ok = root_ok | root_neg;
-  fe xc;
+  FE xc;
   fe_canonical(&xc, &x);
   int32_t any = 0;
-  for (int i = 0; i < 10; ++i) any |= xc.v[i];
-  if (any == 0 && sign == 1) ok = 0;
-  if ((xc.v[0] & 1) != sign) fe_neg(&x, &x);
+  for (int i = 0; i < (int)(sizeof(xc.v) / sizeof(xc.v[0])); ++i) any |= xc.v[i];
+  ok &= !(any == 0 && sign == 1);
+  fe_neg_if(&x, (xc.v[0] & 1) != sign);
   fe_copy(&r->X, &x);
   fe_copy(&r->Y, &y);
   fe_1(&r->Z);
@@ -195,8 +234,9 @@ MOCHI_HD void recode_signed4(int8_t* dig, const uint8_t* bytes) {
 }
 
 // ptab[k] = [k]P for k in 0..8, in cached form (65 multiplies).
-MOCHI_HD void ge_small_multiples(ge_cached* ptab, const ge_p3* p) {
-  ge_p3 acc;
+template <class FE>
+MOCHI_HD void ge_small_multiples(ge_cached_t<FE>* ptab, const ge_p3_t<FE>* p) {
+  ge_p3_t<FE> acc;
   ge_identity(&acc);
   ge_to_cached(&ptab[0], &acc);
   ge_to_cached(&ptab[1], p);
@@ -207,39 +247,70 @@ MOCHI_HD void ge_small_multiples(ge_cached* ptab, const ge_p3* p) {
   }
 }
 
+// r = e, or -e when `neg` (y+x and y-x swapped, the T term negated).  The
+// kernel radix branches; other field types select without a branch.
+MOCHI_HD void ge_cached_signed(ge_cached* r, const ge_cached* e, int neg) {
+  if (neg) {
+    fe_copy(&r->YplusX, &e->YminusX);
+    fe_copy(&r->YminusX, &e->YplusX);
+    fe_neg(&r->T2d, &e->T2d);
+  } else {
+    fe_copy(&r->YplusX, &e->YplusX);
+    fe_copy(&r->YminusX, &e->YminusX);
+    fe_copy(&r->T2d, &e->T2d);
+  }
+  fe_copy(&r->Z, &e->Z);
+}
+
+template <class FE>
+MOCHI_HD void ge_cached_signed(ge_cached_t<FE>* r, const ge_cached_t<FE>* e,
+                               int neg) {
+  FE nt;
+  fe_neg(&nt, &e->T2d);
+  fe_select(&r->YplusX, &e->YminusX, &e->YplusX, neg);
+  fe_select(&r->YminusX, &e->YplusX, &e->YminusX, neg);
+  fe_select(&r->T2d, &nt, &e->T2d, neg);
+  fe_copy(&r->Z, &e->Z);
+}
+
+MOCHI_HD void ge_niels_signed(ge_niels* r, const ge_niels* e, int neg) {
+  if (neg) {
+    fe_copy(&r->ypx, &e->ymx);
+    fe_copy(&r->ymx, &e->ypx);
+    fe_neg(&r->xy2d, &e->xy2d);
+  } else {
+    *r = *e;
+  }
+}
+
+template <class FE>
+MOCHI_HD void ge_niels_signed(ge_niels_t<FE>* r, const ge_niels_t<FE>* e,
+                              int neg) {
+  FE nt;
+  fe_neg(&nt, &e->xy2d);
+  fe_select(&r->ypx, &e->ymx, &e->ypx, neg);
+  fe_select(&r->ymx, &e->ypx, &e->ymx, neg);
+  fe_select(&r->xy2d, &nt, &e->xy2d, neg);
+}
+
 // One window of the ladder: q = 16 q + [dh]P + [ds]B for signed digits
 // dh, ds in [-8, 8] (a negative digit reuses entry |d|, negated).
-MOCHI_HD void ge_window(ge_p3* q, int dh, int ds, const ge_cached* ptab,
-                        const ge_niels* btab) {
+template <class FE>
+MOCHI_HD void ge_window(ge_p3_t<FE>* q, int dh, int ds,
+                        const ge_cached_t<FE>* ptab,
+                        const ge_niels_t<FE>* btab) {
   ge_dbl(q, q, 0);
   ge_dbl(q, q, 0);
   ge_dbl(q, q, 0);
   ge_dbl(q, q, 1);
   {
-    const ge_cached* e = &ptab[dh < 0 ? -dh : dh];
-    ge_cached ent;
-    if (dh < 0) {
-      fe_copy(&ent.YplusX, &e->YminusX);
-      fe_copy(&ent.YminusX, &e->YplusX);
-      fe_neg(&ent.T2d, &e->T2d);
-    } else {
-      fe_copy(&ent.YplusX, &e->YplusX);
-      fe_copy(&ent.YminusX, &e->YminusX);
-      fe_copy(&ent.T2d, &e->T2d);
-    }
-    fe_copy(&ent.Z, &e->Z);
+    ge_cached_t<FE> ent;
+    ge_cached_signed(&ent, &ptab[dh < 0 ? -dh : dh], dh < 0);
     ge_add(q, q, &ent);
   }
   {
-    const ge_niels* e = &btab[ds < 0 ? -ds : ds];
-    ge_niels ent;
-    if (ds < 0) {
-      fe_copy(&ent.ypx, &e->ymx);
-      fe_copy(&ent.ymx, &e->ypx);
-      fe_neg(&ent.xy2d, &e->xy2d);
-    } else {
-      ent = *e;
-    }
+    ge_niels_t<FE> ent;
+    ge_niels_signed(&ent, &btab[ds < 0 ? -ds : ds], ds < 0);
     ge_madd(q, q, &ent);
   }
 }
@@ -247,10 +318,11 @@ MOCHI_HD void ge_window(ge_p3* q, int dh, int ds, const ge_cached* ptab,
 // Q = [S]B + [h]P with P already negated by the caller (P = -A).
 // The [0..8]P table lives in the thread's local memory (9 x 160 bytes);
 // btab points at the [0..8]B Niels table (shared memory in the kernel).
-MOCHI_HD void ge_double_scalar_mul(ge_p3* q, const int8_t* s_dig,
-                                   const int8_t* h_dig, const ge_p3* p,
-                                   const ge_niels* btab) {
-  ge_cached ptab[9];
+template <class FE>
+MOCHI_HD void ge_double_scalar_mul(ge_p3_t<FE>* q, const int8_t* s_dig,
+                                   const int8_t* h_dig, const ge_p3_t<FE>* p,
+                                   const ge_niels_t<FE>* btab) {
+  ge_cached_t<FE> ptab[9];
   ge_small_multiples(ptab, p);
   ge_identity(q);
 #if defined(__CUDA_ARCH__)
@@ -261,12 +333,13 @@ MOCHI_HD void ge_double_scalar_mul(ge_p3* q, const int8_t* s_dig,
 
 // The whole cofactorless verify of one signature: 1 valid, 0 not.
 // y_a / y_r: 17 limbs of 15 bits, `stride` elements apart.
+template <class FE>
 MOCHI_HD int ed25519_verify_one(const int32_t* y_a, int sign_a,
                                 const int32_t* y_r, int sign_r,
                                 const uint8_t* s_bytes,
                                 const uint8_t* h_bytes, int stride,
-                                const ge_niels* btab) {
-  ge_p3 a, r, q;
+                                const ge_niels_t<FE>* btab) {
+  ge_p3_t<FE> a, r, q;
   const int ok_a = ge_decode(&a, y_a, stride, sign_a);
   const int ok_r = ge_decode(&r, y_r, stride, sign_r);
   fe_neg(&a.X, &a.X);  // -A = (-X, Y, Z, -T)
@@ -275,7 +348,7 @@ MOCHI_HD int ed25519_verify_one(const int32_t* y_a, int sign_a,
   recode_signed4(s_dig, s_bytes);
   recode_signed4(h_dig, h_bytes);
   ge_double_scalar_mul(&q, s_dig, h_dig, &a, btab);
-  fe t;
+  FE t;
   fe_mul(&t, &r.X, &q.Z);
   const int eq_x = fe_eq(&q.X, &t);
   fe_mul(&t, &r.Y, &q.Z);

@@ -282,15 +282,20 @@ async def amain(args) -> None:
         )
     else:
         from ..crypto.comb import COMB_IMPL
+        from ..crypto.cuda_comb import MULTIPLY
+        from ..crypto.cuda_verify import skew
         from .cuda import CudaBatchVerifier
 
         t0 = time.time()
         verifier = CudaBatchVerifier(device="cuda", signers=signers)
         LOG.info(
-            "CUDA kernels ready in %.1fs (%d known signers on the comb kernel, %s accumulation)",
+            "CUDA kernels ready in %.1fs (general kernel: %s multiply; %d known signers on the comb "
+            "kernel, %s accumulation, %s multiply)",
             time.time() - t0,
+            skew(),
             len(signers),
             COMB_IMPL,
+            MULTIPLY,
         )
     secret = None
     if args.secret_file:

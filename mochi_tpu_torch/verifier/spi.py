@@ -613,10 +613,17 @@ def verifier_stats(verifier) -> dict:
         routed = _bv.comb_routing_counts()
         from ..crypto import comb as _comb
 
+        from ..crypto import cuda_comb as _cuda_comb
+        from ..crypto import cuda_verify as _cuda_verify
+
+        # the multiply the general kernel runs (MOCHI_SKEW_IMPL)
+        st["general"] = {"multiply": _cuda_verify.skew()}
         st["comb"] = {
             "registered_signers": len(registry),
-            # the accumulation every comb launch runs (MOCHI_COMB_IMPL)
+            # the accumulation every comb launch runs (MOCHI_COMB_IMPL), and
+            # its multiply, which does not follow MOCHI_SKEW_IMPL yet
             "impl": _comb.COMB_IMPL,
+            "multiply": _cuda_comb.MULTIPLY,
             "device_dispatches_process_total": _bv.comb_dispatch_count(),
             # routing occupancy (process-global): items the router sent
             # down each kernel, and batches that carried both

@@ -93,13 +93,13 @@ def test_device_busy_is_the_union_of_launch_intervals():
 
 def test_service_drive_counts_on_cpu(signers):
     traffic = cs.make_traffic(11, signers, clients=3, requests=2, grants=5)
-    CV.launches = 0
+    CV.launches.update(pad=0, mxu=0)
     BV.reset_counts()
     svc = asyncio.run(asyncio.wait_for(cs.drive_service(traffic, "cpu", b"k" * 32), 240))
     assert svc["requests"] == 6 and svc["items"] == 30 and svc["mismatched_requests"] == 0
     assert BV.device_item_count() == 30
     assert svc["fallback_batches"] == svc["crossover_batches"] == svc["remote_fallbacks"] == 0
-    assert CV.launches == 0  # the plain version on the CPU is no kernel launch
+    assert CV.launches == {"pad": 0, "mxu": 0}  # the plain version on the CPU is no kernel launch
 
 
 def test_refuses_to_run_without_a_card(monkeypatch, capsys):
@@ -172,13 +172,42 @@ def test_tree_service_phase_rehearsal_on_cpu(signers, monkeypatch):
     assert svc["routing"]["comb_items"] == 30 and svc["routing"]["ladder_items"] == 0
     assert svc["fallback_batches"] == svc["crossover_batches"] == svc["remote_fallbacks"] == 0
     assert svc["comb_launches"] == {"chain": 0, "tree": 0} and svc["verify_launches"] == 0
-    assert logs == ([], {"chain": [], "tree": []}) and seen and set(seen) == {"tree"}
+    assert logs == ({"pad": [], "mxu": []}, {"chain": [], "tree": []}) and seen and set(seen) == {"tree"}
+
+
+def test_mxu_service_phase_rehearsal_on_cpu(signers, monkeypatch):
+    """Phase 5m at a small size: the service with no signers under
+    ``MOCHI_SKEW_IMPL=mxu`` sends every item down the general path, whose
+    plain version multiplies through ``_mul_mxu`` on the CPU (launching
+    nothing), every bitmap as expected; the phase's check passes it once a
+    card's mxu launches are not asked for, and flags what it must."""
+    from mochi_tpu_torch.crypto import field as F
+
+    traffic = cs.make_traffic(29, signers, clients=3, requests=2, grants=5)
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    used = []
+    real = F._mul_mxu
+    monkeypatch.setattr(F, "_mul_mxu", lambda a, b: used.append(1) or real(a, b))
+    cs._zero_counts()
+    svc = asyncio.run(asyncio.wait_for(cs.drive_service(traffic, "cpu", b"k" * 32), 240))
+    logs = cs._read_counts(svc)
+    assert svc["requests"] == 6 and svc["items"] == svc["device_items"] == 30
+    assert svc["verify_mxu_launches"] == svc["verify_launches"] == 0 and used
+    assert logs == ({"pad": [], "mxu": []}, {"chain": [], "tree": []})
+    assert cs.mxu_service_problems(svc, launched=False) == []
+    assert cs.mxu_service_problems(svc) == ["the mxu kernel was never launched"]
+    bad = dict(svc, mismatched_requests=1, verify_launches=2, verify_mxu_launches=24)
+    assert len(cs.mxu_service_problems(bad)) == 2
+    a, b = cs.mul_operands(1, 128)
+    assert a.shape == b.shape == (17, 128) and (a[:, :64] == F.LOOSE).all() and (b[:, 32:96] == F.LOOSE).all()
+    assert torch.equal(CV.fe_mul_mxu(torch.from_numpy(a), torch.from_numpy(b)).long(),
+                       F.mul(torch.from_numpy(a).long(), torch.from_numpy(b).long()))
 
 
 def test_cluster_drive_counts_on_cpu():
     from mochi_tpu_torch.crypto import cuda_comb as CC
 
-    CV.launches = 0
+    CV.launches.update(pad=0, mxu=0)
     CC.launches.update(chain=0, tree=0)
     BV.reset_counts()
     out = asyncio.run(asyncio.wait_for(cs.drive_cluster("cpu", 7, 2, 2), 300))
@@ -187,7 +216,7 @@ def test_cluster_drive_counts_on_cpu():
     assert out["registered_signers"] == 7 and out["txn_per_s"] > 0
     routed = BV.comb_routing_counts()
     assert routed["comb_items"] >= 4 * 5 and BV.comb_dispatch_count() > 0
-    assert CV.launches == 0 and CC.launches == {"chain": 0, "tree": 0}  # the plain versions on the CPU launch no kernel
+    assert CV.launches == {"pad": 0, "mxu": 0} and CC.launches == {"chain": 0, "tree": 0}  # the plain versions on the CPU launch no kernel
 
 
 # ------------------------------------------- multi-device phases (10-12)

@@ -267,23 +267,51 @@ def test_plain_tree_equals_the_chain_the_reference_chain_and_openssl(corpus, reg
     assert ref.any() and not ref.all()
 
 
-def test_comb_impl_switch_parsing_and_refusal(monkeypatch):
+def test_comb_impl_switch_parsing_and_refusal(monkeypatch, capsys):
+    """The switch is read as the reference reads it: ``tree`` runs the tree
+    and any other value the chain (said once on stderr), never a refusal."""
     assert TC.COMB_IMPLS == ("chain", "tree")
-    assert TC.COMB_IMPL == os.environ.get("MOCHI_COMB_IMPL", "chain")
-    for bad in ("Tree", "", "mxu", "tree ", "ladder"):
-        with pytest.raises(ValueError, match="MOCHI_COMB_IMPL"):
-            TC.check_impl(bad)
+    assert TC.COMB_IMPL == ("tree" if os.environ.get("MOCHI_COMB_IMPL") == "tree" else "chain")
+    monkeypatch.setattr(TC, "_substituted", set())
+    for other in ("Tree", "", "mxu", "tree ", "ladder", "mxu"):
+        assert TC.check_impl(other) == "chain"
+    err = capsys.readouterr().err
+    assert err.count("comb accumulation 'mxu' (MOCHI_COMB_IMPL or impl=) runs the chain") == 1
+    assert err.count("runs the chain") == 5
     monkeypatch.setattr(TC, "COMB_IMPL", "tree")
     assert TC.check_impl(None) == "tree" and TC.check_impl("chain") == "chain"
-    # read at import: "tree" is taken, an unknown value stops the import
+    # read at import: "tree" is taken, any other value imports and runs the chain
     env = dict(os.environ, MOCHI_COMB_IMPL="tree")
     proc = subprocess.run([sys.executable, "-c", "from mochi_tpu_torch.crypto import comb; print(comb.COMB_IMPL)"],
                           env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "tree"
     env["MOCHI_COMB_IMPL"] = "mxu"
-    proc = subprocess.run([sys.executable, "-c", "import mochi_tpu_torch.crypto.comb"], env=env,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode != 0 and "comb accumulation 'mxu' (MOCHI_COMB_IMPL" in proc.stderr
+    proc = subprocess.run([sys.executable, "-c", "from mochi_tpu_torch.crypto import comb; print(comb.COMB_IMPL)"],
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "chain"
+    assert "comb accumulation 'mxu' (MOCHI_COMB_IMPL or impl=) runs the chain" in proc.stderr
+
+
+@pytest.mark.parametrize("skew", ["pad", "mxu"])
+def test_stats_name_the_multiply_of_each_kernel(signers, monkeypatch, skew):
+    """``verifier_stats`` names the multiply the general kernel runs (it
+    follows ``MOCHI_SKEW_IMPL``) and the comb kernels' own, which does not
+    follow it yet; verdicts are unchanged under either switch."""
+    from mochi_tpu_torch.verifier.cuda import CudaBatchVerifier
+
+    monkeypatch.setattr(F, "SKEW_IMPL", skew)
+
+    async def main():
+        v = CudaBatchVerifier(device="cpu", signers=[s.pub for s in signers[:2]])
+        try:
+            items = _mixed(signers, np.random.default_rng(31))[:6]
+            assert await v.verify_batch(items) == _openssl(items)
+            return verifier_stats(v)
+        finally:
+            await v.close()
+
+    st = asyncio.run(asyncio.wait_for(main(), 240))
+    assert st["general"] == {"multiply": skew} and st["comb"]["multiply"] == "pad"
 
 
 def test_routing_under_the_tree_switch_and_its_stats(signers, monkeypatch):

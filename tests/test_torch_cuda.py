@@ -1,4 +1,5 @@
-"""The CUDA kernels (general verify, comb chain and tree, quorum tally) on the card.
+"""The CUDA kernels (general verify and its mxu form, comb chain and tree,
+quorum tally) on the card.
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA card and
 skips elsewhere.  On the card (this file imports no JAX, so the JAX-bound
@@ -39,9 +40,9 @@ def test_kernel_equals_plain_version_and_expected_verdicts(card, corpus):
     items, want, _ = corpus
     prepared = BV.prepare_packed(items)
     tens = CV.from_reference_prepared(prepared, card)
-    before = CV.launches
+    before = CV.launches["pad"]
     got = CV.verify_prepared_packed(*tens)
-    assert CV.launches == before + 1
+    assert CV.launches["pad"] == before + 1
     plain = curve.verify_prepared_packed(*tens)
     assert torch.equal(got, plain)
     assert (got.cpu().numpy() & prepared[6]).tolist() == want
@@ -193,8 +194,11 @@ def test_comb_tree_wrapper_rejects_what_the_kernel_does_not_take(card, comb_setu
     bad[3] = bad[3].cpu()
     with pytest.raises(ValueError):
         CC.verify_comb_prepared(table, *bad, impl="tree")
-    with pytest.raises(ValueError):
-        CC.verify_comb_prepared(table, *lanes, impl="mxu")
+    # a name other than the two runs the chain, as the reference does
+    before = dict(CC.launches)
+    assert torch.equal(CC.verify_comb_prepared(table, *lanes, impl="mxu"),
+                       CC.verify_comb_prepared(table, *lanes, impl="chain"))
+    assert CC.launches == {"chain": before["chain"] + 2, "tree": before["tree"]}
     assert CC.verify_comb_prepared(table, *(t[:0] for t in lanes), impl="tree").shape == (0,)
 
 
@@ -265,6 +269,114 @@ def test_service_cli_serves_a_certificate_on_the_tree(card, tmp_path):
     assert 0 < sum(want) < 43
 
 
+# --------------------------------------------- the mxu general kernel
+
+
+def test_fe_mul_mxu_equals_the_plain_multiply_at_the_limb_maximum(card):
+    from mochi_tpu_torch.crypto import field as F
+
+    rng = np.random.default_rng(11)
+    n = 4099  # a partial last block and a partial warp
+    a = rng.integers(0, F.LOOSE + 1, (F.NLIMBS, n)).astype(np.int32)
+    b = rng.integers(0, F.LOOSE + 1, (F.NLIMBS, n)).astype(np.int32)
+    a[:, :40] = F.LOOSE
+    b[:, 20:60] = F.LOOSE
+    a[:, 60] = 0
+    at, bt = torch.from_numpy(a).to(card), torch.from_numpy(b).to(card)
+    before = CV.mul_launches
+    got = CV.fe_mul_mxu(at, bt)
+    assert CV.mul_launches == before + 1 and got.dtype == torch.int32
+    plain = F._mul_mxu(at.to(F.DTYPE), bt.to(F.DTYPE))
+    assert torch.equal(got.to(F.DTYPE), plain)
+    assert torch.equal(plain.cpu(), F.mul(torch.from_numpy(a).to(F.DTYPE), torch.from_numpy(b).to(F.DTYPE)))
+
+
+def test_mxu_kernel_equals_its_plain_version_verify_cu_and_the_verdicts(card, corpus, monkeypatch):
+    from mochi_tpu_torch.crypto import field as F
+
+    items, want, _ = corpus
+    prepared = BV.prepare_packed(items)
+    tens = CV.from_reference_prepared(prepared, card)
+    pad = CV.verify_prepared_packed(*tens)
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    before = dict(CV.launches)
+    for n in (len(items), len(items) - 37, 33):  # full blocks, a partial block, one lane past a warp
+        got = CV.verify_prepared_packed(*(t[:n] for t in tens))
+        plain = curve.verify_prepared_packed(*(t[:n] for t in tens))
+        assert torch.equal(got, plain) and torch.equal(got, pad[:n])
+        assert (got.cpu().numpy() & prepared[6][:n]).tolist() == want[:n]
+    assert CV.launches == {"pad": before["pad"], "mxu": before["mxu"] + 3}
+    attrs = CV.kernel_attributes("mxu")
+    assert attrs["verify"]["threads"] % 32 == 0 and attrs["mul"]["registers"] > 0
+
+
+def test_mxu_wrappers_reject_what_the_kernels_do_not_take(card, corpus, monkeypatch):
+    from mochi_tpu_torch.crypto import field as F
+
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    tens = list(CV.from_reference_prepared(BV.prepare_packed(corpus[0][:8]), card))
+    bad = [t.clone() for t in tens]
+    bad[2] = bad[2].to(torch.int64)
+    with pytest.raises(TypeError):
+        CV.verify_prepared_packed(*bad)
+    bad = [t.clone() for t in tens]
+    bad[5] = tens[5].t().contiguous().t()
+    with pytest.raises(ValueError):
+        CV.verify_prepared_packed(*bad)
+    bad = [t.clone() for t in tens]
+    bad[3] = bad[3].cpu()
+    with pytest.raises(ValueError):
+        CV.verify_prepared_packed(*bad)
+    assert CV.verify_prepared_packed(*(t[:0] for t in tens)).shape == (0,)
+    x = torch.zeros((F.NLIMBS, 8), dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        CV.fe_mul_mxu(x, x.to(torch.int64))
+    with pytest.raises(ValueError):
+        CV.fe_mul_mxu(x, x[:, :4])
+    with pytest.raises(ValueError):
+        CV.fe_mul_mxu(x, x.t().contiguous().t())
+    with pytest.raises(ValueError):
+        CV.fe_mul_mxu(x, x.cpu())
+    assert CV.fe_mul_mxu(x[:, :0].contiguous(), x[:, :0].contiguous()).shape == (F.NLIMBS, 0)
+
+
+def test_service_cli_serves_a_certificate_on_the_mxu_kernel(card, tmp_path):
+    """``python -m mochi_tpu_torch.verifier.service`` started with
+    ``MOCHI_SKEW_IMPL=mxu`` and no signers: its log line names the mxu
+    multiply, and a 43-grant certificate comes back over RPC as expected."""
+    import asyncio
+    import os
+    import subprocess
+    import sys
+
+    from mochi_tpu_torch.verifier.service import RemoteVerifier
+
+    signers = cs.make_signers(np.random.default_rng(7), 43)
+    traffic = cs.make_traffic(8, signers, clients=1, requests=1, grants=43, forge_rate=0.1)
+    items, want = traffic[0][0]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mochi_tpu_torch.verifier.service", "--port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=dict(os.environ, MOCHI_SKEW_IMPL="mxu"),
+    )
+
+    async def ask(port):
+        rv = RemoteVerifier("127.0.0.1", port, timeout_s=120)
+        try:
+            return await rv.verify_batch(items), rv.fallback_batches
+        finally:
+            await rv.close()
+
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("READY verifier-service "), line
+        assert asyncio.run(ask(int(line.split()[-1]))) == (want, 0)
+    finally:
+        proc.terminate()
+        _, err = proc.communicate(timeout=60)
+    assert "general kernel: mxu multiply; 0 known signers" in err, err
+    assert 0 < sum(want) < 43
+
+
 # ------------------------------------------------ quorum tally and sharding
 
 
@@ -314,9 +426,9 @@ def test_quorum_step_on_the_card_equals_the_plain_step(card, corpus):
     assert plain[0].tolist() == want[:n]
     for devices in ([card, card], None):
         mesh = make_mesh(devices=devices)
-        before = (CV.launches, CT.launches, CT.commit_launches, dict(CC.launches))
+        before = (CV.launches["pad"], CT.launches, CT.commit_launches, dict(CC.launches))
         got = make_quorum_step(mesh, g)(*prepared, ids, 4)
-        after = (CV.launches, CT.launches, CT.commit_launches, dict(CC.launches))
+        after = (CV.launches["pad"], CT.launches, CT.commit_launches, dict(CC.launches))
         assert after == (before[0] + mesh.size, before[1] + mesh.size, before[2] + 1, before[3])
         for a, b in zip(got, plain):
             assert a.dtype == b.dtype and torch.equal(a, b)

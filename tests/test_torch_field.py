@@ -116,3 +116,92 @@ def test_pow_p58_matches():
     ai = F.limbs_to_int_batch(a_np)
     got = _same(JF.pow_p58(ja), F.pow_p58(ta))
     assert [g % P for g in got] == [pow(x % P, (P - 5) // 8, P) for x in ai]
+
+
+# ------------------------------------------------------- the mxu multiply
+
+
+def _mxu_operands(case):
+    rng = np.random.default_rng(8)
+    if case == "random":
+        return _limbs(_values(9), 0), _limbs(_values(10), 0)
+    if case == "loose":  # every limb at the limb maximum, beside random loose limbs
+        a = rng.integers(0, F.LOOSE + 1, (F.NLIMBS, 6)).astype(np.int32)
+        b = rng.integers(0, F.LOOSE + 1, (F.NLIMBS, 6)).astype(np.int32)
+        a[:, :3] = F.LOOSE
+        b[:, 1:4] = F.LOOSE
+        return a, b
+    z = np.zeros((F.NLIMBS, 3), np.int32)
+    return z, _limbs([0, 1, P - 1], 0)
+
+
+@pytest.mark.parametrize("case", ["random", "loose", "zeros"])
+def test_mul_mxu_matches_the_reference_and_the_schoolbook(case):
+    """The plain ``_mul_mxu`` against the reference's, called unjitted on
+    JAX's CPU backend (its float32 matmul at precision=HIGHEST), and against
+    the port's schoolbook multiply: limb for limb, tolerance zero."""
+    a_np, b_np = _mxu_operands(case)
+    (ja, ta), (jb, tb) = _both(a_np), _both(b_np)
+    got = _same(JF._mul_mxu(ja, jb), F._mul_mxu(ta, tb))
+    np.testing.assert_array_equal(F._mul_mxu(ta, tb).numpy(), F.mul(ta, tb).numpy())
+    ai, bi = F.limbs_to_int_batch(a_np), F.limbs_to_int_batch(b_np)
+    assert [g % P for g in got] == [x * y % P for x, y in zip(ai, bi)]
+    out = F._mul_mxu(ta, tb)
+    assert int(out.min()) >= 0 and int(out.max()) <= F.LOOSE
+
+
+def test_mxu_matrix_equals_the_reference():
+    mine, ref = F._build_mxu_matrix(), JF._build_mxu_matrix()
+    assert mine.shape == ref.shape == (34, 578)
+    np.testing.assert_array_equal(mine, ref)
+    assert F.available_skews() == JF.available_skews()
+
+
+@pytest.mark.parametrize("rank", [2, 3])
+def test_mul_and_square_under_mxu_match_the_reference(rank, monkeypatch):
+    """With ``SKEW_IMPL = "mxu"`` in both packages, rank-2 multiplies and
+    squarings take ``_mul_mxu`` and other ranks the schoolbook, as the
+    reference dispatches; the limbs equal the reference's either way."""
+    monkeypatch.setattr(JF, "SKEW_IMPL", "mxu")
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    used = []
+    real = F._mul_mxu
+    monkeypatch.setattr(F, "_mul_mxu", lambda a, b: used.append(a.dim()) or real(a, b))
+    a_np, b_np = _limbs(_values(11), 1), _limbs(_values(12), 1)
+    if rank == 3:
+        a_np, b_np = a_np.reshape(F.NLIMBS, 2, -1), b_np.reshape(F.NLIMBS, 2, -1)
+    (ja, ta), (jb, tb) = _both(a_np), _both(b_np)
+    _same(JF.mul(ja, jb), F.mul(ta, tb))
+    _same(JF.square(ja), F.square(ta))
+    _same(JF.pow_p58(ja), F.pow_p58(ta))
+    assert (used and set(used) == {2}) if rank == 2 else not used
+
+
+@pytest.mark.parametrize("value", [None, "mxu", "shift", "bogus"])
+def test_skew_switch_is_read_as_the_reference_reads_it(value):
+    """``MOCHI_SKEW_IMPL`` read at import, in a fresh process: the default
+    is ``pad``, both packages hold the same value, and only ``mxu`` sends a
+    rank-2 multiply or squaring through ``_mul_mxu`` (an unknown value takes
+    the schoolbook, as the reference's ``_skew_cols`` falls back to pad)."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "from mochi_tpu_torch.crypto import field as F\n"
+        "from mochi_tpu.crypto import field as JF\n"
+        "used = []\n"
+        "real = F._mul_mxu\n"
+        "F._mul_mxu = lambda a, b: used.append(1) or real(a, b)\n"
+        "x = F.zeros((3,)) + 5\n"
+        "F.mul(x, F.square(x))\n"
+        "print(F.SKEW_IMPL, JF.SKEW_IMPL, len(used))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "MOCHI_SKEW_IMPL"}
+    env["JAX_PLATFORMS"] = "cpu"
+    if value is not None:
+        env["MOCHI_SKEW_IMPL"] = value
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    want = value or "pad"
+    assert proc.stdout.split() == [want, want, "2" if want == "mxu" else "0"]

@@ -1,16 +1,23 @@
 """The CUDA kernels' arithmetic, compiled for the host and fuzzed.
 
-``mochi_tpu_torch/csrc/fe25519.cuh``, ``ge25519.cuh``, ``comb25519.cuh`` and
-``comb_tree.cuh`` are plain ``__host__ __device__`` code, so ``g++`` builds
-them here into a small ctypes library (the test-only shim below), with
+``mochi_tpu_torch/csrc/fe25519.cuh``, ``ge25519.cuh``, ``comb25519.cuh``,
+``comb_tree.cuh`` and ``fe17.cuh`` are plain ``__host__ __device__`` code,
+so ``g++`` builds them here into small ctypes libraries (the test-only
+shims below), with
 ``-fwrapv`` so that a signed int32 overflow wraps as it does on the card.
 The fuzz holds every field op against Python integers, with inputs at the
 edges of the bounds the header states (maximum loose limbs, every sign
 pattern), and decode, one ladder window, the whole verify, the comb's
 negated-Niels mixed addition, the whole comb verify, the tree's leaf
 conversion, its 7-level sum and its whole verify against Python integers
-and the port's plain PyTorch versions.  The port never loads this build; it
-exists to catch radix and bounds faults before the kernels reach a card.
+and the port's plain PyTorch versions.  The 17 x 15-bit field of the mxu
+kernel (``fe17.cuh``) builds with its serial twin of the tensor-core
+multiply, which sums the same product bytes against the same 0/1 entries
+over the same live tiles: it is held limb for limb against the plain
+``_mul_mxu`` (at the limb maximum too), its carries against Python
+integers, and the whole verify over it (``ge25519.cuh`` on ``fe17``)
+against the plain verify.  The port never loads these builds; they exist
+to catch radix, schedule and bounds faults before the kernels reach a card.
 """
 
 import ctypes
@@ -109,17 +116,57 @@ int t_tree_verify(const int32_t* table, long long rows, int key_idx,
 }
 """
 
+SHIM17 = r"""
+#include "fe17.cuh"
+#include "ge25519.cuh"
+
+extern "C" {
+// n multiplies, (n, 17) each
+void t17_mul(int32_t* h, const int32_t* f, const int32_t* g, int n) {
+  for (int i = 0; i < n; ++i)
+    fe_mul((fe17*)(h + 17 * i), (const fe17*)(f + 17 * i), (const fe17*)(g + 17 * i));
+}
+void t17_carry2(int32_t* h, const int32_t* cols) { fe17_carry2((fe17*)h, cols); }
+int t17_carry_chain(int32_t* out, const int32_t* cols) { return fe17_carry_chain(out, cols); }
+void t17_canonical(int32_t* h, const int32_t* f) { fe_canonical((fe17*)h, (const fe17*)f); }
+void t17_pow22523(int32_t* h, const int32_t* f) { fe_pow22523((fe17*)h, (const fe17*)f); }
+// op 0 add, 1 sub, 2 neg, 3 mul_small by k, 4 select(f, g, k)
+void t17_op(int op, int32_t* h, const int32_t* f, const int32_t* g, int k) {
+  fe17* o = (fe17*)h;
+  const fe17 *a = (const fe17*)f, *b = (const fe17*)g;
+  if (op == 0) fe_add(o, a, b);
+  if (op == 1) fe_sub(o, a, b);
+  if (op == 2) fe_neg(o, a);
+  if (op == 3) fe_mul_small(o, a, k);
+  if (op == 4) fe_select(o, a, b, k);
+}
+// the schedule: slot q of step st -> (i, column), and each (step, tile)'s liveness
+void t17_schedule(int32_t* slots, int32_t* live) {
+  for (int st = 0; st < MOCHI_MXU_STEPS; ++st) {
+    for (int q = 0; q < 8; ++q) {
+      slots[2 * (8 * st + q)] = fe17_slot_i(2 * st + q / 4, q % 4);
+      slots[2 * (8 * st + q) + 1] = fe17_half_col(2 * st + q / 4);
+    }
+    for (int m = 0; m < MOCHI_MXU_TILES; ++m) live[MOCHI_MXU_TILES * st + m] = fe17_tile_live(st, m);
+  }
+}
+int t17_verify(const int32_t* y_a, int sign_a, const int32_t* y_r, int sign_r,
+               const uint8_t* s, const uint8_t* h, const int32_t* btab) {
+  return ed25519_verify_one(y_a, sign_a, y_r, sign_r, s, h, 1, (const ge_niels_t<fe17>*)btab);
+}
+}
+"""
+
 I32P = ctypes.POINTER(ctypes.c_int32)
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def _build(tmp_path_factory, name, text):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed: the host build of the kernel arithmetic needs it")
-    d = tmp_path_factory.mktemp("kernel_host")
+    d = tmp_path_factory.mktemp(name)
     src = d / "shim.cpp"
-    src.write_text(SHIM)
+    src.write_text(text)
     so = d / "shim.so"
     proc = subprocess.run(
         [gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-fwrapv", "-Wall", "-Werror",
@@ -128,6 +175,16 @@ def lib(tmp_path_factory):
     )
     assert proc.returncode == 0, proc.stderr
     return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    return _build(tmp_path_factory, "kernel_host", SHIM)
+
+
+@pytest.fixture(scope="module")
+def lib17(tmp_path_factory):
+    return _build(tmp_path_factory, "kernel_host17", SHIM17)
 
 
 # ------------------------------------------------------------------ helpers
@@ -641,3 +698,123 @@ def test_tree_verify_matches_the_plain_tree_lane_for_lane(lib):
     want = [keys.verify(it.public_key, it.message, it.signature) for it in items]
     assert [h and ok for h, ok in zip(host, prep[6])][:5] == want[:5]
     assert any(host) and not all(host)
+
+
+# ---------------------------------------------------- the mxu field (fe17)
+
+
+def _mul17(lib17, a, b):
+    """(17, n) operands through the serial twin -> (17, n) int64."""
+    a_r, b_r = arr(a.T), arr(b.T)
+    out = np.zeros_like(a_r)
+    lib17.t17_mul(ptr(out), ptr(a_r), ptr(b_r), a_r.shape[0])
+    return out.T.astype(np.int64)
+
+
+@pytest.mark.parametrize("case", ["random", "loose", "zeros"])
+def test_fe17_serial_mxu_multiply_equals_the_plain_one(lib17, case):
+    """The kernel's multiply in its serial form (the same product bytes, 0/1
+    entries and live tiles as the MMAs) is limb-equal to the plain
+    ``_mul_mxu`` and to the schoolbook, including every limb at LOOSE."""
+    rng = np.random.default_rng({"random": 1, "loose": 2, "zeros": 3}[case])
+    n = 200
+    a = rng.integers(0, F.LOOSE + 1, (F.NLIMBS, n))
+    b = rng.integers(0, F.LOOSE + 1, (F.NLIMBS, n))
+    if case == "loose":
+        a[:, : n // 2] = F.LOOSE
+        b[:, n // 4 :] = F.LOOSE
+    elif case == "zeros":
+        a[:, ::2] = 0
+        b[:, 1::3] = 0
+        b[:, 0] = 1
+    got = _mul17(lib17, a, b)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    np.testing.assert_array_equal(got, F._mul_mxu(ta, tb).numpy())
+    np.testing.assert_array_equal(got, F.mul(ta, tb).numpy())
+    assert got.min() >= 0 and got.max() <= F.LOOSE
+
+
+def test_fe17_schedule_covers_every_product_once(lib17):
+    """Every one of the 289 limb products sits in exactly one slot of the 43
+    k-steps, under its own column, and the live (step, row tile) pairs are
+    exactly those whose rows a step's columns reach: 49 of 215."""
+    slots = np.zeros((43 * 8, 2), np.int32)
+    live = np.zeros((43, 5), np.int32)
+    lib17.t17_schedule(ptr(slots), ptr(live))
+    seen = []
+    for st in range(43):
+        for q in range(8):
+            i, col = slots[8 * st + q]
+            if i >= 0:
+                j = col - i
+                assert 0 <= i <= 16 and 0 <= j <= 16
+                seen.append((i, j))
+            rows = set(range(2 * col, 2 * col + 4)) if col <= 32 else set()
+            for m in range(5):
+                if rows & set(range(16 * m, 16 * m + 16)):
+                    assert live[st, m], (st, q, m)
+    assert sorted(seen) == [(i, j) for i in range(17) for j in range(17)]
+    assert int(live.sum()) == 49
+
+
+def test_fe17_carries_canonical_and_small_ops_match(lib17):
+    """carry2, the exact carry chain, canonical, add, sub (+2p), neg,
+    mul_small, select and the pow chain against the plain field ops and
+    Python integers, at the boundaries (0, p - 1, p, p + 1, 2^255 - 1,
+    every limb at LOOSE) and on random limbs."""
+    rng = np.random.default_rng(4)
+    vals = [0, 1, P - 1, P, P + 1, (1 << 255) - 1, 19, P - 19]
+    limbs = [F.int_to_limbs(v) for v in vals] + [np.full(F.NLIMBS, F.LOOSE, np.int32)]
+    limbs += list(rng.integers(0, F.LOOSE + 1, (24, F.NLIMBS)).astype(np.int32))
+    cols = rng.integers(0, 1 << 26, (20, F.NLIMBS)).astype(np.int32)
+    for c in cols:
+        out = np.zeros(F.NLIMBS, np.int32)
+        lib17.t17_carry2(ptr(out), ptr(arr(c)))
+        want = F._carry2(torch.from_numpy(c.astype(np.int64))[:, None])[:, 0].numpy()
+        np.testing.assert_array_equal(out, want)
+        assert out.max() <= F.LOOSE
+    signed = rng.integers(-(1 << 20), 1 << 20, (20, F.NLIMBS)).astype(np.int32)
+    for c in signed:
+        out = np.zeros(F.NLIMBS, np.int32)
+        cout = lib17.t17_carry_chain(ptr(out), ptr(arr(c)))
+        assert sum(int(v) << (15 * k) for k, v in enumerate(out)) + (cout << 255) == \
+            sum(int(v) << (15 * k) for k, v in enumerate(c))
+        assert out.min() >= 0 and out.max() < 1 << 15
+    for k, f in enumerate(limbs):
+        g = limbs[(5 * k + 3) % len(limbs)]
+        fi, gi = F.limbs_to_int(f), F.limbs_to_int(g)
+        out = np.zeros(F.NLIMBS, np.int32)
+        lib17.t17_canonical(ptr(out), ptr(arr(f)))
+        assert F.limbs_to_int(out) == fi % P
+        for op, small, want in ((0, 0, fi + gi), (1, 0, fi - gi), (2, 0, -fi), (3, 977, 977 * fi), (3, 3, 3 * fi)):
+            lib17.t17_op(op, ptr(out), ptr(arr(f)), ptr(arr(g)), small)
+            assert F.limbs_to_int(out) % P == want % P and out.min() >= 0 and out.max() <= F.LOOSE, (op, k)
+        lib17.t17_op(4, ptr(out), ptr(arr(f)), ptr(arr(g)), k % 2)
+        np.testing.assert_array_equal(out, f if k % 2 else g)
+    f = arr(limbs[-1])
+    out = np.zeros(F.NLIMBS, np.int32)
+    lib17.t17_pow22523(ptr(out), ptr(f))
+    np.testing.assert_array_equal(out, F.pow_p58(torch.from_numpy(f.astype(np.int64))[:, None])[:, 0].numpy())
+
+
+def test_fe17_verify_equals_the_plain_bitmap_and_keys_verify(lib17):
+    """The whole verify over the 17 x 15-bit field with the serial twin of
+    the tensor-core multiply: the plain verify's bitmap (under ``mxu`` and
+    ``pad`` alike) on valid, forged and low-order items."""
+    from mochi_tpu_torch.crypto import batch_verify as BV
+    from mochi_tpu_torch.verifier.spi import VerifyItem
+
+    items = [VerifyItem(*t) for t in _items(random.Random(83))]
+    y_a, sign_a, y_r, sign_r, s_b, h_b, pre_ok = BV.prepare_packed(items)
+    btab = arr(CV.basepoint_table17())
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    host = [
+        bool(lib17.t17_verify(ptr(arr(y_a[j])), int(sign_a[j]), ptr(arr(y_r[j])), int(sign_r[j]),
+                              s_b[j].ctypes.data_as(u8), h_b[j].ctypes.data_as(u8), ptr(btab)))
+        for j in range(len(items))
+    ]
+    plain = C.verify_prepared_packed(*CV.from_reference_prepared(BV.prepare_packed(items), "cpu"))
+    assert host == plain.tolist()
+    want = [keys.verify(it.public_key, it.message, it.signature) for it in items]
+    assert [h and bool(ok) for h, ok in zip(host, pre_ok)] == want
+    assert any(want) and not all(want)

@@ -135,7 +135,7 @@ def test_from_reference_prepared_and_wrapper_on_cpu(corpus):
     arrays = JBV.prepare_packed([JItem(*r) for r in rows])
     tens = CV.from_reference_prepared(arrays, "cpu")
     assert [t.dtype for t in tens] == [torch.int32] * 4 + [torch.uint8] * 2
-    before = CV.launches
+    before = dict(CV.launches)
     bitmap = CV.verify_prepared_packed(*tens)
     assert CV.launches == before  # the plain version is no kernel launch
     assert bitmap.dtype == torch.bool and bitmap.shape == (len(rows),)
@@ -203,3 +203,78 @@ def test_matches_the_pallas_kernel_in_interpret_mode():
     mine = CV.verify_prepared_packed(*CV.from_reference_prepared(
         BV.prepare_packed([VerifyItem(*r) for r in rows]), "cpu"))
     assert mine.tolist() == pallas.tolist() == [True, True, False, True, False, True]
+
+
+# ------------------------------------------------- MOCHI_SKEW_IMPL=mxu
+
+
+def test_plain_verify_under_mxu_equals_pad_and_openssl(corpus, monkeypatch):
+    """The plain verify with every rank-2 multiply through ``_mul_mxu`` gives
+    the bitmap it gives on the schoolbook, and OpenSSL's verdicts, on the
+    mixed and low-order corpus."""
+    from mochi_tpu_torch.crypto import curve
+    from mochi_tpu_torch.crypto import field as F
+
+    rows, jax_out = corpus
+    arrays = BV.prepare_packed([VerifyItem(*r) for r in rows])
+    tens = CV.from_reference_prepared(arrays, "cpu")
+    pad = curve.verify_prepared_packed(*tens)
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    used = []
+    real = F._mul_mxu
+    monkeypatch.setattr(F, "_mul_mxu", lambda a, b: used.append(1) or real(a, b))
+    mxu = curve.verify_prepared_packed(*tens)
+    assert used and torch.equal(mxu, pad)
+    assert np.logical_and(mxu.numpy(), arrays[6]).tolist() == jax_out == [jkeys.verify(*r) for r in rows]
+
+
+def test_mxu_wrapper_on_cpu_runs_the_plain_version_and_counts_by_skew(corpus, monkeypatch):
+    """On CPU tensors the wrapper runs the plain verify under the switch it
+    reads at the call (no launch counted for either skew), the batch
+    multiply runs the plain ``_mul_mxu``, and the mxu kernel's basepoint
+    table holds the reference's Niels entries integer for integer."""
+    from mochi_tpu.crypto import curve as JC
+    from mochi_tpu_torch.crypto import field as F
+
+    assert CV.SKEWS == ("pad", "mxu") and set(CV.launches) == set(CV.launch_logs) == {"pad", "mxu"}
+    assert CV.skew() == ("mxu" if F.SKEW_IMPL == "mxu" else "pad")
+    rows, jax_out = corpus
+    arrays = BV.prepare_packed([VerifyItem(*r) for r in rows])
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    assert CV.skew() == "mxu"
+    before = (dict(CV.launches), CV.mul_launches)
+    bitmap = CV.verify_prepared_packed(*CV.from_reference_prepared(arrays, "cpu"))
+    assert np.logical_and(bitmap.numpy(), arrays[6]).tolist() == jax_out
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.integers(0, F.LOOSE + 1, (F.NLIMBS, 9)).astype(np.int32))
+    got = CV.fe_mul_mxu(a, a.flip(1))
+    assert got.dtype == torch.int32 and torch.equal(got.to(F.DTYPE), F.mul(a.to(F.DTYPE), a.flip(1).to(F.DTYPE)))
+    assert (dict(CV.launches), CV.mul_launches) == before
+    monkeypatch.setattr(F, "SKEW_IMPL", "shift")
+    assert CV.skew() == "pad"
+    tab = CV.basepoint_table17()
+    assert tab.shape == (9, 3, 17) and tab.dtype == np.int32
+    for c, ref in enumerate((JC._B_TAB_YPX, JC._B_TAB_YMX, JC._B_TAB_XY2D)):
+        np.testing.assert_array_equal(tab[:, c], ref)
+
+
+@pytest.mark.slow
+def test_plain_verify_under_mxu_equals_the_reference_under_mxu(corpus, monkeypatch):
+    """The reference's general verify program under ``mxu``, traced afresh
+    (its cached ``_verify_packed_jit`` would not retrace when the module
+    global flips), against the port's plain verify under ``mxu``."""
+    import jax
+
+    from mochi_tpu.crypto import curve as JC
+    from mochi_tpu.crypto import field as JF
+    from mochi_tpu_torch.crypto import curve
+    from mochi_tpu_torch.crypto import field as F
+
+    rows, jax_out = corpus
+    arrays = JBV.prepare_packed([JItem(*r) for r in rows])
+    monkeypatch.setattr(JF, "SKEW_IMPL", "mxu")
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    ref = np.asarray(jax.jit(JC.verify_prepared_packed)(*arrays[:6]))
+    mine = curve.verify_prepared_packed(*CV.from_reference_prepared(arrays, "cpu"))
+    assert mine.tolist() == ref.tolist()
+    assert np.logical_and(ref, arrays[6]).tolist() == jax_out
