@@ -9,9 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
    capability, SM count, maximum SM clock, and the host's Ed25519 engine.
    No CUDA device: exit 2.
 2. Build — compile every kernel, ``mochi_tpu_torch/csrc/verify.cu``,
-   ``verify_mxu.cu``, ``comb.cu``, ``comb_tree.cu`` and ``tally.cu``, one
-   nvcc each, started together; report ptxas's registers and spills and
-   each kernel's attributes.
+   ``verify_mxu.cu``, ``comb.cu``, ``comb_mxu.cu``, ``comb_tree.cu`` and
+   ``tally.cu``, one nvcc each, started together; report ptxas's registers
+   and spills and each kernel's attributes.
 3. Kernel vs plain — an 8192-item corpus made from ``--seed``: valid
    signatures from 64 signers, forgeries, and adversarial encodings
    (low-order and mixed-order points, non-points, x = 0 with the sign bit,
@@ -66,6 +66,18 @@ Phases (any failure exits non-zero and prints no result line):
    bitmap), the tree's two passes apart by ``torch.profiler``, and one lone
    43-grant certificate through ``verify_batch`` with the registry (the
    tree's under its switch).
+6m. The comb chain under ``MOCHI_SKEW_IMPL=mxu`` (``comb_mxu.cu``, the
+   chain in the 17 x 15-bit field with every multiply's column reduction on
+   the integer tensor cores, reading the registry's rows as they are) on
+   phase 6's corpus at 8192 lanes, a partial last block and the service's
+   2,752: its bitmap must equal the plain chain under the same switch on
+   the card, ``comb.cu``'s bitmap lane for lane and the expected verdicts,
+   phase 6's 256 sampled lanes must equal ``keys.verify``, and the uploaded
+   ``fe17`` table must equal the host rows integer for integer.
+7m. Its times — CUDA events, median over repeats: the kernel at 2,752,
+   8192 and 65536 lanes and the plain chain under ``mxu`` at 8192, beside
+   the function's bound (the chain's, as phase 7's) and the int8
+   tensor-core reckoning of its multiplies.
 8. Service with signers — phase 5's traffic through
    ``CudaBatchVerifier(signers=...)``: every item must take the comb kernel
    and every bitmap must equal the expected verdicts.
@@ -73,6 +85,12 @@ Phases (any failure exits non-zero and prints no result line):
    after): every item must take the tree kernel and none the chain or the
    general kernel, every bitmap must equal the expected verdicts, nothing
    may fall back; the idle share is recorded, and the tree kernel is held
+   against its plain version at every lane count it launched.
+8m. Phase 8 under ``MOCHI_SKEW_IMPL=mxu`` (``field.SKEW_IMPL = "mxu"``,
+   restored after): every item must take the chain under mxu and none
+   ``comb.cu``, the tree or a general kernel, every bitmap must equal the
+   expected verdicts, nothing may fall back, and ``verifier_stats`` must
+   name the mxu multiply; the idle share is recorded, and the kernel is held
    against its plain version at every lane count it launched.
 9. Cluster — the main path of the system: ``VirtualCluster(64, rf=64)``
    (f = 21, quorum 43) with one ``CudaBatchVerifier(device="cuda")`` shared
@@ -82,6 +100,12 @@ Phases (any failure exits non-zero and prints no result line):
    its value with a 43-grant certificate, the comb kernel must have carried
    the grants, and nothing may have fallen back to the CPU.  Each kernel is
    held against its plain version at every lane count it launched here.
+9m. The cluster under ``MOCHI_SKEW_IMPL=mxu`` (restored after), at a cut
+   depth (4 SDK clients x 4 signed PUTs, every key read back): every acked
+   write must read back with a 43-grant certificate, every comb launch must
+   be the chain under mxu and every general launch ``verify_mxu.cu`` (no
+   ``pad`` launch of either), and each kernel must equal its plain version
+   at every lane count it launched.
 
 10. Sharded service — phase 8's traffic through
    ``VerifierService(ShardedCudaBatchVerifier(signers=...))`` over every
@@ -108,10 +132,10 @@ Phases (any failure exits non-zero and prints no result line):
    --backend nccl``, one process per visible card: each process's JSON line
    must equal the closed form for its world size.
 
-Phases 5, 5m, 8, 8t, 9, 10 and 11 drive the main paths: each zeroes the
-launch counts just before it and reads them just after.  Every phase but 8t
-runs the comb's default accumulation, the chain, and every phase but 3m-5m
-the default multiply, ``pad``.  On a machine with several
+Phases 5, 5m, 8, 8t, 8m, 9, 9m, 10 and 11 drive the main paths: each zeroes
+the launch counts just before it and reads them just after.  Every phase but
+8t runs the comb's default accumulation, the chain, and every phase but
+3m-5m and 6m-9m the default multiply, ``pad``.  On a machine with several
 cards, phases 10-12 use every card, phase 11 also runs the step on card 0
 alone, and the idle share is recorded per card.  The last three lines of
 standard output are the kernel table (JSON), the ``nvidia-smi``
@@ -151,6 +175,9 @@ CLIENTS, GRANTS, REQUESTS = 64, 43, 24  # n = 64 replicas, 2f + 1 grants, checks
 # PUTs each.  The host bounds it (the protocol's Python, 64 grant signatures
 # per write); sized to take a minute or two.
 CLUSTER_N, CLUSTER_CLIENTS, CLUSTER_WRITES = 64, 8, 16
+# The cluster under MOCHI_SKEW_IMPL=mxu (phase 9m): the same cluster at a
+# cut depth, its general kernel being ~4x slower.
+CLUSTER_MXU_CLIENTS, CLUSTER_MXU_WRITES = 4, 4
 PARTIAL = 37  # lanes short of a full last block in the partial-block check
 NS_SLOTS, NS_VOTERS, NS_FORGED = 4, 64, 30  # the north-star quorum leg: slot 3 loses 30 votes
 MULTIHOST_LANES = 8  # lanes per process of the multi-process leg
@@ -743,15 +770,59 @@ def mxu_service_problems(svc: dict, launched: bool = True) -> List[str]:
     return problems
 
 
-def check_comb_vs_plain(table25, table15, lanes, pre_ok, want, impl: str = "chain") -> int:
-    """The comb kernel of ``impl`` (``chain`` or ``tree``) and its plain
-    version on the same card tensors: the max abs difference of their
-    bitmaps.  Raises if the kernel's verdicts (ANDed with ``pre_ok``) differ
-    from ``want``."""
+def comb_mxu_service_problems(svc: dict, launched: bool = True) -> List[str]:
+    """What phase 8m must not show: a bitmap off the expected verdicts, no
+    launch of the chain under mxu (when ``launched``, as on a card), a
+    launch of ``comb.cu``, the tree or a general kernel, an item routed off
+    the comb path, a fallback, or stats that do not name the mxu multiply."""
+    problems = []
+    if svc["mismatched_requests"]:
+        problems.append(f"{svc['mismatched_requests']} bitmaps differ from the expected verdicts")
+    if launched and svc["comb_launches"]["chain_mxu"] <= 0:
+        problems.append("the chain under mxu was never launched")
+    if _other_comb_launches(svc, "chain_mxu") or svc["verify_launches"] or svc["verify_mxu_launches"]:
+        problems.append(f"service with signers under mxu: comb launches {svc['comb_launches']}, general "
+                        f"launches {svc['verify_launches']}, mxu general launches {svc['verify_mxu_launches']}")
+    if svc["routing"]["comb_items"] != svc["items"]:
+        problems.append(f"routing {svc['routing']} for {svc['items']} items")
+    for key in ("fallback_batches", "crossover_batches", "remote_fallbacks"):
+        if svc[key]:
+            problems.append(f"service with signers under mxu: {key} = {svc[key]}")
+    if svc["stats_multiply"]["comb"] != "mxu":
+        problems.append(f"verifier_stats names {svc['stats_multiply']}")
+    return problems
+
+
+def cluster_mxu_problems(cl: dict, launched: bool = True) -> List[str]:
+    """What phase 9m must not show: no launch of the chain under mxu (when
+    ``launched``), a ``pad`` launch of either kernel (``comb.cu`` or
+    ``verify.cu``) or a tree launch, no grant on the comb path, a fallback.
+    (An acked write that does not read back raises in ``drive_cluster``.)"""
+    problems = []
+    if launched and cl["comb_launches"]["chain_mxu"] <= 0:
+        problems.append(f"the chain under mxu carried nothing: {cl['comb_launches']}")
+    if _other_comb_launches(cl, "chain_mxu") or cl["verify_launches"]:
+        problems.append(f"cluster under mxu: comb launches {cl['comb_launches']}, pad general launches "
+                        f"{cl['verify_launches']}")
+    if cl["routing"]["comb_items"] <= 0:
+        problems.append(f"no grant took the comb path: {cl['routing']}")
+    for key in ("fallback_batches", "crossover_batches"):
+        if cl[key]:
+            problems.append(f"cluster under mxu: {key} = {cl[key]}")
+    return problems
+
+
+def check_comb_vs_plain(table, table15, lanes, pre_ok, want, impl: str = "chain") -> int:
+    """The comb kernel of ``impl`` (``chain`` or ``tree``) under the
+    multiply switch in effect, reading ``table`` (in its kernel's layout),
+    and its plain version (reading the 17 x 15 rows ``table15``, its
+    multiply following the same switch) on the same card tensors: the max
+    abs difference of their bitmaps.  Raises if the kernel's verdicts
+    (ANDed with ``pre_ok``) differ from ``want``."""
     from mochi_tpu_torch.crypto import comb
     from mochi_tpu_torch.crypto import cuda_comb as CC
 
-    got = CC.verify_comb_prepared(table25, *lanes, impl=impl)
+    got = CC.verify_comb_prepared(table, *lanes, impl=impl)
     plain = comb.verify_comb_prepared(table15, *lanes, impl=impl)
     got_np, plain_np = got.cpu().numpy(), plain.cpu().numpy()
     err = int(np.abs(got_np.astype(np.int64) - plain_np.astype(np.int64)).max())
@@ -819,6 +890,7 @@ async def drive_service(traffic, device: str, secret: Optional[bytes], timeout_s
     Returns counts and times."""
     from mochi_tpu_torch.verifier.cuda import CudaBatchVerifier
     from mochi_tpu_torch.verifier.service import RemoteVerifier, VerifierService
+    from mochi_tpu_torch.verifier.spi import verifier_stats
 
     if make_verifier is None:
         verifier = CudaBatchVerifier(device=device, signers=list(signers))
@@ -843,6 +915,7 @@ async def drive_service(traffic, device: str, secret: Optional[bytes], timeout_s
         t0 = time.perf_counter()
         await asyncio.gather(*(client(rv, reqs) for rv, reqs in zip(remotes, traffic)))
         wall = time.perf_counter() - t0
+        stats = verifier_stats(verifier)
     finally:
         for rv in remotes:
             await rv.close()
@@ -863,6 +936,8 @@ async def drive_service(traffic, device: str, secret: Optional[bytes], timeout_s
         "fallback_batches": verifier.fallback_batches,
         "crossover_batches": verifier.backend.crossover_batches,
         "remote_fallbacks": sum(rv.fallback_batches for rv in remotes),
+        # the multiplies the verifier's stats name (MOCHI_SKEW_IMPL)
+        "stats_multiply": {"general": stats["general"]["multiply"], "comb": stats["comb"]["multiply"]},
     }
 
 
@@ -952,10 +1027,11 @@ def _zero_counts():
 def _read_counts(out: dict):
     """Counts and traces read just after a main-path phase; returns the
     general kernels' launch logs (keyed by skew) and the comb kernels' (keyed
-    by impl) and turns tracing off.  ``verify_launches`` counts the general
-    kernel's (``pad``) launches, ``verify_mxu_launches`` the mxu kernel's,
-    ``comb_launches`` is keyed by impl; ``launches_by_card`` counts the
-    verify kernels' launches on each card."""
+    by kernel: ``chain``, ``tree``, ``chain_mxu``) and turns tracing off.
+    ``verify_launches`` counts the general kernel's (``pad``) launches,
+    ``verify_mxu_launches`` the mxu kernel's, ``comb_launches`` is keyed by
+    kernel; ``launches_by_card`` counts the verify kernels' launches on each
+    card."""
     from mochi_tpu_torch.crypto import batch_verify as BV
     from mochi_tpu_torch.crypto import cuda_comb as CC
     from mochi_tpu_torch.crypto import cuda_verify as CV
@@ -979,9 +1055,9 @@ def _read_counts(out: dict):
     return vlogs, clogs
 
 
-def _other_comb_launches(out: dict, impl: Optional[str] = None) -> dict:
-    """The comb launches a phase made of every impl but ``impl``."""
-    return {k: n for k, n in out["comb_launches"].items() if k != impl and n}
+def _other_comb_launches(out: dict, kernel: Optional[str] = None) -> dict:
+    """The comb launches a phase made of every kernel but ``kernel``."""
+    return {k: n for k, n in out["comb_launches"].items() if k != kernel and n}
 
 
 def _drive(coro_fn, out_key: str, res: dict):
@@ -1058,11 +1134,11 @@ def run(args) -> dict:
     res["build_s"] = time.perf_counter() - t0
     res["build_s_by_kernel"] = took
     res["kernel_attributes"] = {"verify": CV.kernel_attributes(), "verify_mxu": CV.kernel_attributes("mxu"),
-                                "comb": CC.kernel_attributes(), "comb_tree": CC.kernel_attributes("tree"),
-                                "tally": CT.kernel_attributes()}
+                                "comb": CC.kernel_attributes(), "comb_mxu": CC.kernel_attributes("chain_mxu"),
+                                "comb_tree": CC.kernel_attributes("tree"), "tally": CT.kernel_attributes()}
     print(f"[build] {res['build_s']:.1f} s {took}; {res['kernel_attributes']}", flush=True)
     res["ptxas"] = {}
-    for name in ("verify", "verify_mxu", "comb", "comb_tree", "tally"):
+    for name in ("verify", "verify_mxu", "comb", "comb_mxu", "comb_tree", "tally"):
         for ln in kernels.build_logs.get(name, "").splitlines():
             if "registers" in ln or "spill" in ln:
                 res["ptxas"].setdefault(name, []).append(ln.strip())
@@ -1228,7 +1304,7 @@ def run(args) -> dict:
     t0 = time.perf_counter()
     reg = comb.SignerRegistry(dev)
     reg.register_all([s.pub for s in signers])
-    table25 = reg.device_table(dev)
+    table25 = reg.device_table(dev, layout="radix25")
     table15 = torch.from_numpy(reg.host_table()).to(dev)
     citems, cwant, ckinds = make_comb_corpus(args.seed + 3, CORPUS, signers)
     cprep = BV.prepare_packed(citems)
@@ -1353,6 +1429,53 @@ def run(args) -> dict:
         for n in sorted(set(lane_counts) - set(ccheck)):
             ccheck[n] = _check_comb_at(n, table25, table15, lanes, big_lanes, cprep[6], cwant)
 
+    # 6m-7m. the chain under mxu (comb_mxu.cu): on the comb corpus, its times
+    skew0 = F.SKEW_IMPL  # MOCHI_SKEW_IMPL, restored after each mxu leg
+    table17 = reg.device_table(dev, layout="fe17")
+    table17_mismatch = int((table17.cpu() != torch.from_numpy(reg.host_table())).sum())
+    try:
+        F.SKEW_IMPL = "mxu"
+        mcgot = CC.verify_comb_prepared(table17, *lanes).cpu().numpy()
+        mcfinal = np.logical_and(mcgot, cprep[6])
+        mcwrong = [k for k, g, w in zip(ckinds, mcfinal, cwant) if bool(g) != w]
+        mccheck = {n: _check_comb_at(n, table17, table17, lanes, big_lanes, cprep[6], cwant)
+                   for n in (len(citems), len(citems) - PARTIAL, CLIENTS * GRANTS)}
+        mc_vs_pad = int(np.sum(mcgot != cgot))  # comb.cu's bitmap, lane for lane
+        mcsample_wrong = [j for j in csample if keys.verify(citems[j].public_key, citems[j].message,
+                                                            citems[j].signature) != bool(mcfinal[j])]
+        res["comb_mxu_corpus"] = {
+            "items": len(citems), "accepted": int(mcfinal.sum()), "table_rows": int(table17.shape[0]),
+            "table_entries_not_equal_to_host_rows": table17_mismatch,
+            "kernel_vs_plain_max_abs_err": max(mccheck.values()), "lane_counts_checked": sorted(mccheck),
+            "lanes_differing_from_comb_cu": mc_vs_pad, "wrong_verdicts": len(mcwrong),
+            "sample_vs_keys_verify_wrong": len(mcsample_wrong),
+        }
+        print(f"[comb mxu vs plain] {res['comb_mxu_corpus']}", flush=True)
+        if table17_mismatch or mc_vs_pad or mcwrong or mcsample_wrong:
+            raise AssertionError(f"comb mxu kernel disagrees: table entries {table17_mismatch}, {mc_vs_pad} lanes "
+                                 f"with comb.cu, wrong kinds {sorted(set(mcwrong))[:10]}, sample lanes "
+                                 f"{mcsample_wrong[:10]}")
+        wave_lanes = [t[: CLIENTS * GRANTS] for t in lanes]
+        mc_wave = _ms_median(lambda: CC.verify_comb_prepared(table17, *wave_lanes), 2, REPEATS // 2)
+        mc8k = _ms_median(lambda: CC.verify_comb_prepared(table17, *lanes), 2, REPEATS)
+        mc64k = _ms_median(lambda: CC.verify_comb_prepared(table17, *big_lanes), 1, REPEATS // 4)
+        mcplain = _ms_median(lambda: comb.verify_comb_prepared(table17, *lanes), 1, 3)
+    finally:
+        F.SKEW_IMPL = skew0
+    # the int8 tensor-core reckoning of the kernel's own multiplies: each
+    # multiply-add two operations at the card's dense int8 rate
+    mc_tensor = lambda n: 1e3 * n * CC.MULS_PER_SIGNATURE_MXU * 2 * CC.MMA_MACS_PER_MUL / INT8_OPS_PER_S  # noqa: E731
+    res["comb_mxu_times"] = {
+        "kernel_ms_2752": mc_wave, "kernel_ms_8192": mc8k, "kernel_ms_65536": mc64k, "plain_ms_8192": mcplain,
+        "bound_ms_8192": cbound(len(citems)), "bound_ms_65536": cbound(BIG), "bound_by": cbound_by,
+        "sigs_per_s_8192": len(citems) / (mc8k / 1e3), "sigs_per_s_65536": BIG / (mc64k / 1e3),
+        "muls_per_signature": CC.MULS_PER_SIGNATURE_MXU, "mma_macs_per_mul": CC.MMA_MACS_PER_MUL,
+        "tensor_int8_ms_8192": mc_tensor(len(citems)), "tensor_int8_ms_65536": mc_tensor(BIG),
+        "over_comb_cu_ms_8192": mc8k / c8k, "comb_cu_ms_8192": c8k,
+        "attributes": res["kernel_attributes"]["comb_mxu"], "ptxas": res["ptxas"].get("comb_mxu", []),
+    }
+    print(f"[comb mxu times] {res['comb_mxu_times']}", flush=True)
+
     # 8. service with known signers: every grant takes the comb kernel
     pubs = [s.pub for s in signers]
     svc2, (_, clogs) = _drive(lambda: drive_service(traffic, "cuda", secret, signers=pubs), "service_signers",
@@ -1399,6 +1522,23 @@ def run(args) -> dict:
     if problems:
         raise AssertionError("; ".join(problems))
 
+    # 8m. the same traffic under MOCHI_SKEW_IMPL=mxu: every grant takes the
+    # chain under mxu
+    try:
+        F.SKEW_IMPL = "mxu"
+        svc2m, (_, mlogs) = _drive(lambda: drive_service(traffic, "cuda", secret, signers=pubs),
+                                   "service_signers_mxu", res)
+        for n in sorted({n for n, _, _ in mlogs["chain_mxu"]} - set(mccheck)):
+            mccheck[n] = _check_comb_at(n, table17, table17, lanes, big_lanes, cprep[6], cwant)
+    finally:
+        F.SKEW_IMPL = skew0
+    svc2m["chain_mxu_lane_counts_checked_vs_plain"] = sorted({n for n, _, _ in mlogs["chain_mxu"]})
+    print(f"[service with signers, mxu] chain under mxu equals plain at lane counts "
+          f"{svc2m['chain_mxu_lane_counts_checked_vs_plain']}", flush=True)
+    problems = comb_mxu_service_problems(svc2m)
+    if problems:
+        raise AssertionError("; ".join(problems))
+
     # 9. the cluster: the system's main path
     cl, (vlogs2, clogs2) = _drive(lambda: drive_cluster("cuda", CLUSTER_N, CLUSTER_CLIENTS, CLUSTER_WRITES),
                                   "cluster", res)
@@ -1418,6 +1558,26 @@ def run(args) -> dict:
     for key in ("fallback_batches", "crossover_batches"):
         if cl[key]:
             problems.append(f"cluster: {key} = {cl[key]}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+    # 9m. the cluster under MOCHI_SKEW_IMPL=mxu, at a cut depth: grants on the
+    # chain under mxu, client keys on the mxu general kernel
+    try:
+        F.SKEW_IMPL = "mxu"
+        clm, (vlogs_m2, clogs_m2) = _drive(
+            lambda: drive_cluster("cuda", CLUSTER_N, CLUSTER_MXU_CLIENTS, CLUSTER_MXU_WRITES), "cluster_mxu", res)
+        for n in sorted({n for n, _, _ in clogs_m2["chain_mxu"]} - set(mccheck)):
+            mccheck[n] = _check_comb_at(n, table17, table17, lanes, big_lanes, cprep[6], cwant)
+        for n in sorted({n for n, _, _ in vlogs_m2["mxu"]} - set(mcheck)):
+            mcheck[n] = check_kernel_vs_plain([t[:n] for t in big_t], big[6][:n], flat_want[:n])
+    finally:
+        F.SKEW_IMPL = skew0
+    clm["chain_mxu_lane_counts_checked_vs_plain"] = sorted({n for n, _, _ in clogs_m2["chain_mxu"]})
+    clm["verify_mxu_lane_counts_checked_vs_plain"] = sorted({n for n, _, _ in vlogs_m2["mxu"]})
+    print(f"[cluster, mxu] chain under mxu equals plain at lane counts {clm['chain_mxu_lane_counts_checked_vs_plain']}"
+          f", mxu general kernel at {clm['verify_mxu_lane_counts_checked_vs_plain']}", flush=True)
+    problems = cluster_mxu_problems(clm)
     if problems:
         raise AssertionError("; ".join(problems))
 
@@ -1464,6 +1624,21 @@ def run(args) -> dict:
         "plain_ms": cplain,
         "bound_ms": cbound(len(citems)),
         "bound_by": res["comb_times"]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "comb_verify_mxu",
+        "route": "cuda",
+        "source": "mochi_tpu_torch/csrc/comb_mxu.cu",
+        "replaces": "mochi_tpu/crypto/comb.py:512",
+        "replaces_also": "mochi_tpu/crypto/field.py:330",
+        "launches": clm["comb_launches"]["chain_mxu"],
+        "launches_service": svc2m["comb_launches"]["chain_mxu"],
+        "max_abs_err": max(mccheck.values()),
+        "ms": mc8k,
+        "ms_65536": mc64k,
+        "plain_ms": mcplain,
+        "bound_ms": cbound(len(citems)),
+        "bound_by": res["comb_mxu_times"]["bound_by"],
         "library_ms": None,
     }, {
         "name": "comb_tree_verify",
@@ -1687,12 +1862,13 @@ def quorum_phase(seed: int, traffic, signers: List[Signer], dev, res: dict) -> d
     return out
 
 
-def _check_comb_at(n, table25, table15, lanes, big_lanes, pre_ok, want, impl: str = "chain") -> int:
-    """The comb kernel of ``impl`` against its plain version at ``n`` lanes
-    of the comb corpus (tiled past its length)."""
+def _check_comb_at(n, table, table15, lanes, big_lanes, pre_ok, want, impl: str = "chain") -> int:
+    """The comb kernel of ``impl`` (under the multiply switch in effect)
+    against its plain version at ``n`` lanes of the comb corpus (tiled past
+    its length)."""
     src = lanes if n <= lanes[0].shape[0] else big_lanes
     reps = -(-n // len(want))
-    return check_comb_vs_plain(table25, table15, [t[:n] for t in src], np.tile(pre_ok, reps)[:n],
+    return check_comb_vs_plain(table, table15, [t[:n] for t in src], np.tile(pre_ok, reps)[:n],
                                (list(want) * reps)[:n], impl)
 
 

@@ -20,8 +20,11 @@ takes the general kernel), as in the reference.  ``MOCHI_COMB_IMPL``
 kernel every comb launch runs, as the reference's switch reaches every comb
 caller: the verifier service, ``CudaBatchVerifier``, the sharded backend and
 the replica all launch through :func:`_dispatch`.  ``MOCHI_SKEW_IMPL=mxu``
-(``field.SKEW_IMPL``) reaches every general launch the same way: they run
-the tensor-core kernel (:mod:`.cuda_verify`).
+(``field.SKEW_IMPL``) reaches every general launch the same way (they run
+the tensor-core kernel, :mod:`.cuda_verify`), and every chain launch (the
+tensor-core chain, ``comb_mxu.cu``).  A batch reads both switches once,
+where it pins its comb table (``cuda_comb.switches``), so the table's
+layout and the kernel that reads it always agree.
 
 Requests larger than the launch size are cut into chunks.  Every chunk is
 launched before any is read back, so chunk k+1's host prepare runs while
@@ -48,7 +51,6 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from . import comb as _comb
 from . import cuda_comb
 from . import cuda_verify
 from . import field as F
@@ -261,22 +263,22 @@ def _thread_stream(device: torch.device, k: int = 0) -> torch.cuda.Stream:
     return s
 
 
-def _dispatch(prepared, device: torch.device, key_idx=None, table=None, k: int = 0):
+def _dispatch(prepared, device: torch.device, k: int = 0, comb: Optional[tuple] = None):
     """Send one prepared chunk to the device and launch; no readback.
-    With ``key_idx`` and ``table`` (the comb table pinned at routing time)
-    the comb kernel of ``comb.COMB_IMPL`` runs, else the general kernel.  On
-    a card it runs on the stream of (this thread, ``device``, slice ``k``).
-    Returns (bitmap or None, stream, what must stay alive until readback,
-    pre_ok)."""
+    With ``comb`` = (key_idx, table, impl, multiply), the comb table pinned
+    at routing time in the layout of the (impl, multiply) read with it, that
+    comb kernel runs, else the general kernel.  On a card it runs on the
+    stream of (this thread, ``device``, slice ``k``).  Returns (bitmap or
+    None, stream, what must stay alive until readback, pre_ok)."""
     *arrays, pre_ok = prepared
     if not pre_ok.any():
         return None, None, None, pre_ok
-    comb = table is not None
-    _note_dispatch(len(pre_ok), comb=comb)
-    if comb:
+    _note_dispatch(len(pre_ok), comb=comb is not None)
+    table = None
+    if comb is not None:
+        key_idx, table, impl, multiply = comb
         host = cuda_comb.from_prepared(key_idx, arrays, "cpu")
-        impl = _comb.COMB_IMPL
-        kernel = lambda *t: cuda_comb.verify_comb_prepared(table, *t, impl=impl)  # noqa: E731
+        kernel = lambda *t: cuda_comb.verify_comb_prepared(table, *t, impl=impl, multiply=multiply)  # noqa: E731
     else:
         host = cuda_verify.from_reference_prepared(arrays, "cpu")
         kernel = cuda_verify.verify_prepared_packed
@@ -330,11 +332,13 @@ def verify_batch(items: Sequence[VerifyItem], device="cuda", registry=None,
         _note_routing(len(comb_pos), len(gen_pos))
     launched = []
     if comb_pos:
-        table = registry.device_table(device, gen)
+        switches = cuda_comb.switches()  # read once: the table's layout and the kernel agree
+        table = registry.device_table(device, gen, layout=cuda_comb.table_layout(device, *switches))
         kidx = np.asarray([idx[i] for i in comb_pos], dtype=np.int32)
         for i in range(0, len(comb_pos), MAX_LAUNCH):
             chunk = [items[j] for j in comb_pos[i : i + MAX_LAUNCH]]
-            launched.append(_dispatch(prepare_packed(chunk), device, kidx[i : i + MAX_LAUNCH], table))
+            launched.append(_dispatch(prepare_packed(chunk), device,
+                                      comb=(kidx[i : i + MAX_LAUNCH], table, *switches)))
     for i in range(0, len(gen_pos), MAX_LAUNCH):
         chunk = [items[j] for j in gen_pos[i : i + MAX_LAUNCH]]
         launched.append(_dispatch(prepare_packed(chunk), device))
@@ -385,14 +389,15 @@ class TorchBatchBackend:
         return self.registry.public_keys()
 
     def warmup(self) -> None:
-        """Build and load both kernels now (one nvcc each, in parallel), and
-        upload the comb table of the registered signers, so no request waits
-        for either."""
+        """Build and load the kernels now (one nvcc each, in parallel), and
+        upload the comb table of the registered signers in the layout of
+        the switches in effect, so no request waits for either."""
         if self.device.type == "cuda":
+            switches = cuda_comb.switches()
             cuda_verify._lib(cuda_verify.skew())  # builds every missing kernel at once
-            cuda_comb._lib(_comb.COMB_IMPL)
+            cuda_comb._lib(cuda_comb.kernel_of(*switches))
             if len(self.registry):
-                self.registry.device_table(self.device)
+                self.registry.device_table(self.device, layout=cuda_comb.table_layout(self.device, *switches))
 
     def register_signers(self, pubs: Sequence[bytes]) -> None:
         """Register known signers (cluster replica identities): their

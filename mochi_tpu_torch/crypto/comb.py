@@ -18,16 +18,21 @@ Three layers live here:
   ``signer_table``, ``_b_comb`` — byte-equal to the reference's (64, 9, 51)
   int32 rows in the 17 x 15-bit layout.
 * :class:`SignerRegistry` — pubkey -> index, the tables, and their copies
-  on a device, pinned per generation.  On a CUDA device the table is
-  converted once to the kernel's radix-2^25.5 layout
-  (:func:`mochi_tpu_torch.crypto.cuda_comb.to_radix25`).
+  on a device, pinned per generation, in the layout the kernel of a launch
+  reads: ``radix25`` (converted once to the kernel radix 2^25.5 for
+  ``comb.cu`` and ``comb_tree.cu``,
+  :func:`mochi_tpu_torch.crypto.cuda_comb.to_radix25`) or ``fe17`` (the
+  17 x 15 rows as they are, for ``comb_mxu.cu`` and the plain version).
 * :func:`verify_comb_prepared` — the plain PyTorch version of both comb
   kernels, limb-equal to the reference's two accumulations: ``impl="chain"``
   (``csrc/comb.cu``, 128 dependent mixed additions) and ``impl="tree"``
   (``csrc/comb_tree.cu``, the 128 window points converted from Niels to
   extended form and summed by a 7-level balanced tree of complete
-  additions).  The CPU tests run it and the chip smoke test holds the
-  kernels against it; it is never on the main path when a card is present.
+  additions).  Its multiplies follow ``MOCHI_SKEW_IMPL`` as the
+  reference's do, so under ``mxu`` the chain is also the plain version of
+  ``csrc/comb_mxu.cu``.  The CPU tests run it and the chip smoke test holds
+  the kernels against it; it is never on the main path when a card is
+  present.
 
 ``MOCHI_COMB_IMPL``, read at import into :data:`COMB_IMPL` as the
 reference reads it, chooses the accumulation for every caller that does not
@@ -62,6 +67,10 @@ ROWS_PER_SIGNER = N_WINDOWS * N_ENTRIES
 ROW_WIDTH = 3 * F.NLIMBS  # ypx | ymx | xy2d
 
 COMB_IMPLS = ("chain", "tree")
+
+# Layouts of a device table (SignerRegistry.device_table): the kernel radix
+# 2^25.5 and the registry's own 17 x 15 rows.
+LAYOUTS = ("radix25", "fe17")
 
 
 _substituted: set = set()
@@ -236,7 +245,7 @@ class SignerRegistry:
         self._tables: List[np.ndarray] = []
         self._rejected: set = set()
         self._lock = threading.Lock()
-        # (device, capacity) -> (tensor, rows filled at build time)
+        # (device, capacity, layout) -> (tensor, rows filled at build time)
         self._dev_tables: Dict[tuple, tuple] = {}
 
     def __len__(self) -> int:
@@ -308,13 +317,15 @@ class SignerRegistry:
             flat[..., F.NLIMBS : 2 * F.NLIMBS] = one
         return flat.reshape(cap * ROWS_PER_SIGNER, ROW_WIDTH)
 
-    def device_table(self, device=None, gen: Optional[int] = None) -> torch.Tensor:
+    def device_table(self, device=None, gen: Optional[int] = None, *, layout: str) -> torch.Tensor:
         """The flat table on ``device``, at the capacity of generation
-        ``gen`` (default: current), in the layout that
-        :func:`cuda_comb.verify_comb_prepared` takes on that device: on a
-        CUDA device the (capacity * 576, 3, 10) int32 table the kernel reads
-        (converted once, exactly, at upload), elsewhere the
-        (capacity * 576, 51) int32 17 x 15 table the plain version reads.
+        ``gen`` (default: current), in ``layout`` (one of :data:`LAYOUTS`):
+        ``radix25``, the (capacity * 576, 3, 10) int32 table ``comb.cu`` and
+        ``comb_tree.cu`` read (converted once, exactly, at upload), or
+        ``fe17``, the (capacity * 576, 51) int32 17 x 15 rows as they are,
+        which ``comb_mxu.cu`` and the plain version read.  The caller names
+        it: :func:`cuda_comb.table_layout` says which one a launch reads.
+        Each layout is cached apart: one never replaces the other.
 
         A returned tensor is never freed or reshaped while a caller holds
         it: a registration that outgrows the cached table builds a new one
@@ -325,17 +336,19 @@ class SignerRegistry:
         ``gen``).
         """
         device = self._device if device is None else torch.device(device)
+        if layout not in LAYOUTS:
+            raise ValueError(f"table layout {layout!r}: expected one of {LAYOUTS}")
         with self._lock:
             cur = len(self._tables)
             g = cur if gen is None else gen
             cap = self._capacity_for(max(1, g))
-            key = (str(device), cap)
+            key = (str(device), cap, layout)
             cached = self._dev_tables.get(key)
             if cached is not None and cached[1] >= min(cur, cap):
                 return cached[0]
             flat = self._host_table_locked(g)
             n_rows = min(cur, cap)
-            if device.type == "cuda":
+            if layout == "radix25":
                 from .cuda_comb import to_radix25
 
                 flat = to_radix25(flat)
@@ -391,6 +404,9 @@ def verify_comb_prepared(table_flat, key_idx, y_r, sign_r, s_bytes, h_bytes,
     The row index ``key_idx*576 + w*9 + |h_w|`` is clipped into the table,
     as the reference's ``jnp.take(..., mode="clip")`` does.  Every
     intermediate equals the reference's of the same ``impl`` limb for limb.
+    Every rank-2 multiply follows ``field.SKEW_IMPL`` as the reference's
+    does when traced: under ``mxu`` the chain here is the plain version of
+    ``csrc/comb_mxu.cu`` (the plain ``_mul_mxu``), else of ``csrc/comb.cu``.
     """
     impl = check_impl(impl)
     dev = y_r.device

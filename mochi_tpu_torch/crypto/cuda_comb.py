@@ -1,28 +1,44 @@
 """Known-signer (comb) Ed25519 verification on the card: the wrapper of
-the two CUDA comb kernels.
+the three CUDA comb kernels.
 
 Counterpart of the reference package's ``comb._verify_comb_jit`` with its
-two accumulations.  ``impl="chain"`` launches ``csrc/comb.cu`` (arithmetic
-in ``csrc/comb25519.cuh``): one signature per thread, 64 windows of two
-Niels mixed additions from the signer's table and the basepoint comb, R's
-decode, the projective compare.  ``impl="tree"`` launches
-``csrc/comb_tree.cu`` (arithmetic in ``csrc/comb_tree.cuh``): a prepare
-pass (R's decode and the digit recoding, one thread per signature) and an
-accumulate pass (the 128 window points summed by a 7-level tree, one warp
-per signature).  ``impl=None`` takes :data:`comb.COMB_IMPL`, the
-``MOCHI_COMB_IMPL`` switch.  Each source note says what bounds its kernel
-and what the design does about that.
+two accumulations, under either multiply.  Which kernel a launch runs
+follows the pair of switches (:func:`kernel_of`):
+
+* ``impl="chain"``, ``multiply="pad"``: ``csrc/comb.cu`` (arithmetic in
+  ``csrc/comb25519.cuh``), one signature per thread in radix 2^25.5: 64
+  windows of two Niels mixed additions from the signer's table and the
+  basepoint comb, R's decode, the projective compare;
+* ``impl="chain"``, ``multiply="mxu"`` (``MOCHI_SKEW_IMPL=mxu``):
+  ``csrc/comb_mxu.cu`` (arithmetic in ``csrc/comb17.cuh``), the same chain
+  in the reference's 17 x 15-bit field with every multiply's column
+  reduction on the integer tensor cores (``csrc/fe17.cuh``), 32 signatures
+  a warp;
+* ``impl="tree"``, under either multiply: ``csrc/comb_tree.cu``
+  (arithmetic in ``csrc/comb_tree.cuh``), a prepare pass (R's decode and
+  the digit recoding, one thread per signature) and an accumulate pass (the
+  128 window points summed by a 7-level tree, one warp per signature), in
+  radix 2^25.5.  The tree's mxu multiply is not ported yet: a tree launch
+  under ``mxu`` runs this kernel and says so once on stderr.
+
+``impl=None`` takes :data:`comb.COMB_IMPL` (``MOCHI_COMB_IMPL``) and
+``multiply=None`` the ``MOCHI_SKEW_IMPL`` switch (``mxu`` for ``mxu``, else
+``pad``); :func:`switches` reads both at once.  Each source note says what
+bounds its kernel and what the design does about that.
 
 :func:`verify_comb_prepared` takes the reference's public layout for the
 lanes (``key_idx`` (B,) int32, ``y_r`` (B, 17) int32 15-bit limbs,
 ``sign_r`` (B,) int32, ``s_bytes``/``h_bytes`` (B, 32) uint8) and the table
-in the layout of its device, as
+in the layout its kernel reads (:func:`table_layout`), as
 :meth:`~mochi_tpu_torch.crypto.comb.SignerRegistry.device_table` returns it:
-on a CUDA device the kernel-radix (rows, 3, 10) int32 table, and the kernel
-of ``impl`` is launched on the current stream or the call raises; on the
-CPU the (rows, 51) int32 17 x 15 table, and the plain version of the same
-``impl`` (:func:`mochi_tpu_torch.crypto.comb.verify_comb_prepared`) runs.
-The kernels do not synchronise: the caller reads the bitmap back.
+on a CUDA device the kernel-radix (rows, 3, 10) int32 table (``radix25``)
+for ``comb.cu`` and ``comb_tree.cu``, the registry's (rows, 51) int32 17 x
+15 rows (``fe17``) for ``comb_mxu.cu``, and the kernel is launched on the
+current stream or the call raises; on the CPU the (rows, 51) rows, and the
+plain version of the same ``impl``
+(:func:`mochi_tpu_torch.crypto.comb.verify_comb_prepared`) runs, whose
+multiply follows ``field.SKEW_IMPL``.  The kernels do not synchronise: the
+caller reads the bitmap back.
 """
 
 from __future__ import annotations
@@ -31,6 +47,7 @@ import ctypes
 import sys
 import threading
 from functools import lru_cache
+from typing import Optional
 
 import numpy as np
 import torch
@@ -39,17 +56,21 @@ from . import comb
 from . import field as F
 from .cuda_verify import _BITS, _OFFS, _check
 
-# Launches of each impl's kernel, keyed by impl (plain counts; the chip
-# smoke test zeroes them before driving a main path and reads them after).
-# The tree counts one per call, both passes.
-launches = dict.fromkeys(comb.COMB_IMPLS, 0)
+# The comb kernels, by the name :func:`kernel_of` gives them: comb.cu,
+# comb_tree.cu and comb_mxu.cu.
+KERNELS = ("chain", "tree", "chain_mxu")
+
+# Launches of each kernel, keyed by kernel (plain counts; the chip smoke
+# test zeroes them before driving a main path and reads them after).  The
+# tree counts one per call, both passes.
+launches = dict.fromkeys(KERNELS, 0)
 _count_lock = threading.Lock()
 
-# Launch traces of each impl's kernel, keyed by impl, off when None.  When a
+# Launch traces of each kernel, keyed by kernel, off when None.  When a
 # list, each launch appends (lanes, start, end): CUDA events recorded on the
 # launch's stream just before and just after the kernel (the tree's: both
 # passes).
-launch_logs = dict.fromkeys(comb.COMB_IMPLS)
+launch_logs = dict.fromkeys(KERNELS)
 
 # 32x32->64 integer multiply-adds one signature's verdict takes (the
 # source notes): the chain's 917 field multiplies of 100 products and 255
@@ -64,6 +85,15 @@ IMADS_PER_SIGNATURE_TREE = 1228 * 100 + 255 * 55
 # The tree's per-signature record between its passes (comb_tree.cuh):
 # R's x and y, R's verdict, 128 int8 digits.
 TREE_RECORD_INTS = 53
+
+# Multiplies and squarings one signature of the chain under mxu issues
+# (comb_mxu.cu: 128 mixed additions of 7, the decode's 275, its sqrt(-1)
+# multiply included, since over fe17 it is a select that always multiplies,
+# and the compare's 2), and the
+# integer multiply-adds each one's tensor-core reduction issues (196
+# m16n8k32 MMAs a warp of 32, fe17.cuh).
+MULS_PER_SIGNATURE_MXU = 128 * 7 + 275 + 2
+MMA_MACS_PER_MUL = 196 * 16 * 8 * 32 // 32
 
 # Bytes per signature in and out: key_idx, y_r, sign_r, s, h, the verdict.
 BYTES_PER_SIGNATURE = 4 + 17 * 4 + 4 + 32 + 32 + 1
@@ -100,33 +130,71 @@ def bcomb_table25() -> np.ndarray:
 
 
 @lru_cache(maxsize=None)
-def _bcomb_on(device: str) -> torch.Tensor:
-    return torch.from_numpy(bcomb_table25()).to(device)
+def _bcomb_on(device: str, layout: str = "radix25") -> torch.Tensor:
+    """The basepoint comb on ``device`` in ``layout``."""
+    table = comb._b_comb().reshape(-1, comb.ROW_WIDTH) if layout == "fe17" else bcomb_table25()
+    return torch.from_numpy(table).to(device)
 
 
-def _lib(impl: str = "chain"):
-    """The loaded library of ``impl``'s kernel, built on first use."""
+def switches() -> tuple:
+    """(impl, multiply) of a comb launch now, both switches read at once:
+    :data:`comb.COMB_IMPL` and ``mxu`` under ``MOCHI_SKEW_IMPL=mxu``, else
+    ``pad``.  A batch reads them once, where its table is pinned, and hands
+    the pair to :func:`table_layout` and :func:`verify_comb_prepared`, so
+    that the table's layout and the kernel agree even if a switch flips
+    meanwhile."""
+    return comb.check_impl(None), ("mxu" if F.SKEW_IMPL == "mxu" else "pad")
+
+
+def kernel_of(impl: str, multiply: str) -> str:
+    """The kernel a launch of ``(impl, multiply)`` runs: ``chain_mxu`` for
+    the chain under ``mxu``, else the impl's own (the tree keeps its pad
+    multiply under either)."""
+    impl = comb.check_impl(impl)
+    return "chain_mxu" if impl == "chain" and multiply == "mxu" else impl
+
+
+def multiply_of(impl: Optional[str] = None) -> str:
+    """The multiply ``impl``'s kernel runs under the switch now (the
+    verifier's stats name it): ``mxu`` for the chain under
+    ``MOCHI_SKEW_IMPL=mxu``, else ``pad``."""
+    impl_, multiply = switches()
+    return "mxu" if kernel_of(impl_ if impl is None else impl, multiply) == "chain_mxu" else "pad"
+
+
+def table_layout(device, impl: str, multiply: str) -> str:
+    """The layout of ``SignerRegistry.device_table`` a launch of ``(impl,
+    multiply)`` on ``device`` reads: ``fe17`` (the registry's 17 x 15 rows)
+    on the CPU, where the plain version runs, and for ``comb_mxu.cu``;
+    ``radix25`` for ``comb.cu`` and ``comb_tree.cu``."""
+    if torch.device(device).type != "cuda" or kernel_of(impl, multiply) == "chain_mxu":
+        return "fe17"
+    return "radix25"
+
+
+# kernel -> (library, launch function, pointer arguments between the row
+# count and the lane count, whether the attribute query takes a pass index)
+_LIBS = {
+    "chain": ("comb", "mochi_comb_verify", 7, False),
+    "tree": ("comb_tree", "mochi_comb_tree_verify", 8, True),
+    "chain_mxu": ("comb_mxu", "mochi_comb_mxu_verify", 7, False),
+}
+
+
+def _lib(kernel: str = "chain"):
+    """The loaded library of ``kernel`` (one of :data:`KERNELS`), built on
+    first use."""
     from .. import kernels
 
-    if impl == "tree":
-        lib = kernels.load("comb_tree")
-        if not getattr(lib, "_mochi_typed", False):
-            lib.mochi_comb_tree_verify.argtypes = (
-                [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
-            )
-            lib.mochi_comb_tree_verify.restype = ctypes.c_int
-            lib.mochi_comb_tree_verify_attrs.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
-            lib.mochi_comb_tree_verify_attrs.restype = ctypes.c_int
-            lib._mochi_typed = True
-        return lib
-    lib = kernels.load("comb")
+    name, fn, n_ptrs, by_pass = _LIBS[kernel]
+    lib = kernels.load(name)
     if not getattr(lib, "_mochi_typed", False):
-        lib.mochi_comb_verify.argtypes = (
-            [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
-        )
-        lib.mochi_comb_verify.restype = ctypes.c_int
-        lib.mochi_comb_verify_attrs.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
-        lib.mochi_comb_verify_attrs.restype = ctypes.c_int
+        launch, attrs = getattr(lib, fn), getattr(lib, fn + "_attrs")
+        launch.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * n_ptrs
+                           + [ctypes.c_int, ctypes.c_void_p])
+        launch.restype = ctypes.c_int
+        attrs.argtypes = [ctypes.c_int] * by_pass + [ctypes.POINTER(ctypes.c_int)] * 4
+        attrs.restype = ctypes.c_int
         lib._mochi_typed = True
     return lib
 
@@ -134,48 +202,62 @@ def _lib(impl: str = "chain"):
 _ATTR_NAMES = ("registers", "local_bytes", "shared_bytes", "threads")
 
 
-def kernel_attributes(impl: str = "chain") -> dict:
+def kernel_attributes(kernel: str = "chain") -> dict:
     """Registers per thread, local bytes per thread, static shared bytes and
-    threads per block of ``impl``'s compiled kernel (cudaFuncGetAttributes);
-    for the tree, one such dict for each pass (``prepare``, ``accumulate``)."""
+    threads per block of ``kernel``'s compiled kernel (one of
+    :data:`KERNELS`; cudaFuncGetAttributes); for the tree, one such dict for
+    each pass (``prepare``, ``accumulate``)."""
+    fn = getattr(_lib(kernel), _LIBS[kernel][1] + "_attrs")
 
-    def query(fn, *which):
+    def query(*which):
         vals = [ctypes.c_int(0) for _ in range(4)]
         rc = fn(*which, *[ctypes.byref(v) for v in vals])
         if rc:
             raise RuntimeError(f"cudaFuncGetAttributes failed with CUDA error {rc}")
         return dict(zip(_ATTR_NAMES, (v.value for v in vals)))
 
-    if comb.check_impl(impl) == "tree":
-        fn = _lib("tree").mochi_comb_tree_verify_attrs
-        return {"prepare": query(fn, 0), "accumulate": query(fn, 1)}
-    return query(_lib().mochi_comb_verify_attrs)
+    if _LIBS[kernel][3]:
+        return {"prepare": query(0), "accumulate": query(1)}
+    return query()
 
 
-# The multiply every comb kernel runs: its own radix-2^25.5 schoolbook,
-# whatever MOCHI_SKEW_IMPL says (the comb kernels' mxu multiply is not
-# ported yet); said once on stderr when a launch runs under mxu.
-MULTIPLY = "pad"
-_said_mxu = False
+# A tree launch under mxu runs the tree's own pad multiply: said once on
+# stderr.
+_said_tree_mxu = False
+
+# The table shape each layout has, past its row count.
+_TABLE_SHAPES = {"radix25": (3, 10), "fe17": (comb.ROW_WIDTH,)}
 
 
-def verify_comb_prepared(table, key_idx, y_r, sign_r, s_bytes, h_bytes, impl=None) -> torch.Tensor:
+def verify_comb_prepared(table, key_idx, y_r, sign_r, s_bytes, h_bytes, impl=None,
+                         multiply=None) -> torch.Tensor:
     """(B,) bool bitmap of the comb verify with ``impl``'s accumulation
-    (default ``comb.COMB_IMPL``; see the module docstring)."""
-    global _said_mxu
+    (default ``comb.COMB_IMPL``) and ``multiply`` (``pad`` or ``mxu``;
+    default ``MOCHI_SKEW_IMPL``'s): on a card the kernel of
+    :func:`kernel_of`; on the CPU the plain version, whose multiplies follow
+    ``field.SKEW_IMPL`` at call time (see the module docstring)."""
+    global _said_tree_mxu
     impl = comb.check_impl(impl)
+    if multiply is None:
+        multiply = switches()[1]
+    if multiply not in ("pad", "mxu"):
+        raise ValueError(f"multiply {multiply!r}: expected 'pad' or 'mxu'")
     device = y_r.device
+    layout = table_layout(device, impl, multiply)
+    if table.dim() != 1 + len(_TABLE_SHAPES[layout]) or tuple(table.shape[1:]) != _TABLE_SHAPES[layout] \
+            or table.shape[0] == 0:
+        raise ValueError(f"table has shape {tuple(table.shape)}, expected (rows, "
+                         f"{', '.join(map(str, _TABLE_SHAPES[layout]))}) in the {layout} layout")
     if device.type == "cpu":
         return comb.verify_comb_prepared(table, key_idx, y_r, sign_r, s_bytes, h_bytes, impl=impl)
     if device.type != "cuda":
         raise ValueError(f"no comb kernel for device {device}")
-    if F.SKEW_IMPL == "mxu" and not _said_mxu:
-        _said_mxu = True
-        print(f"mochi_tpu_torch: the comb kernels run their own {MULTIPLY} multiply under MOCHI_SKEW_IMPL=mxu "
-              "(their mxu multiply is not ported yet)", file=sys.stderr)
+    kernel = kernel_of(impl, multiply)
+    if impl == "tree" and multiply == "mxu" and not _said_tree_mxu:
+        _said_tree_mxu = True
+        print("mochi_tpu_torch: the comb tree kernel runs its own pad multiply under MOCHI_SKEW_IMPL=mxu "
+              "(its mxu multiply is not ported yet)", file=sys.stderr)
     n = y_r.shape[0]
-    if table.dim() != 3 or tuple(table.shape[1:]) != (3, 10) or table.shape[0] == 0:
-        raise ValueError(f"table has shape {tuple(table.shape)}, expected (rows, 3, 10) in the kernel radix")
     _check("table", table, torch.int32, tuple(table.shape), device)
     _check("key_idx", key_idx, torch.int32, (n,), device)
     _check("y_r", y_r, torch.int32, (n, F.NLIMBS), device)
@@ -185,10 +267,9 @@ def verify_comb_prepared(table, key_idx, y_r, sign_r, s_bytes, h_bytes, impl=Non
     out = torch.empty(n, dtype=torch.bool, device=device)
     if n == 0:
         return out
-    tree = impl == "tree"
-    lib = _lib(impl)
-    bcomb = _bcomb_on(str(device))
-    log = launch_logs[impl]
+    lib = _lib(kernel)
+    bcomb = _bcomb_on(str(device), layout)
+    log = launch_logs[kernel]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device)
         if log is not None:
@@ -196,21 +277,20 @@ def verify_comb_prepared(table, key_idx, y_r, sign_r, s_bytes, h_bytes, impl=Non
             start.record(stream)
         args = (table.data_ptr(), table.shape[0], key_idx.data_ptr(), y_r.data_ptr(), sign_r.data_ptr(),
                 s_bytes.data_ptr(), h_bytes.data_ptr(), bcomb.data_ptr())
-        if tree:
+        if kernel == "tree":
             # allocated on this stream: the caching allocator reuses it only
             # after work queued here, so the passes below own it
             scratch = torch.empty((n, TREE_RECORD_INTS), dtype=torch.int32, device=device)
-            rc = lib.mochi_comb_tree_verify(*args, scratch.data_ptr(), out.data_ptr(), n, stream.cuda_stream)
-        else:
-            rc = lib.mochi_comb_verify(*args, out.data_ptr(), n, stream.cuda_stream)
+            args += (scratch.data_ptr(),)
+        rc = getattr(lib, _LIBS[kernel][1])(*args, out.data_ptr(), n, stream.cuda_stream)
         if log is not None:
             end.record(stream)
     if rc:
-        raise RuntimeError(f"comb {impl} kernel launch failed with CUDA error {rc}")
+        raise RuntimeError(f"comb {kernel} kernel launch failed with CUDA error {rc}")
     if log is not None:
         log.append((n, start, end))
     with _count_lock:
-        launches[impl] += 1
+        launches[kernel] += 1
     return out
 
 

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..crypto import batch_verify as BV
+from ..crypto import cuda_comb
 from . import cuda_tally
 
 
@@ -168,15 +169,19 @@ def _dispatch_slices(mesh: Mesh, prepared, key_idx=None, registry=None, gen: Opt
     thread and k), all before any readback: the comb kernel against
     ``registry``'s table of generation ``gen`` on each device when
     ``key_idx`` is given (y_a and sign_a may then be None), else the general
-    kernel.  A slice whose prechecks reject every lane does no device work.
-    Returns ``batch_verify._dispatch``'s record per slice."""
+    kernel.  The comb switches are read once for the batch
+    (``cuda_comb.switches``): every slice pins the table layout of the
+    kernel it launches.  A slice whose prechecks reject every lane does no
+    device work.  Returns ``batch_verify._dispatch``'s record per slice."""
     launched = []
+    switches = None if key_idx is None else cuda_comb.switches()
     for k, (dev, (lo, hi)) in enumerate(zip(mesh.devices, _bounds(mesh, len(prepared[6])))):
         part = tuple(None if a is None else a[lo:hi] for a in prepared)
         if key_idx is None:
             launched.append(BV._dispatch(part, dev, k=k))
         else:
-            launched.append(BV._dispatch(part, dev, key_idx[lo:hi], registry.device_table(dev, gen), k))
+            table = registry.device_table(dev, gen, layout=cuda_comb.table_layout(dev, *switches))
+            launched.append(BV._dispatch(part, dev, k, comb=(key_idx[lo:hi], table, *switches)))
     return launched
 
 
@@ -227,8 +232,9 @@ def make_sharded_verify_comb(mesh: Mesh):
     """Batch-sharded known-signer (comb) verify: ``verify(registry, key_idx,
     y_r, sign_r, s_bytes, h_bytes, gen=None)`` -> (B,) bool bitmap on the
     host.  The lanes are split over the slices; the signer table is
-    replicated, each slice reading ``registry.device_table(device, gen)``
-    (uploaded once per device and capacity, then cached), as the reference
+    replicated, each slice reading ``registry.device_table(device, gen,
+    layout)`` in the layout of the kernel the switches choose (uploaded once
+    per device, capacity and layout, then cached), as the reference
     replicates its table over the mesh.  No collective."""
 
     def verify(registry, key_idx, y_r, sign_r, s_bytes, h_bytes, gen: Optional[int] = None) -> torch.Tensor:

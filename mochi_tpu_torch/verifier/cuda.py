@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..crypto import batch_verify as BV
+from ..crypto import cuda_comb
 from ..crypto.batch_verify import MAX_LAUNCH, TorchBatchBackend
 from ..parallel.sharded import Mesh, make_mesh, verify_prepared
 from .spi import BatchingVerifier, SignatureVerifier, VerifyItem
@@ -122,11 +123,13 @@ class ShardedCudaBatchBackend(TorchBatchBackend):
 
     def warmup(self) -> None:
         """Build and load the kernels, and upload the registered signers'
-        comb table to every device of the mesh."""
+        comb table to every device of the mesh, in the layout of the
+        switches in effect."""
         super().warmup()
         if self.device.type == "cuda" and len(self.registry):
+            switches = cuda_comb.switches()
             for dev in dict.fromkeys(self.mesh.devices):
-                self.registry.device_table(dev)
+                self.registry.device_table(dev, layout=cuda_comb.table_layout(dev, *switches))
 
     def _verify(self, items: Sequence[VerifyItem]) -> List[bool]:
         n = len(items)

@@ -282,7 +282,7 @@ async def amain(args) -> None:
         )
     else:
         from ..crypto.comb import COMB_IMPL
-        from ..crypto.cuda_comb import MULTIPLY
+        from ..crypto.cuda_comb import multiply_of
         from ..crypto.cuda_verify import skew
         from .cuda import CudaBatchVerifier
 
@@ -295,7 +295,7 @@ async def amain(args) -> None:
             skew(),
             len(signers),
             COMB_IMPL,
-            MULTIPLY,
+            multiply_of(COMB_IMPL),
         )
     secret = None
     if args.secret_file:

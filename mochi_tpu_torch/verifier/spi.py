@@ -621,9 +621,10 @@ def verifier_stats(verifier) -> dict:
         st["comb"] = {
             "registered_signers": len(registry),
             # the accumulation every comb launch runs (MOCHI_COMB_IMPL), and
-            # its multiply, which does not follow MOCHI_SKEW_IMPL yet
+            # its multiply: mxu for the chain under MOCHI_SKEW_IMPL=mxu, pad
+            # for the tree under either
             "impl": _comb.COMB_IMPL,
-            "multiply": _cuda_comb.MULTIPLY,
+            "multiply": _cuda_comb.multiply_of(_comb.COMB_IMPL),
             "device_dispatches_process_total": _bv.comb_dispatch_count(),
             # routing occupancy (process-global): items the router sent
             # down each kernel, and batches that carried both

@@ -146,7 +146,7 @@ def test_table_radix_check_counts_a_wrong_entry(signers):
 
     reg = comb.SignerRegistry("cpu")
     reg.register_all([s.pub for s in signers[:2]])
-    t15 = reg.device_table("cpu")
+    t15 = reg.device_table("cpu", layout="fe17")
     t25 = torch.from_numpy(CC.to_radix25(t15.numpy()))
     assert cs.check_table_radix(t25, t15) == 0
     t25[577, 2, 4] ^= 1
@@ -171,8 +171,9 @@ def test_tree_service_phase_rehearsal_on_cpu(signers, monkeypatch):
     assert svc["requests"] == 6 and svc["items"] == 30 and svc["mismatched_requests"] == 0
     assert svc["routing"]["comb_items"] == 30 and svc["routing"]["ladder_items"] == 0
     assert svc["fallback_batches"] == svc["crossover_batches"] == svc["remote_fallbacks"] == 0
-    assert svc["comb_launches"] == {"chain": 0, "tree": 0} and svc["verify_launches"] == 0
-    assert logs == ({"pad": [], "mxu": []}, {"chain": [], "tree": []}) and seen and set(seen) == {"tree"}
+    assert svc["comb_launches"] == {"chain": 0, "tree": 0, "chain_mxu": 0} and svc["verify_launches"] == 0
+    assert logs == ({"pad": [], "mxu": []}, {"chain": [], "tree": [], "chain_mxu": []})
+    assert seen and set(seen) == {"tree"}
 
 
 def test_mxu_service_phase_rehearsal_on_cpu(signers, monkeypatch):
@@ -193,7 +194,7 @@ def test_mxu_service_phase_rehearsal_on_cpu(signers, monkeypatch):
     logs = cs._read_counts(svc)
     assert svc["requests"] == 6 and svc["items"] == svc["device_items"] == 30
     assert svc["verify_mxu_launches"] == svc["verify_launches"] == 0 and used
-    assert logs == ({"pad": [], "mxu": []}, {"chain": [], "tree": []})
+    assert logs == ({"pad": [], "mxu": []}, {"chain": [], "tree": [], "chain_mxu": []})
     assert cs.mxu_service_problems(svc, launched=False) == []
     assert cs.mxu_service_problems(svc) == ["the mxu kernel was never launched"]
     bad = dict(svc, mismatched_requests=1, verify_launches=2, verify_mxu_launches=24)
@@ -204,11 +205,39 @@ def test_mxu_service_phase_rehearsal_on_cpu(signers, monkeypatch):
                        F.mul(torch.from_numpy(a).long(), torch.from_numpy(b).long()))
 
 
+def test_comb_mxu_service_phase_rehearsal_on_cpu(signers, monkeypatch):
+    """Phase 8m at a small size: the service with signers under
+    ``MOCHI_SKEW_IMPL=mxu`` sends every item down the comb path, whose plain
+    chain multiplies through ``_mul_mxu`` on the CPU (launching nothing),
+    every bitmap as expected, and the stats name the mxu multiply; the
+    phase's check passes it once a card's launches are not asked for, and
+    flags what it must."""
+    from mochi_tpu_torch.crypto import field as F
+
+    traffic = cs.make_traffic(31, signers, clients=3, requests=2, grants=5)
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    used = []
+    real = F._mul_mxu
+    monkeypatch.setattr(F, "_mul_mxu", lambda a, b: used.append(1) or real(a, b))
+    cs._zero_counts()
+    svc = asyncio.run(asyncio.wait_for(
+        cs.drive_service(traffic, "cpu", b"k" * 32, signers=[s.pub for s in signers]), 240))
+    logs = cs._read_counts(svc)
+    assert svc["requests"] == 6 and svc["items"] == svc["device_items"] == 30 and used
+    assert svc["routing"]["comb_items"] == 30 and svc["stats_multiply"] == {"general": "mxu", "comb": "mxu"}
+    assert logs == ({"pad": [], "mxu": []}, {"chain": [], "tree": [], "chain_mxu": []})
+    assert cs.comb_mxu_service_problems(svc, launched=False) == []
+    assert cs.comb_mxu_service_problems(svc) == ["the chain under mxu was never launched"]
+    bad = dict(svc, comb_launches=dict(svc["comb_launches"], chain=3, chain_mxu=21),
+               stats_multiply={"general": "mxu", "comb": "pad"}, fallback_batches=1)
+    assert len(cs.comb_mxu_service_problems(bad)) == 3
+
+
 def test_cluster_drive_counts_on_cpu():
     from mochi_tpu_torch.crypto import cuda_comb as CC
 
     CV.launches.update(pad=0, mxu=0)
-    CC.launches.update(chain=0, tree=0)
+    CC.launches.update(chain=0, tree=0, chain_mxu=0)
     BV.reset_counts()
     out = asyncio.run(asyncio.wait_for(cs.drive_cluster("cpu", 7, 2, 2), 300))
     assert out["quorum"] == 5 and out["writes"] == out["acked"] == out["read_back"] == 4
@@ -216,7 +245,7 @@ def test_cluster_drive_counts_on_cpu():
     assert out["registered_signers"] == 7 and out["txn_per_s"] > 0
     routed = BV.comb_routing_counts()
     assert routed["comb_items"] >= 4 * 5 and BV.comb_dispatch_count() > 0
-    assert CV.launches == {"pad": 0, "mxu": 0} and CC.launches == {"chain": 0, "tree": 0}  # the plain versions on the CPU launch no kernel
+    assert CV.launches == {"pad": 0, "mxu": 0} and CC.launches == {"chain": 0, "tree": 0, "chain_mxu": 0}  # the plain versions on the CPU launch no kernel
 
 
 # ------------------------------------------- multi-device phases (10-12)
@@ -305,3 +334,44 @@ def test_multihost_leg_on_cpu_with_gloo():
     wrong = [dict(recs[0], counts=[2, 2, 1])]
     with pytest.raises(AssertionError, match="expected counts"):
         cs.check_multihost(wrong, "gloo")
+
+
+def test_cluster_mxu_phase_check_flags_what_it_must():
+    """Phase 9m's check: a run with only the chain under mxu and the mxu
+    general kernel passes; a pad launch of either kernel, a tree launch, no
+    grant on the comb path or a fallback is flagged."""
+    good = {"comb_launches": {"chain": 0, "tree": 0, "chain_mxu": 9}, "verify_launches": 0,
+            "verify_mxu_launches": 12, "routing": {"comb_items": 600}, "fallback_batches": 0,
+            "crossover_batches": 0}
+    assert cs.cluster_mxu_problems(good) == []
+    assert cs.cluster_mxu_problems(dict(good, comb_launches={"chain": 0, "tree": 0, "chain_mxu": 0}),
+                                   launched=False) == []
+    assert len(cs.cluster_mxu_problems(dict(good, comb_launches={"chain": 0, "tree": 0, "chain_mxu": 0}))) == 1
+    assert len(cs.cluster_mxu_problems(dict(good, verify_launches=1))) == 1
+    assert len(cs.cluster_mxu_problems(dict(good, comb_launches={"chain": 2, "tree": 1, "chain_mxu": 9}))) == 1
+    assert len(cs.cluster_mxu_problems(dict(good, routing={"comb_items": 0}, crossover_batches=1))) == 2
+
+
+def test_cluster_mxu_phase_rehearsal_on_cpu(monkeypatch):
+    """Phase 9m at a small size: the cluster under ``MOCHI_SKEW_IMPL=mxu``
+    commits and reads back every write, its grants on the comb path's plain
+    chain multiplying through ``_mul_mxu`` (no launch on the CPU), and the
+    phase's check passes it once a card's launches are not asked for.  The
+    SDK clients get a request budget sized to the plain versions on a
+    loaded host, as tests/test_torch_cluster.py gives its clients."""
+    from mochi_tpu_torch.crypto import field as F
+    from mochi_tpu_torch.testing.virtual_cluster import VirtualCluster
+
+    real_client = VirtualCluster.client
+    monkeypatch.setattr(VirtualCluster, "client", lambda self, **kw: real_client(self, **{"timeout_s": 240, **kw}))
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    used = []
+    real = F._mul_mxu
+    monkeypatch.setattr(F, "_mul_mxu", lambda a, b: used.append(1) or real(a, b))
+    cs._zero_counts()
+    out = asyncio.run(asyncio.wait_for(cs.drive_cluster("cpu", 4, 2, 2), 300))
+    logs = cs._read_counts(out)
+    assert out["quorum"] == 3 and out["writes"] == out["acked"] == out["read_back"] == 4 and used
+    assert logs == ({"pad": [], "mxu": []}, {"chain": [], "tree": [], "chain_mxu": []})
+    assert cs.cluster_mxu_problems(out, launched=False) == []
+    assert cs.cluster_mxu_problems(out) == [f"the chain under mxu carried nothing: {out['comb_launches']}"]

@@ -73,7 +73,7 @@ def test_host_tables_are_byte_equal_to_the_reference(signers, registries):
     assert TC._b_comb().tobytes() == JC._b_comb().tobytes()
     jreg, treg = registries
     assert treg.host_table().tobytes() == np.asarray(jreg.device_table()).tobytes()
-    assert np.asarray(treg.device_table("cpu")).tobytes() == np.asarray(jreg.device_table()).tobytes()
+    assert np.asarray(treg.device_table("cpu", layout="fe17")).tobytes() == np.asarray(jreg.device_table()).tobytes()
     for s in signers:
         assert TC.decompress_host(s.pub) == JC.decompress_host(s.pub)
 
@@ -101,13 +101,13 @@ def test_capacity_crosses_8_to_16_and_pinned_tables_keep_their_shape():
     for p in pubs[:8]:
         treg.register(p)
         jreg.register(p)
-    pinned = treg.device_table("cpu", gen=8)
+    pinned = treg.device_table("cpu", gen=8, layout="fe17")
     assert pinned.shape == (8 * 576, 51)
     for p in pubs[8:]:
         treg.register(p)
         jreg.register(p)
-    assert treg.device_table("cpu", gen=8) is pinned  # the pinned generation's table
-    grown = treg.device_table("cpu")
+    assert treg.device_table("cpu", gen=8, layout="fe17") is pinned  # the pinned generation's table
+    grown = treg.device_table("cpu", layout="fe17")
     assert grown.shape == (16 * 576, 51) and grown is not pinned
     assert np.asarray(grown).tobytes() == np.asarray(jreg.device_table()).tobytes()
     assert treg.host_table(gen=8).tobytes() == np.asarray(jreg.device_table(gen=8)).tobytes()
@@ -134,7 +134,7 @@ def test_plain_comb_equals_the_reference_comb_program(corpus, registries):
     prep = BV.prepare_packed(items)
     for a, b in zip((y_r, sign_r, s_b, h_b), (prep[2], prep[3], prep[4], prep[5])):
         assert np.array_equal(a, b)
-    mine = TC.verify_comb_prepared(treg.device_table("cpu"), *CC.from_prepared(kidx, prep, "cpu"))
+    mine = TC.verify_comb_prepared(treg.device_table("cpu", layout="fe17"), *CC.from_prepared(kidx, prep, "cpu"))
     assert mine.tolist() == ref.tolist()
     assert ref.any() and not ref.all()
 
@@ -144,7 +144,7 @@ def test_plain_comb_equals_openssl(corpus, registries):
     _, treg = registries
     prep = BV.prepare_packed(items)
     kidx = np.asarray([treg.index_of(it.public_key) for it in items], dtype=np.int32)
-    got = TC.verify_comb_prepared(treg.device_table("cpu"), *CC.from_prepared(kidx, prep, "cpu"))
+    got = TC.verify_comb_prepared(treg.device_table("cpu", layout="fe17"), *CC.from_prepared(kidx, prep, "cpu"))
     final = np.logical_and(got.numpy(), prep[6]).tolist()
     assert final == want == _openssl(items)
     assert {"valid", "another signer's key", "x=0 sign=1 R", "S >= L (S + L)", "non-point R"} <= set(kinds)
@@ -251,19 +251,19 @@ def test_plain_tree_equals_the_chain_the_reference_chain_and_openssl(corpus, reg
     jreg, treg = registries
     prep = BV.prepare_packed(items)
     kidx = np.asarray([treg.index_of(it.public_key) for it in items], dtype=np.int32)
-    final = TC.verify_comb_prepared(treg.device_table("cpu"), *CC.from_prepared(kidx, prep, "cpu"), impl="tree")
+    final = TC.verify_comb_prepared(treg.device_table("cpu", layout="fe17"), *CC.from_prepared(kidx, prep, "cpu"), impl="tree")
     assert np.logical_and(final.numpy(), prep[6]).tolist() == want == _openssl(items)
     kidx[3], kidx[7], kidx[11] = 9999, -2, treg.generation  # clipped into the table
     lanes = CC.from_prepared(kidx, prep, "cpu")
-    tree = TC.verify_comb_prepared(treg.device_table("cpu"), *lanes, impl="tree")
-    chain = TC.verify_comb_prepared(treg.device_table("cpu"), *lanes, impl="chain")
+    tree = TC.verify_comb_prepared(treg.device_table("cpu", layout="fe17"), *lanes, impl="tree")
+    chain = TC.verify_comb_prepared(treg.device_table("cpu", layout="fe17"), *lanes, impl="chain")
     _, _, y_r, sign_r, s_b, h_b, _ = prep
     # the reference's default program (its chain), the compile the chain's
     # own differential above already made
     ref = np.asarray(JC._verify_comb_jit(jreg.device_table(), kidx, y_r, sign_r, s_b, h_b))
     assert tree.tolist() == chain.tolist() == ref.tolist()
     # the CPU wrapper runs the plain version of the impl it is asked for
-    assert CC.verify_comb_prepared(treg.device_table("cpu"), *lanes, impl="tree").tolist() == tree.tolist()
+    assert CC.verify_comb_prepared(treg.device_table("cpu", layout="fe17"), *lanes, impl="tree").tolist() == tree.tolist()
     assert ref.any() and not ref.all()
 
 
@@ -294,9 +294,10 @@ def test_comb_impl_switch_parsing_and_refusal(monkeypatch, capsys):
 
 @pytest.mark.parametrize("skew", ["pad", "mxu"])
 def test_stats_name_the_multiply_of_each_kernel(signers, monkeypatch, skew):
-    """``verifier_stats`` names the multiply the general kernel runs (it
-    follows ``MOCHI_SKEW_IMPL``) and the comb kernels' own, which does not
-    follow it yet; verdicts are unchanged under either switch."""
+    """``verifier_stats`` names the multiply the general kernel runs and the
+    comb chain's, which both follow ``MOCHI_SKEW_IMPL``, and the tree's,
+    which stays ``pad`` under either; verdicts are unchanged under either
+    switch."""
     from mochi_tpu_torch.verifier.cuda import CudaBatchVerifier
 
     monkeypatch.setattr(F, "SKEW_IMPL", skew)
@@ -306,12 +307,18 @@ def test_stats_name_the_multiply_of_each_kernel(signers, monkeypatch, skew):
         try:
             items = _mixed(signers, np.random.default_rng(31))[:6]
             assert await v.verify_batch(items) == _openssl(items)
-            return verifier_stats(v)
+            chain = verifier_stats(v)
+            monkeypatch.setattr(TC, "COMB_IMPL", "tree")
+            assert await v.verify_batch(items) == _openssl(items)
+            return chain, verifier_stats(v)
         finally:
             await v.close()
 
-    st = asyncio.run(asyncio.wait_for(main(), 240))
-    assert st["general"] == {"multiply": skew} and st["comb"]["multiply"] == "pad"
+    chain, tree = asyncio.run(asyncio.wait_for(main(), 240))
+    assert chain["general"] == {"multiply": skew} and chain["comb"]["impl"] == "chain"
+    assert chain["comb"]["multiply"] == skew
+    assert tree["general"] == {"multiply": skew} and tree["comb"] == dict(tree["comb"], impl="tree", multiply="pad")
+    assert CC.multiply_of("chain") == skew and CC.multiply_of("tree") == "pad"
 
 
 def test_routing_under_the_tree_switch_and_its_stats(signers, monkeypatch):
@@ -352,6 +359,145 @@ def test_plain_tree_equals_the_reference_tree_program(corpus, registries):
     prep = BV.prepare_packed(items)
     _, _, y_r, sign_r, s_b, h_b, _ = prep
     ref = np.asarray(JC._verify_comb_jit(jreg.device_table(), kidx, y_r, sign_r, s_b, h_b, impl="tree"))
-    mine = TC.verify_comb_prepared(treg.device_table("cpu"), *CC.from_prepared(kidx, prep, "cpu"), impl="tree")
+    mine = TC.verify_comb_prepared(treg.device_table("cpu", layout="fe17"), *CC.from_prepared(kidx, prep, "cpu"), impl="tree")
     assert mine.tolist() == ref.tolist()
     assert ref.any() and not ref.all()
+
+
+# ------------------------------------------------ the chain under mxu
+
+
+def test_plain_chain_under_mxu_calls_mul_mxu_and_equals_pad_and_openssl(corpus, registries, monkeypatch):
+    """Under ``MOCHI_SKEW_IMPL=mxu`` the plain chain (the plain version of
+    ``comb_mxu.cu``) multiplies through ``_mul_mxu`` and gives the raw
+    bitmap of the chain on the schoolbook, key indices past the table
+    included; ANDed with the host prechecks it is OpenSSL's verdict.  The
+    CPU wrapper runs it for either multiply."""
+    items, want, _ = corpus
+    _, treg = registries
+    prep = BV.prepare_packed(items)
+    kidx = np.asarray([treg.index_of(it.public_key) for it in items], dtype=np.int32)
+    clipped = kidx.copy()
+    clipped[3], clipped[7], clipped[11] = 9999, -2, treg.generation  # clipped into the table
+    table = treg.device_table("cpu", layout="fe17")
+    lanes, clipped_lanes = CC.from_prepared(kidx, prep, "cpu"), CC.from_prepared(clipped, prep, "cpu")
+    pad = [TC.verify_comb_prepared(table, *ln) for ln in (lanes, clipped_lanes)]
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    used = []
+    real = F._mul_mxu
+    monkeypatch.setattr(F, "_mul_mxu", lambda a, b: used.append(1) or real(a, b))
+    mxu = [TC.verify_comb_prepared(table, *ln) for ln in (lanes, clipped_lanes)]
+    assert used and all(torch.equal(m, p) for m, p in zip(mxu, pad))
+    assert pad[1].any() and not pad[1].all()
+    assert torch.equal(CC.verify_comb_prepared(table, *clipped_lanes, multiply="mxu"), mxu[1])
+    assert np.logical_and(mxu[0].numpy(), prep[6]).tolist() == want == _openssl(items)
+
+
+def test_plain_chain_under_mxu_equals_the_reference_chain_under_mxu(corpus, registries, monkeypatch):
+    """The reference's chain program under ``mxu``, traced afresh (its cached
+    ``_verify_comb_jit`` would not retrace when the module global flips),
+    against the port's plain chain under ``mxu``: raw bitmaps, key indices
+    past the table included."""
+    items, _, _ = corpus
+    jreg, treg = registries
+    kidx = np.asarray([treg.index_of(it.public_key) for it in items], dtype=np.int32)
+    kidx[3], kidx[7], kidx[11] = 9999, -2, treg.generation
+    prep = BV.prepare_packed(items)
+    _, _, y_r, sign_r, s_b, h_b, _ = prep
+    monkeypatch.setattr(JF, "SKEW_IMPL", "mxu")
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    ref = np.asarray(jax.jit(JC.verify_comb_prepared, static_argnames=("impl",))(
+        jreg.device_table(), kidx, y_r, sign_r, s_b, h_b, impl="chain"))
+    mine = TC.verify_comb_prepared(treg.device_table("cpu", layout="fe17"), *CC.from_prepared(kidx, prep, "cpu"), impl="chain")
+    assert mine.tolist() == ref.tolist()
+    assert ref.any() and not ref.all()
+
+
+def test_device_table_keeps_both_layouts_of_one_generation(signers):
+    """One generation, two layouts: the kernel-radix table (``radix25``)
+    and the 17 x 15 rows (``fe17``), each cached apart, neither replacing
+    or freeing the other; the caller must name the layout, and an unknown
+    one is refused."""
+    reg = TC.SignerRegistry("cpu")
+    reg.register_all([s.pub for s in signers[:3]])
+    r25 = reg.device_table("cpu", layout="radix25")
+    r17 = reg.device_table("cpu", layout="fe17")
+    assert r25.shape == (8 * 576, 3, 10) and r17.shape == (8 * 576, 51)
+    assert r25.dtype == r17.dtype == torch.int32
+    assert np.array_equal(r17.numpy(), reg.host_table())
+    assert np.array_equal(r25.numpy(), CC.to_radix25(reg.host_table()))
+    assert cs.check_table_radix(r25, r17) == 0
+    # each layout is the same cached tensor on every later call, whichever came last
+    for _ in range(2):
+        assert reg.device_table("cpu", layout="fe17") is r17 and reg.device_table("cpu", layout="radix25") is r25
+    with pytest.raises(TypeError):
+        reg.device_table("cpu")  # no default: cuda_comb.table_layout decides
+    assert reg.device_table("cpu", gen=3, layout="radix25") is r25
+    before = (r25.clone(), r17.clone())
+    reg.register_all([s.pub for s in signers[3:]])  # a registration rebuilds both; the old stay whole
+    new17, new25 = reg.device_table("cpu", layout="fe17"), reg.device_table("cpu", layout="radix25")
+    assert new17 is not r17 and new25 is not r25
+    assert torch.equal(r25, before[0]) and torch.equal(r17, before[1])
+    assert cs.check_table_radix(new25, new17) == 0
+    with pytest.raises(ValueError):
+        reg.device_table("cpu", layout="radix17")
+
+
+def test_routing_pins_the_layout_of_the_switches_it_read(signers, monkeypatch):
+    """A batch reads (impl, multiply) once, where it pins its table: the
+    layout it asks the registry for and the (impl, multiply) it passes to
+    the wrapper agree with the switches at that moment, even when
+    ``MOCHI_SKEW_IMPL`` flips between batches or right after the table is
+    pinned; verdicts are unchanged throughout.  On a card that pair picks
+    the kernel and its table's layout (checked below); on the CPU the plain
+    chain's multiplies follow ``field.SKEW_IMPL`` at call time, and its
+    bitmap is the same under either."""
+    reg = TC.SignerRegistry("cpu")
+    reg.register_all([s.pub for s in signers])
+    items = _mixed(signers, np.random.default_rng(33))
+    want = _openssl(items)
+    pinned, launched = [], []
+    real_table, real_launch = reg.device_table, CC.verify_comb_prepared
+
+    def device_table(device=None, gen=None, layout=None):
+        pinned.append((torch.device(device).type, layout))
+        if flip_after_pin:
+            F.SKEW_IMPL = "pad" if F.SKEW_IMPL == "mxu" else "mxu"
+        return real_table(device, gen, layout=layout)
+
+    monkeypatch.setattr(reg, "device_table", device_table)
+    monkeypatch.setattr(CC, "verify_comb_prepared",
+                        lambda *a, impl=None, multiply=None: launched.append((impl, multiply)) or real_launch(
+                            *a, impl=impl, multiply=multiply))
+    monkeypatch.setattr(F, "SKEW_IMPL", "pad")
+    flip_after_pin = False
+    assert BV.verify_batch(items, "cpu", registry=reg) == want
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")  # between batches
+    assert BV.verify_batch(items, "cpu", registry=reg) == want
+    flip_after_pin = True  # the switch flips once the table is pinned: the batch passes on what it read
+    assert BV.verify_batch(items, "cpu", registry=reg) == want
+    assert F.SKEW_IMPL == "pad"
+    monkeypatch.setattr(TC, "COMB_IMPL", "tree")
+    flip_after_pin = False
+    assert BV.verify_batch(items, "cpu", registry=reg) == want
+    assert launched == [("chain", "pad"), ("chain", "mxu"), ("chain", "mxu"), ("tree", "pad")]
+    assert pinned == [("cpu", "fe17")] * 4
+    # on a card the same readings pin the kernel's own layout
+    assert [CC.table_layout("cuda", *sw) for sw in launched] == ["radix25", "fe17", "fe17", "radix25"]
+    assert [CC.kernel_of(*sw) for sw in launched] == ["chain", "chain_mxu", "chain_mxu", "tree"]
+    assert CC.kernel_of("tree", "mxu") == "tree" and CC.table_layout("cuda", "tree", "mxu") == "radix25"
+
+
+def test_comb_wrapper_refuses_the_layout_its_kernel_does_not_read(signers):
+    """The wrapper checks the table's layout before anything runs: a
+    kernel-radix table where the 17 x 15 rows are read (the CPU's plain
+    version), an unknown multiply."""
+    reg = TC.SignerRegistry("cpu")
+    reg.register_all([s.pub for s in signers[:2]])
+    items = _mixed(signers[:2], np.random.default_rng(34))[:3]
+    lanes = CC.from_prepared(np.zeros(3, dtype=np.int32), BV.prepare_packed(items), "cpu")
+    with pytest.raises(ValueError, match="fe17 layout"):
+        CC.verify_comb_prepared(reg.device_table("cpu", layout="radix25"), *lanes)
+    with pytest.raises(ValueError, match="multiply"):
+        CC.verify_comb_prepared(reg.device_table("cpu", layout="fe17"), *lanes, multiply="shift")
+    assert set(CC.launches) == set(CC.launch_logs) == {"chain", "tree", "chain_mxu"}

@@ -1,5 +1,5 @@
-"""The CUDA kernels (general verify and its mxu form, comb chain and tree,
-quorum tally) on the card.
+"""The CUDA kernels (general verify and its mxu form, comb chain, its mxu
+form and tree, quorum tally) on the card.
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA card and
 skips elsewhere.  On the card (this file imports no JAX, so the JAX-bound
@@ -104,7 +104,7 @@ def test_comb_kernel_equals_plain_version_and_expected_verdicts(card, comb_setup
     kidx[5], kidx[9] = 10 ** 6, -4  # clipped into the table, never read past it
     lanes = CC.from_prepared(kidx, prepared, card)
     before = CC.launches["chain"]
-    got = CC.verify_comb_prepared(reg.device_table(card), *lanes)
+    got = CC.verify_comb_prepared(reg.device_table(card, layout="radix25"), *lanes)
     assert CC.launches["chain"] == before + 1
     plain = comb.verify_comb_prepared(torch.from_numpy(reg.host_table()).to(card), *lanes)
     assert torch.equal(got, plain)
@@ -123,8 +123,8 @@ def test_comb_wrapper_rejects_what_the_kernel_does_not_take(card, comb_setup):
     bad = [t.clone() for t in lanes]
     bad[0] = bad[0].to(torch.int64)
     with pytest.raises(TypeError):
-        CC.verify_comb_prepared(reg.device_table(card), *bad)
-    assert CC.verify_comb_prepared(reg.device_table(card), *(t[:0] for t in lanes)).shape == (0,)
+        CC.verify_comb_prepared(reg.device_table(card, layout="radix25"), *bad)
+    assert CC.verify_comb_prepared(reg.device_table(card, layout="radix25"), *(t[:0] for t in lanes)).shape == (0,)
 
 
 def test_routed_mixed_batch_on_the_card(card, comb_setup):
@@ -159,14 +159,14 @@ def test_comb_tree_kernel_equals_plain_tree_and_chain_kernel(card, comb_setup):
     for n in (len(items), len(items) - 37, 1):
         lanes = [t[:n] for t in CC.from_prepared(kidx, prepared, card)]
         before = dict(CC.launches)
-        got = CC.verify_comb_prepared(reg.device_table(card), *lanes, impl="tree")
-        assert CC.launches == {"chain": before["chain"], "tree": before["tree"] + 1}
-        chain = CC.verify_comb_prepared(reg.device_table(card), *lanes, impl="chain")
+        got = CC.verify_comb_prepared(reg.device_table(card, layout="radix25"), *lanes, impl="tree")
+        assert CC.launches == dict(before, tree=before["tree"] + 1)
+        chain = CC.verify_comb_prepared(reg.device_table(card, layout="radix25"), *lanes, impl="chain")
         plain = comb.verify_comb_prepared(table15, *lanes, impl="tree")
         assert torch.equal(got, plain) and torch.equal(got, chain)
     ok = (got.cpu().numpy() & prepared[6][:1]).tolist()
     assert ok == want[:1]
-    full = CC.verify_comb_prepared(reg.device_table(card), *CC.from_prepared(kidx, prepared, card), impl="tree")
+    full = CC.verify_comb_prepared(reg.device_table(card, layout="radix25"), *CC.from_prepared(kidx, prepared, card), impl="tree")
     ok = (full.cpu().numpy() & prepared[6]).tolist()
     assert [w for j, w in enumerate(want) if j not in (5, 9)] == [o for j, o in enumerate(ok) if j not in (5, 9)]
     attrs = CC.kernel_attributes("tree")
@@ -179,7 +179,7 @@ def test_comb_tree_wrapper_rejects_what_the_kernel_does_not_take(card, comb_setu
     reg, items, _ = comb_setup
     kidx = np.zeros(8, dtype=np.int32)
     lanes = list(CC.from_prepared(kidx, BV.prepare_packed(items[:8]), card))
-    table = reg.device_table(card)
+    table = reg.device_table(card, layout="radix25")
     with pytest.raises(ValueError):  # the 17 x 15 table is the plain version's
         CC.verify_comb_prepared(torch.from_numpy(reg.host_table()).to(card), *lanes, impl="tree")
     bad = [t.clone() for t in lanes]
@@ -198,7 +198,7 @@ def test_comb_tree_wrapper_rejects_what_the_kernel_does_not_take(card, comb_setu
     before = dict(CC.launches)
     assert torch.equal(CC.verify_comb_prepared(table, *lanes, impl="mxu"),
                        CC.verify_comb_prepared(table, *lanes, impl="chain"))
-    assert CC.launches == {"chain": before["chain"] + 2, "tree": before["tree"]}
+    assert CC.launches == dict(before, chain=before["chain"] + 2)
     assert CC.verify_comb_prepared(table, *(t[:0] for t in lanes), impl="tree").shape == (0,)
 
 
@@ -267,6 +267,128 @@ def test_service_cli_serves_a_certificate_on_the_tree(card, tmp_path):
         _, err = proc.communicate(timeout=60)
     assert "43 known signers on the comb kernel, tree accumulation" in err, err
     assert 0 < sum(want) < 43
+
+
+# ------------------------------------------------ comb chain under mxu
+
+
+def test_comb_mxu_kernel_equals_plain_chain_under_mxu_and_comb_cu(card, comb_setup, monkeypatch):
+    """The chain under ``mxu`` (``comb_mxu.cu``) on the registry's 17 x 15
+    rows against the plain chain under ``mxu`` and ``comb.cu``'s bitmap:
+    600 lanes, a partial last block, one lane past a warp and one lane,
+    indices past both ends of the table, and the expected verdicts."""
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+    from mochi_tpu_torch.crypto import field as F
+
+    reg, items, want = comb_setup
+    prepared = BV.prepare_packed(items)
+    kidx = np.asarray([reg.index_of(it.public_key) for it in items], dtype=np.int32)
+    kidx[5], kidx[9] = 10 ** 6, -4  # clipped into the table, never read past it
+    table17 = reg.device_table(card, layout="fe17")
+    assert torch.equal(table17.cpu(), torch.from_numpy(reg.host_table()))
+    lanes = CC.from_prepared(kidx, prepared, card)
+    pad = CC.verify_comb_prepared(reg.device_table(card, layout="radix25"), *lanes, multiply="pad")
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    before = dict(CC.launches)
+    for n in (len(items), len(items) - 37, 33, 1):
+        part = [t[:n] for t in lanes]
+        got = CC.verify_comb_prepared(table17, *part)
+        plain = comb.verify_comb_prepared(table17, *part)
+        assert torch.equal(got, plain) and torch.equal(got, pad[:n])
+    assert CC.launches == dict(before, chain_mxu=before["chain_mxu"] + 4)
+    full = CC.verify_comb_prepared(table17, *lanes, impl="chain", multiply="mxu")
+    ok = (full.cpu().numpy() & prepared[6]).tolist()
+    assert [w for j, w in enumerate(want) if j not in (5, 9)] == [o for j, o in enumerate(ok) if j not in (5, 9)]
+    attrs = CC.kernel_attributes("chain_mxu")
+    assert attrs["threads"] == 64 and attrs["registers"] > 0
+
+
+def test_comb_wrappers_refuse_the_other_layout(card, comb_setup):
+    """``comb_mxu.cu``'s wrapper refuses a kernel-radix table and
+    ``comb.cu``'s and ``comb_tree.cu``'s refuse the 17 x 15 rows; lanes of
+    the wrong type or device are refused too."""
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    reg, items, _ = comb_setup
+    lanes = list(CC.from_prepared(np.zeros(8, dtype=np.int32), BV.prepare_packed(items[:8]), card))
+    t25, t17 = reg.device_table(card, layout="radix25"), reg.device_table(card, layout="fe17")
+    with pytest.raises(ValueError, match="fe17 layout"):
+        CC.verify_comb_prepared(t25, *lanes, multiply="mxu")
+    for impl in ("chain", "tree"):
+        with pytest.raises(ValueError, match="radix25 layout"):
+            CC.verify_comb_prepared(t17, *lanes, impl=impl, multiply="pad")
+    with pytest.raises(ValueError, match="radix25 layout"):  # the tree keeps its own multiply under mxu
+        CC.verify_comb_prepared(t17, *lanes, impl="tree", multiply="mxu")
+    bad = [t.clone() for t in lanes]
+    bad[0] = bad[0].to(torch.int64)
+    with pytest.raises(TypeError):
+        CC.verify_comb_prepared(t17, *bad, multiply="mxu")
+    bad = [t.clone() for t in lanes]
+    bad[2] = bad[2].cpu()
+    with pytest.raises(ValueError):
+        CC.verify_comb_prepared(t17, *bad, multiply="mxu")
+    assert CC.verify_comb_prepared(t17, *(t[:0] for t in lanes), multiply="mxu").shape == (0,)
+
+
+def test_verifier_with_signers_under_the_mxu_switch(card, comb_setup, monkeypatch):
+    """``CudaBatchVerifier(signers=...)`` under ``MOCHI_SKEW_IMPL=mxu``: every
+    item takes the chain under mxu against the 17 x 15 table, none
+    ``comb.cu`` or a general kernel, verdicts as expected, and the stats
+    name the mxu multiply."""
+    import asyncio
+
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+    from mochi_tpu_torch.crypto import field as F
+    from mochi_tpu_torch.verifier.cuda import CudaBatchVerifier
+    from mochi_tpu_torch.verifier.spi import verifier_stats
+
+    reg, items, want = comb_setup
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+
+    async def main():
+        v = CudaBatchVerifier(device=card, signers=reg.public_keys())
+        try:
+            before = (dict(CC.launches), dict(CV.launches), BV.comb_routing_counts()["comb_items"])
+            got = await v.verify_batch(items)
+            after = (dict(CC.launches), dict(CV.launches), BV.comb_routing_counts()["comb_items"])
+            return got, before, after, verifier_stats(v)["comb"]["multiply"]
+        finally:
+            await v.close()
+
+    got, before, after, multiply = asyncio.run(asyncio.wait_for(main(), 300))
+    assert got == want and multiply == "mxu"
+    assert after[0]["chain_mxu"] > before[0]["chain_mxu"]
+    assert dict(after[0], chain_mxu=0) == dict(before[0], chain_mxu=0) and after[1] == before[1]
+    assert after[2] - before[2] == len(items)
+
+
+def test_sharded_backend_on_two_slices_under_the_mxu_switch(card, comb_setup, monkeypatch):
+    """The sharded backend on two slices of the card under ``mxu``: both
+    slices launch the chain under mxu against the 17 x 15 table the warm-up
+    uploaded, verdicts as expected; a batch with one unregistered key runs
+    the mxu general kernel whole."""
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+    from mochi_tpu_torch.crypto import field as F
+    from mochi_tpu_torch.crypto import keys
+    from mochi_tpu_torch.parallel import make_mesh
+    from mochi_tpu_torch.verifier.cuda import ShardedCudaBatchBackend
+
+    reg, items, want = comb_setup
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    backend = ShardedCudaBatchBackend(make_mesh(devices=[card, card]), min_device_items=0)
+    backend.register_signers(reg.public_keys())
+    backend.warmup()
+    table17 = backend.registry.device_table(card, layout="fe17")
+    before = (dict(CC.launches), dict(CV.launches))
+    assert backend(items) == want
+    assert backend.registry.device_table(card, layout="fe17") is table17
+    stranger = keys.generate_keypair()
+    extra = [VerifyItem(stranger.public_key, b"x", stranger.sign(b"x"))]
+    assert backend(items[:7] + extra) == want[:7] + [True]
+    after = (dict(CC.launches), dict(CV.launches))
+    assert after[0] == dict(before[0], chain_mxu=before[0]["chain_mxu"] + 2)
+    assert after[1] == dict(before[1], mxu=before[1]["mxu"] + 2)
 
 
 # --------------------------------------------- the mxu general kernel

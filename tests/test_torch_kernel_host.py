@@ -1,7 +1,8 @@
 """The CUDA kernels' arithmetic, compiled for the host and fuzzed.
 
 ``mochi_tpu_torch/csrc/fe25519.cuh``, ``ge25519.cuh``, ``comb25519.cuh``,
-``comb_tree.cuh`` and ``fe17.cuh`` are plain ``__host__ __device__`` code,
+``comb_tree.cuh``, ``fe17.cuh`` and ``comb17.cuh`` are plain
+``__host__ __device__`` code,
 so ``g++`` builds them here into small ctypes libraries (the test-only
 shims below), with
 ``-fwrapv`` so that a signed int32 overflow wraps as it does on the card.
@@ -15,8 +16,11 @@ kernel (``fe17.cuh``) builds with its serial twin of the tensor-core
 multiply, which sums the same product bytes against the same 0/1 entries
 over the same live tiles: it is held limb for limb against the plain
 ``_mul_mxu`` (at the limb maximum too), its carries against Python
-integers, and the whole verify over it (``ge25519.cuh`` on ``fe17``)
-against the plain verify.  The port never loads these builds; they exist
+integers, the whole verify over it (``ge25519.cuh`` on ``fe17``) against
+the plain verify, and the comb chain over it (``comb17.cuh``, the
+arithmetic of ``comb_mxu.cu``): its negated-Niels mixed addition against
+Python integers at the limb maximum, its whole verify against the plain
+chain under ``mxu``.  The port never loads these builds; they exist
 to catch radix, schedule and bounds faults before the kernels reach a card.
 """
 
@@ -119,6 +123,7 @@ int t_tree_verify(const int32_t* table, long long rows, int key_idx,
 SHIM17 = r"""
 #include "fe17.cuh"
 #include "ge25519.cuh"
+#include "comb17.cuh"
 
 extern "C" {
 // n multiplies, (n, 17) each
@@ -153,6 +158,16 @@ void t17_schedule(int32_t* slots, int32_t* live) {
 int t17_verify(const int32_t* y_a, int sign_a, const int32_t* y_r, int sign_r,
                const uint8_t* s, const uint8_t* h, const int32_t* btab) {
   return ed25519_verify_one(y_a, sign_a, y_r, sign_r, s, h, 1, (const ge_niels_t<fe17>*)btab);
+}
+void t17_comb_madd(int32_t* r, const int32_t* p, const int32_t* entry, int neg) {
+  ge_niels_t<fe17> n;
+  comb17_load_niels(&n, entry, neg);
+  ge_madd((ge_p3_t<fe17>*)r, (const ge_p3_t<fe17>*)p, &n);
+}
+int t17_comb_verify(const int32_t* table, long long rows, int key_idx,
+                    const int32_t* y_r, int sign_r, const uint8_t* s,
+                    const uint8_t* h, const int32_t* bcomb) {
+  return comb17_verify_one(table, rows, key_idx, y_r, sign_r, s, h, bcomb);
 }
 }
 """
@@ -553,7 +568,7 @@ def test_comb_verify_matches_the_plain_version_lane_for_lane(lib):
     kidx[5], kidx[9], kidx[13] = (k + 1) % 3, 1000, -7  # wrong, past the end, negative
     prep = BV.prepare_packed(items)
     kidx = np.asarray(kidx, dtype=np.int32)
-    t15 = reg.device_table("cpu")
+    t15 = reg.device_table("cpu", layout="fe17")
     plain = comb.verify_comb_prepared(t15, *CC.from_prepared(kidx, prep, "cpu")).tolist()
     t25 = arr(CC.to_radix25(t15.numpy()))
     bcomb = arr(CC.bcomb_table25())
@@ -680,7 +695,7 @@ def test_tree_verify_matches_the_plain_tree_lane_for_lane(lib):
     kidx[5], kidx[9], kidx[13] = (k + 1) % 3, 1000, -7  # wrong, past the end, negative
     prep = BV.prepare_packed(items)
     kidx = np.asarray(kidx, dtype=np.int32)
-    t15 = reg.device_table("cpu")
+    t15 = reg.device_table("cpu", layout="fe17")
     lanes = CC.from_prepared(kidx, prep, "cpu")
     plain = comb.verify_comb_prepared(t15, *lanes, impl="tree").tolist()
     assert plain == comb.verify_comb_prepared(t15, *lanes, impl="chain").tolist()
@@ -818,3 +833,82 @@ def test_fe17_verify_equals_the_plain_bitmap_and_keys_verify(lib17):
     want = [keys.verify(it.public_key, it.message, it.signature) for it in items]
     assert [h and bool(ok) for h, ok in zip(host, pre_ok)] == want
     assert any(want) and not all(want)
+
+
+def test_fe17_comb_negated_niels_madd_fuzz_at_the_limb_maximum(lib17):
+    """The chain's mixed addition over ``fe17`` (``comb17_load_niels``, then
+    ``ge_madd<fe17>``): with the point's limbs at LOOSE or random in [0,
+    LOOSE], and the entry's at the canonical maximum 2^15 - 1 or random,
+    negated or not (``fe_neg``'s 2p - x), the result is the formula mod p
+    with every limb in [0, LOOSE]."""
+    rng = random.Random(151)
+    max_entry = [(1 << 15) - 1] * F.NLIMBS
+    for trial in range(120):
+        if trial % 3 == 0:
+            pt = [[F.LOOSE] * F.NLIMBS for _ in range(4)]
+        else:
+            pt = [[rng.randint(0, F.LOOSE) for _ in range(F.NLIMBS)] for _ in range(4)]
+        if trial % 2:
+            ent = [max_entry for _ in range(3)]
+        else:
+            ent = [list(F.int_to_limbs(rng.randrange(P))) for _ in range(3)]
+        neg = trial % 4 >= 2
+        out = np.zeros(4 * F.NLIMBS, np.int32)
+        lib17.t17_comb_madd(ptr(out), ptr(arr(sum(pt, []))), ptr(arr(sum(ent, []))), int(neg))
+        want = _madd_ints([F.limbs_to_int(c) for c in pt], [F.limbs_to_int(c) for c in ent], neg)
+        got = [F.limbs_to_int(out[F.NLIMBS * k : F.NLIMBS * (k + 1)]) % P for k in range(4)]
+        assert got == want, trial
+        assert out.min() >= 0 and out.max() <= F.LOOSE, trial
+
+
+def test_fe17_comb_verify_equals_the_plain_chain_under_mxu_lane_for_lane(lib17, monkeypatch):
+    """The comb chain over ``fe17`` (the arithmetic of ``comb_mxu.cu``, with
+    the serial twin of the tensor-core multiply) on the registry's own 17 x
+    15 rows equals the plain chain under ``mxu`` (every multiply through
+    ``_mul_mxu``) on every lane: forged and malformed lanes, another
+    signer's row, and key indices clipped at both ends of the table."""
+    from mochi_tpu_torch.crypto import batch_verify as BV
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+    from mochi_tpu_torch.verifier.spi import VerifyItem
+
+    rng = random.Random(161)
+    seeds = [bytes(rng.randrange(256) for _ in range(32)) for _ in range(3)]
+    pubs = [hf.public_from_seed(sd) for sd in seeds]
+    reg = comb.SignerRegistry("cpu")
+    reg.register_all(pubs)
+    items, kidx = [], []
+    for i in range(12):
+        k = i % 3
+        msg = b"comb17 host %d" % i
+        sig = bytearray(hf.sign(seeds[k], msg))
+        if i % 4 == 1:
+            sig[42] ^= 2  # flipped S bit
+        elif i % 4 == 2:
+            sig[:32] = bytes.fromhex(ORDER8)  # small-order R
+        items.append(VerifyItem(pubs[k], msg, bytes(sig)))
+        kidx.append(k)
+    kidx[4], kidx[8], kidx[11] = (kidx[4] + 1) % 3, 1000, -7  # wrong, past the end, negative
+    prep = BV.prepare_packed(items)
+    kidx = np.asarray(kidx, dtype=np.int32)
+    t15 = reg.device_table("cpu", layout="fe17")
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    used = []
+    real = F._mul_mxu
+    monkeypatch.setattr(F, "_mul_mxu", lambda a, b: used.append(1) or real(a, b))
+    plain = comb.verify_comb_prepared(t15, *CC.from_prepared(kidx, prep, "cpu")).tolist()
+    assert used
+    table = arr(t15.numpy())
+    bcomb = arr(comb._b_comb().reshape(-1, comb.ROW_WIDTH))
+    _, _, y_r, sign_r, s_b, h_b, _ = prep
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    lib17.t17_comb_verify.argtypes = [I32P, ctypes.c_longlong, ctypes.c_int, I32P, ctypes.c_int, u8, u8, I32P]
+    host = [
+        bool(lib17.t17_comb_verify(ptr(table), table.shape[0], int(kidx[j]), ptr(arr(y_r[j])), int(sign_r[j]),
+                                   s_b[j].ctypes.data_as(u8), h_b[j].ctypes.data_as(u8), ptr(bcomb)))
+        for j in range(len(items))
+    ]
+    assert host == plain
+    want = [keys.verify(it.public_key, it.message, it.signature) for it in items]
+    assert [h and ok for h, ok in zip(host, prep[6])][:4] == want[:4]
+    assert any(host) and not all(host)
