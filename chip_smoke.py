@@ -9,9 +9,10 @@ Phases (any failure exits non-zero and prints no result line):
    capability, SM count, maximum SM clock, and the host's Ed25519 engine.
    No CUDA device: exit 2.
 2. Build — compile every kernel, ``mochi_tpu_torch/csrc/verify.cu``,
-   ``verify_mxu.cu``, ``comb.cu``, ``comb_mxu.cu``, ``comb_tree.cu`` and
-   ``tally.cu``, one nvcc each, started together; report ptxas's registers
-   and spills and each kernel's attributes.
+   ``verify_mxu.cu``, ``comb.cu``, ``comb_mxu.cu``, ``comb_tree.cu``,
+   ``comb_tree_mxu.cu`` and ``tally.cu``, one nvcc each, started together;
+   report ptxas's registers, spills and shared bytes and each kernel's
+   attributes (both passes of each tree).
 3. Kernel vs plain — an 8192-item corpus made from ``--seed``: valid
    signatures from 64 signers, forgeries, and adversarial encodings
    (low-order and mixed-order points, non-points, x = 0 with the sign bit,
@@ -78,6 +79,19 @@ Phases (any failure exits non-zero and prints no result line):
    8192 and 65536 lanes and the plain chain under ``mxu`` at 8192, beside
    the function's bound (the chain's, as phase 7's) and the int8
    tensor-core reckoning of its multiplies.
+6tm. The comb tree under ``MOCHI_SKEW_IMPL=mxu`` (``comb_tree_mxu.cu``, the
+   tree's two passes in the 17 x 15-bit field with every multiply on the
+   integer tensor cores, reading the registry's rows as they are) on phase
+   6's corpus at 8192 lanes, a partial last block and the service's 2,752:
+   its bitmap must equal the plain tree under the same switch on the card,
+   ``comb_tree.cu``'s and ``comb_mxu.cu``'s bitmaps lane for lane and the
+   expected verdicts, and phase 6's 256 sampled lanes must equal
+   ``keys.verify``.
+7tm. Its times — CUDA events, median over repeats: the kernel at 2,752,
+   8192 and 65536 lanes, its two passes apart by ``torch.profiler``, the
+   plain tree under ``mxu`` at 8192, beside the function's bound (the
+   comb's) and the int8 tensor-core reckoning of its own multiplies (an
+   estimate, not a bound).
 8. Service with signers — phase 5's traffic through
    ``CudaBatchVerifier(signers=...)``: every item must take the comb kernel
    and every bitmap must equal the expected verdicts.
@@ -92,6 +106,13 @@ Phases (any failure exits non-zero and prints no result line):
    expected verdicts, nothing may fall back, and ``verifier_stats`` must
    name the mxu multiply; the idle share is recorded, and the kernel is held
    against its plain version at every lane count it launched.
+8tm. Phase 8 under both switches (``comb.COMB_IMPL = "tree"``,
+   ``field.SKEW_IMPL = "mxu"``, restored after): every item must take the
+   tree under mxu and none ``comb.cu``, ``comb_tree.cu``, ``comb_mxu.cu`` or
+   a general kernel, every bitmap must equal the expected verdicts, nothing
+   may fall back, and ``verifier_stats`` must name the tree and the mxu
+   multiply; the idle share is recorded, and the kernel is held against its
+   plain version at every lane count it launched.
 9. Cluster — the main path of the system: ``VirtualCluster(64, rf=64)``
    (f = 21, quorum 43) with one ``CudaBatchVerifier(device="cuda")`` shared
    by all 64 replicas (the replicas register the cluster identities, so
@@ -106,6 +127,11 @@ Phases (any failure exits non-zero and prints no result line):
    be the chain under mxu and every general launch ``verify_mxu.cu`` (no
    ``pad`` launch of either), and each kernel must equal its plain version
    at every lane count it launched.
+9tm. The cluster under both switches (restored after), at 9m's cut depth:
+   every acked write must read back with a 43-grant certificate, every comb
+   launch must be the tree under mxu and every general launch
+   ``verify_mxu.cu`` (no ``pad`` launch of either), and each kernel must
+   equal its plain version at every lane count it launched.
 
 10. Sharded service — phase 8's traffic through
    ``VerifierService(ShardedCudaBatchVerifier(signers=...))`` over every
@@ -132,10 +158,11 @@ Phases (any failure exits non-zero and prints no result line):
    --backend nccl``, one process per visible card: each process's JSON line
    must equal the closed form for its world size.
 
-Phases 5, 5m, 8, 8t, 8m, 9, 9m, 10 and 11 drive the main paths: each zeroes
-the launch counts just before it and reads them just after.  Every phase but
-8t runs the comb's default accumulation, the chain, and every phase but
-3m-5m and 6m-9m the default multiply, ``pad``.  On a machine with several
+Phases 5, 5m, 8, 8t, 8m, 8tm, 9, 9m, 9tm, 10 and 11 drive the main paths:
+each zeroes the launch counts just before it and reads them just after.
+Every phase but 8t and 6tm-9tm runs the comb's default accumulation, the
+chain, and every phase but 3m-5m, 6m-9m and 6tm-9tm the default multiply,
+``pad``.  On a machine with several
 cards, phases 10-12 use every card, phase 11 also runs the step on card 0
 alone, and the idle share is recorded per card.  The last three lines of
 standard output are the kernel table (JSON), the ``nvidia-smi``
@@ -770,17 +797,19 @@ def mxu_service_problems(svc: dict, launched: bool = True) -> List[str]:
     return problems
 
 
-def comb_mxu_service_problems(svc: dict, launched: bool = True) -> List[str]:
-    """What phase 8m must not show: a bitmap off the expected verdicts, no
-    launch of the chain under mxu (when ``launched``, as on a card), a
-    launch of ``comb.cu``, the tree or a general kernel, an item routed off
-    the comb path, a fallback, or stats that do not name the mxu multiply."""
+def comb_mxu_service_problems(svc: dict, launched: bool = True, kernel: str = "chain_mxu") -> List[str]:
+    """What phase 8m (``kernel`` ``chain_mxu``) or 8tm (``tree_mxu``) must
+    not show: a bitmap off the expected verdicts, no launch of ``kernel``
+    (when ``launched``, as on a card), a launch of another comb kernel or a
+    general kernel, an item routed off the comb path, a fallback, or stats
+    that do not name ``kernel``'s accumulation and the mxu multiply."""
+    impl = kernel.split("_")[0]
     problems = []
     if svc["mismatched_requests"]:
         problems.append(f"{svc['mismatched_requests']} bitmaps differ from the expected verdicts")
-    if launched and svc["comb_launches"]["chain_mxu"] <= 0:
-        problems.append("the chain under mxu was never launched")
-    if _other_comb_launches(svc, "chain_mxu") or svc["verify_launches"] or svc["verify_mxu_launches"]:
+    if launched and svc["comb_launches"][kernel] <= 0:
+        problems.append(f"the {impl} under mxu was never launched")
+    if _other_comb_launches(svc, kernel) or svc["verify_launches"] or svc["verify_mxu_launches"]:
         problems.append(f"service with signers under mxu: comb launches {svc['comb_launches']}, general "
                         f"launches {svc['verify_launches']}, mxu general launches {svc['verify_mxu_launches']}")
     if svc["routing"]["comb_items"] != svc["items"]:
@@ -788,20 +817,21 @@ def comb_mxu_service_problems(svc: dict, launched: bool = True) -> List[str]:
     for key in ("fallback_batches", "crossover_batches", "remote_fallbacks"):
         if svc[key]:
             problems.append(f"service with signers under mxu: {key} = {svc[key]}")
-    if svc["stats_multiply"]["comb"] != "mxu":
-        problems.append(f"verifier_stats names {svc['stats_multiply']}")
+    if svc["stats_multiply"]["comb"] != "mxu" or svc["stats_comb_impl"] != impl:
+        problems.append(f"verifier_stats names {svc['stats_multiply']}, comb impl {svc['stats_comb_impl']}")
     return problems
 
 
-def cluster_mxu_problems(cl: dict, launched: bool = True) -> List[str]:
-    """What phase 9m must not show: no launch of the chain under mxu (when
-    ``launched``), a ``pad`` launch of either kernel (``comb.cu`` or
-    ``verify.cu``) or a tree launch, no grant on the comb path, a fallback.
-    (An acked write that does not read back raises in ``drive_cluster``.)"""
+def cluster_mxu_problems(cl: dict, launched: bool = True, kernel: str = "chain_mxu") -> List[str]:
+    """What phase 9m (``kernel`` ``chain_mxu``) or 9tm (``tree_mxu``) must
+    not show: no launch of ``kernel`` (when ``launched``), a launch of
+    another comb kernel or of ``verify.cu``, no grant on the comb path, a
+    fallback.  (An acked write that does not read back raises in
+    ``drive_cluster``.)"""
     problems = []
-    if launched and cl["comb_launches"]["chain_mxu"] <= 0:
-        problems.append(f"the chain under mxu carried nothing: {cl['comb_launches']}")
-    if _other_comb_launches(cl, "chain_mxu") or cl["verify_launches"]:
+    if launched and cl["comb_launches"][kernel] <= 0:
+        problems.append(f"the {kernel.split('_')[0]} under mxu carried nothing: {cl['comb_launches']}")
+    if _other_comb_launches(cl, kernel) or cl["verify_launches"]:
         problems.append(f"cluster under mxu: comb launches {cl['comb_launches']}, pad general launches "
                         f"{cl['verify_launches']}")
     if cl["routing"]["comb_items"] <= 0:
@@ -936,8 +966,10 @@ async def drive_service(traffic, device: str, secret: Optional[bytes], timeout_s
         "fallback_batches": verifier.fallback_batches,
         "crossover_batches": verifier.backend.crossover_batches,
         "remote_fallbacks": sum(rv.fallback_batches for rv in remotes),
-        # the multiplies the verifier's stats name (MOCHI_SKEW_IMPL)
+        # the multiplies the verifier's stats name (MOCHI_SKEW_IMPL), and its
+        # comb accumulation (MOCHI_COMB_IMPL)
         "stats_multiply": {"general": stats["general"]["multiply"], "comb": stats["comb"]["multiply"]},
+        "stats_comb_impl": stats["comb"]["impl"],
     }
 
 
@@ -1027,7 +1059,8 @@ def _zero_counts():
 def _read_counts(out: dict):
     """Counts and traces read just after a main-path phase; returns the
     general kernels' launch logs (keyed by skew) and the comb kernels' (keyed
-    by kernel: ``chain``, ``tree``, ``chain_mxu``) and turns tracing off.
+    by kernel: ``chain``, ``tree``, ``chain_mxu``, ``tree_mxu``) and turns
+    tracing off.
     ``verify_launches`` counts the general kernel's (``pad``) launches,
     ``verify_mxu_launches`` the mxu kernel's, ``comb_launches`` is keyed by
     kernel; ``launches_by_card`` counts the verify kernels' launches on each
@@ -1135,12 +1168,13 @@ def run(args) -> dict:
     res["build_s_by_kernel"] = took
     res["kernel_attributes"] = {"verify": CV.kernel_attributes(), "verify_mxu": CV.kernel_attributes("mxu"),
                                 "comb": CC.kernel_attributes(), "comb_mxu": CC.kernel_attributes("chain_mxu"),
-                                "comb_tree": CC.kernel_attributes("tree"), "tally": CT.kernel_attributes()}
+                                "comb_tree": CC.kernel_attributes("tree"),
+                                "comb_tree_mxu": CC.kernel_attributes("tree_mxu"), "tally": CT.kernel_attributes()}
     print(f"[build] {res['build_s']:.1f} s {took}; {res['kernel_attributes']}", flush=True)
     res["ptxas"] = {}
-    for name in ("verify", "verify_mxu", "comb", "comb_mxu", "comb_tree", "tally"):
+    for name in ("verify", "verify_mxu", "comb", "comb_mxu", "comb_tree", "comb_tree_mxu", "tally"):
         for ln in kernels.build_logs.get(name, "").splitlines():
-            if "registers" in ln or "spill" in ln:
+            if "Compiling entry" in ln or "registers" in ln or "spill" in ln:
                 res["ptxas"].setdefault(name, []).append(ln.strip())
                 print(f"[build] ptxas {name}: {ln.strip()}", flush=True)
 
@@ -1476,6 +1510,55 @@ def run(args) -> dict:
     }
     print(f"[comb mxu times] {res['comb_mxu_times']}", flush=True)
 
+    # 6tm-7tm. the tree under mxu (comb_tree_mxu.cu): on the comb corpus, its
+    # times
+    try:
+        F.SKEW_IMPL = "mxu"
+        tmgot = CC.verify_comb_prepared(table17, *lanes, impl="tree").cpu().numpy()
+        tmfinal = np.logical_and(tmgot, cprep[6])
+        tmwrong = [k for k, g, w in zip(ckinds, tmfinal, cwant) if bool(g) != w]
+        tmcheck = {n: _check_comb_at(n, table17, table17, lanes, big_lanes, cprep[6], cwant, "tree")
+                   for n in (len(citems), len(citems) - PARTIAL, CLIENTS * GRANTS)}
+        # comb_tree.cu's and comb_mxu.cu's bitmaps, lane for lane
+        tm_vs = {"comb_tree_cu": int(np.sum(tmgot != tgot)), "comb_mxu_cu": int(np.sum(tmgot != mcgot))}
+        tmsample_wrong = [j for j in csample if keys.verify(citems[j].public_key, citems[j].message,
+                                                            citems[j].signature) != bool(tmfinal[j])]
+        res["comb_tree_mxu_corpus"] = {
+            "items": len(citems), "accepted": int(tmfinal.sum()),
+            "kernel_vs_plain_max_abs_err": max(tmcheck.values()), "lane_counts_checked": sorted(tmcheck),
+            "lanes_differing": tm_vs, "wrong_verdicts": len(tmwrong),
+            "sample_vs_keys_verify_wrong": len(tmsample_wrong),
+        }
+        print(f"[comb tree mxu vs plain] {res['comb_tree_mxu_corpus']}", flush=True)
+        if any(tm_vs.values()) or tmwrong or tmsample_wrong:
+            raise AssertionError(f"comb tree mxu kernel disagrees: lanes differing {tm_vs}, wrong kinds "
+                                 f"{sorted(set(tmwrong))[:10]}, sample lanes {tmsample_wrong[:10]}")
+        tm_wave = _ms_median(lambda: CC.verify_comb_prepared(table17, *wave_lanes, impl="tree"), 2, REPEATS // 2)
+        tm8k = _ms_median(lambda: CC.verify_comb_prepared(table17, *lanes, impl="tree"), 2, REPEATS)
+        tm64k = _ms_median(lambda: CC.verify_comb_prepared(table17, *big_lanes, impl="tree"), 1, REPEATS // 4)
+        tmplain = _ms_median(lambda: comb.verify_comb_prepared(table17, *lanes, impl="tree"), 1, 3)
+        # the two passes apart, by the profiler
+        tmsplit = {n: kernel_split_ms(lambda: CC.verify_comb_prepared(table17, *[t[:n] for t in ctiled],
+                                                                      impl="tree"), repeats=5)
+                   for n in (CLIENTS * GRANTS, len(citems), BIG)}
+    finally:
+        F.SKEW_IMPL = skew0
+    # the int8 reckoning of the kernel's own multiplies, as phase 7m's
+    tm_tensor = lambda n: (1e3 * n * CC.MULS_PER_SIGNATURE_TREE_MXU * 2 * CC.MMA_MACS_PER_MUL  # noqa: E731
+                           / INT8_OPS_PER_S)
+    res["comb_tree_mxu_times"] = {
+        "kernel_ms_2752": tm_wave, "kernel_ms_8192": tm8k, "kernel_ms_65536": tm64k, "plain_ms_8192": tmplain,
+        "bound_ms_8192": cbound(len(citems)), "bound_ms_65536": cbound(BIG), "bound_by": cbound_by,
+        "sigs_per_s_8192": len(citems) / (tm8k / 1e3), "sigs_per_s_65536": BIG / (tm64k / 1e3),
+        "muls_per_signature": CC.MULS_PER_SIGNATURE_TREE_MXU, "mma_macs_per_mul": CC.MMA_MACS_PER_MUL,
+        "tensor_int8_estimate_ms_8192": tm_tensor(len(citems)), "tensor_int8_estimate_ms_65536": tm_tensor(BIG),
+        "profiler_ms_per_pass": tmsplit,
+        "comb_mxu_cu_over_tree_ms_2752": mc_wave / tm_wave, "comb_mxu_cu_over_tree_ms_8192": mc8k / tm8k,
+        "comb_mxu_cu_over_tree_ms_65536": mc64k / tm64k,
+        "attributes": res["kernel_attributes"]["comb_tree_mxu"], "ptxas": res["ptxas"].get("comb_tree_mxu", []),
+    }
+    print(f"[comb tree mxu times] {res['comb_tree_mxu_times']}", flush=True)
+
     # 8. service with known signers: every grant takes the comb kernel
     pubs = [s.pub for s in signers]
     svc2, (_, clogs) = _drive(lambda: drive_service(traffic, "cuda", secret, signers=pubs), "service_signers",
@@ -1539,6 +1622,23 @@ def run(args) -> dict:
     if problems:
         raise AssertionError("; ".join(problems))
 
+    # 8tm. the same traffic under both switches: every grant takes the tree
+    # under mxu
+    try:
+        comb.COMB_IMPL, F.SKEW_IMPL = "tree", "mxu"
+        svc2tm, (_, tmlogs) = _drive(lambda: drive_service(traffic, "cuda", secret, signers=pubs),
+                                     "service_signers_tree_mxu", res)
+        for n in sorted({n for n, _, _ in tmlogs["tree_mxu"]} - set(tmcheck)):
+            tmcheck[n] = _check_comb_at(n, table17, table17, lanes, big_lanes, cprep[6], cwant, "tree")
+    finally:
+        comb.COMB_IMPL, F.SKEW_IMPL = impl0, skew0
+    svc2tm["tree_mxu_lane_counts_checked_vs_plain"] = sorted({n for n, _, _ in tmlogs["tree_mxu"]})
+    print(f"[service with signers, tree and mxu] tree under mxu equals plain at lane counts "
+          f"{svc2tm['tree_mxu_lane_counts_checked_vs_plain']}", flush=True)
+    problems = comb_mxu_service_problems(svc2tm, kernel="tree_mxu")
+    if problems:
+        raise AssertionError("; ".join(problems))
+
     # 9. the cluster: the system's main path
     cl, (vlogs2, clogs2) = _drive(lambda: drive_cluster("cuda", CLUSTER_N, CLUSTER_CLIENTS, CLUSTER_WRITES),
                                   "cluster", res)
@@ -1578,6 +1678,28 @@ def run(args) -> dict:
     print(f"[cluster, mxu] chain under mxu equals plain at lane counts {clm['chain_mxu_lane_counts_checked_vs_plain']}"
           f", mxu general kernel at {clm['verify_mxu_lane_counts_checked_vs_plain']}", flush=True)
     problems = cluster_mxu_problems(clm)
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+    # 9tm. the cluster under both switches, at 9m's cut depth: grants on the
+    # tree under mxu, client keys on the mxu general kernel
+    try:
+        comb.COMB_IMPL, F.SKEW_IMPL = "tree", "mxu"
+        cltm, (vlogs_tm2, clogs_tm2) = _drive(
+            lambda: drive_cluster("cuda", CLUSTER_N, CLUSTER_MXU_CLIENTS, CLUSTER_MXU_WRITES), "cluster_tree_mxu",
+            res)
+        for n in sorted({n for n, _, _ in clogs_tm2["tree_mxu"]} - set(tmcheck)):
+            tmcheck[n] = _check_comb_at(n, table17, table17, lanes, big_lanes, cprep[6], cwant, "tree")
+        for n in sorted({n for n, _, _ in vlogs_tm2["mxu"]} - set(mcheck)):
+            mcheck[n] = check_kernel_vs_plain([t[:n] for t in big_t], big[6][:n], flat_want[:n])
+    finally:
+        comb.COMB_IMPL, F.SKEW_IMPL = impl0, skew0
+    cltm["tree_mxu_lane_counts_checked_vs_plain"] = sorted({n for n, _, _ in clogs_tm2["tree_mxu"]})
+    cltm["verify_mxu_lane_counts_checked_vs_plain"] = sorted({n for n, _, _ in vlogs_tm2["mxu"]})
+    print(f"[cluster, tree and mxu] tree under mxu equals plain at lane counts "
+          f"{cltm['tree_mxu_lane_counts_checked_vs_plain']}, mxu general kernel at "
+          f"{cltm['verify_mxu_lane_counts_checked_vs_plain']}", flush=True)
+    problems = cluster_mxu_problems(cltm, kernel="tree_mxu")
     if problems:
         raise AssertionError("; ".join(problems))
 
@@ -1651,6 +1773,22 @@ def run(args) -> dict:
         "plain_ms": tplain,
         "bound_ms": cbound(len(citems)),
         "bound_by": res["comb_tree_times"]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "comb_tree_verify_mxu",
+        "route": "cuda",
+        "source": "mochi_tpu_torch/csrc/comb_tree_mxu.cu",
+        "replaces": "mochi_tpu/crypto/comb.py:428",
+        "replaces_also": "mochi_tpu/crypto/field.py:330",
+        "launches": cltm["comb_launches"]["tree_mxu"],
+        "launches_service": svc2tm["comb_launches"]["tree_mxu"],
+        "max_abs_err": max(tmcheck.values()),
+        "ms": tm8k,
+        "ms_2752": tm_wave,
+        "ms_65536": tm64k,
+        "plain_ms": tmplain,
+        "bound_ms": cbound(len(citems)),
+        "bound_by": cbound_by,
         "library_ms": None,
     }, {
         "name": "quorum_tally",

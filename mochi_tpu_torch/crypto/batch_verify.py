@@ -21,8 +21,8 @@ kernel every comb launch runs, as the reference's switch reaches every comb
 caller: the verifier service, ``CudaBatchVerifier``, the sharded backend and
 the replica all launch through :func:`_dispatch`.  ``MOCHI_SKEW_IMPL=mxu``
 (``field.SKEW_IMPL``) reaches every general launch the same way (they run
-the tensor-core kernel, :mod:`.cuda_verify`), and every chain launch (the
-tensor-core chain, ``comb_mxu.cu``).  A batch reads both switches once,
+the tensor-core kernel, :mod:`.cuda_verify`), and every comb launch (the
+tensor-core chain, ``comb_mxu.cu``, or tree, ``comb_tree_mxu.cu``).  A batch reads both switches once,
 where it pins its comb table (``cuda_comb.switches``), so the table's
 layout and the kernel that reads it always agree.
 

@@ -22,15 +22,17 @@ Three layers live here:
   reads: ``radix25`` (converted once to the kernel radix 2^25.5 for
   ``comb.cu`` and ``comb_tree.cu``,
   :func:`mochi_tpu_torch.crypto.cuda_comb.to_radix25`) or ``fe17`` (the
-  17 x 15 rows as they are, for ``comb_mxu.cu`` and the plain version).
+  17 x 15 rows as they are, for ``comb_mxu.cu``, ``comb_tree_mxu.cu`` and
+  the plain version).
 * :func:`verify_comb_prepared` — the plain PyTorch version of both comb
   kernels, limb-equal to the reference's two accumulations: ``impl="chain"``
   (``csrc/comb.cu``, 128 dependent mixed additions) and ``impl="tree"``
   (``csrc/comb_tree.cu``, the 128 window points converted from Niels to
   extended form and summed by a 7-level balanced tree of complete
   additions).  Its multiplies follow ``MOCHI_SKEW_IMPL`` as the
-  reference's do, so under ``mxu`` the chain is also the plain version of
-  ``csrc/comb_mxu.cu``.  The CPU tests run it and the chip smoke test holds
+  reference's do, or the ``multiply`` its caller pinned, so under ``mxu``
+  the chain is also the plain version of ``csrc/comb_mxu.cu`` and the tree
+  of ``csrc/comb_tree_mxu.cu``.  The CPU tests run it and the chip smoke test holds
   the kernels against it; it is never on the main path when a card is
   present.
 
@@ -50,6 +52,7 @@ then simply takes the general kernel.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import threading
@@ -323,7 +326,8 @@ class SignerRegistry:
         ``radix25``, the (capacity * 576, 3, 10) int32 table ``comb.cu`` and
         ``comb_tree.cu`` read (converted once, exactly, at upload), or
         ``fe17``, the (capacity * 576, 51) int32 17 x 15 rows as they are,
-        which ``comb_mxu.cu`` and the plain version read.  The caller names
+        which ``comb_mxu.cu``, ``comb_tree_mxu.cu`` and the plain version
+        read.  The caller names
         it: :func:`cuda_comb.table_layout` says which one a launch reads.
         Each layout is cached apart: one never replaces the other.
 
@@ -393,7 +397,7 @@ def _tree_accumulate(ypx, ymx, xy2d, n_points: int, lanes_n: int) -> curve.Point
 
 
 def verify_comb_prepared(table_flat, key_idx, y_r, sign_r, s_bytes, h_bytes,
-                         impl: Optional[str] = None) -> torch.Tensor:
+                         impl: Optional[str] = None, multiply: Optional[str] = None) -> torch.Tensor:
     """Batched comb verify -> (B,) bool bitmap, in plain PyTorch.
 
     ``table_flat``: (K*576, 51) int32 signer tables in the 17 x 15 layout
@@ -404,11 +408,20 @@ def verify_comb_prepared(table_flat, key_idx, y_r, sign_r, s_bytes, h_bytes,
     The row index ``key_idx*576 + w*9 + |h_w|`` is clipped into the table,
     as the reference's ``jnp.take(..., mode="clip")`` does.  Every
     intermediate equals the reference's of the same ``impl`` limb for limb.
-    Every rank-2 multiply follows ``field.SKEW_IMPL`` as the reference's
-    does when traced: under ``mxu`` the chain here is the plain version of
-    ``csrc/comb_mxu.cu`` (the plain ``_mul_mxu``), else of ``csrc/comb.cu``.
+    ``multiply`` (``pad`` or ``mxu``) decides every rank-2 multiply
+    (:func:`field.skew`); None follows ``field.SKEW_IMPL`` at call time, as
+    the reference's does when traced.  Under ``mxu`` (the plain
+    ``_mul_mxu``) the chain here is the plain version of
+    ``csrc/comb_mxu.cu`` and the tree of ``csrc/comb_tree_mxu.cu``, else of
+    ``csrc/comb.cu`` and ``csrc/comb_tree.cu``.
     """
     impl = check_impl(impl)
+    with F.skew(multiply) if multiply is not None else contextlib.nullcontext():
+        return _verify_comb(table_flat, key_idx, y_r, sign_r, s_bytes, h_bytes, impl)
+
+
+def _verify_comb(table_flat, key_idx, y_r, sign_r, s_bytes, h_bytes, impl: str) -> torch.Tensor:
+    """:func:`verify_comb_prepared` of ``impl`` under the multiply in effect."""
     dev = y_r.device
     s_mag, s_neg = curve.recode_signed4(curve.digits4_from_bytes(s_bytes))
     h_mag, h_neg = curve.recode_signed4(curve.digits4_from_bytes(h_bytes))

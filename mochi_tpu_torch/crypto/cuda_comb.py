@@ -1,5 +1,5 @@
 """Known-signer (comb) Ed25519 verification on the card: the wrapper of
-the three CUDA comb kernels.
+the four CUDA comb kernels.
 
 Counterpart of the reference package's ``comb._verify_comb_jit`` with its
 two accumulations, under either multiply.  Which kernel a launch runs
@@ -14,12 +14,16 @@ follows the pair of switches (:func:`kernel_of`):
   in the reference's 17 x 15-bit field with every multiply's column
   reduction on the integer tensor cores (``csrc/fe17.cuh``), 32 signatures
   a warp;
-* ``impl="tree"``, under either multiply: ``csrc/comb_tree.cu``
-  (arithmetic in ``csrc/comb_tree.cuh``), a prepare pass (R's decode and
-  the digit recoding, one thread per signature) and an accumulate pass (the
-  128 window points summed by a 7-level tree, one warp per signature), in
-  radix 2^25.5.  The tree's mxu multiply is not ported yet: a tree launch
-  under ``mxu`` runs this kernel and says so once on stderr.
+* ``impl="tree"``, ``multiply="pad"``: ``csrc/comb_tree.cu`` (arithmetic
+  in ``csrc/comb_tree.cuh``), a prepare pass (R's decode and the digit
+  recoding, one thread per signature) and an accumulate pass (the 128
+  window points summed by a 7-level tree, one warp per signature), in radix
+  2^25.5;
+* ``impl="tree"``, ``multiply="mxu"``: ``csrc/comb_tree_mxu.cu``
+  (arithmetic in ``csrc/comb_tree17.cuh``), the same two passes in the 17 x
+  15-bit field with every multiply on the integer tensor cores; in the
+  accumulate pass the warp-wide multiply serves the 32 tree nodes of one
+  signature.
 
 ``impl=None`` takes :data:`comb.COMB_IMPL` (``MOCHI_COMB_IMPL``) and
 ``multiply=None`` the ``MOCHI_SKEW_IMPL`` switch (``mxu`` for ``mxu``, else
@@ -33,18 +37,16 @@ in the layout its kernel reads (:func:`table_layout`), as
 :meth:`~mochi_tpu_torch.crypto.comb.SignerRegistry.device_table` returns it:
 on a CUDA device the kernel-radix (rows, 3, 10) int32 table (``radix25``)
 for ``comb.cu`` and ``comb_tree.cu``, the registry's (rows, 51) int32 17 x
-15 rows (``fe17``) for ``comb_mxu.cu``, and the kernel is launched on the
-current stream or the call raises; on the CPU the (rows, 51) rows, and the
-plain version of the same ``impl``
-(:func:`mochi_tpu_torch.crypto.comb.verify_comb_prepared`) runs, whose
-multiply follows ``field.SKEW_IMPL``.  The kernels do not synchronise: the
-caller reads the bitmap back.
+15 rows (``fe17``) for ``comb_mxu.cu`` and ``comb_tree_mxu.cu``, and the
+kernel is launched on the current stream or the call raises; on the CPU the
+(rows, 51) rows, and the plain version of the same ``impl`` and
+``multiply`` (:func:`mochi_tpu_torch.crypto.comb.verify_comb_prepared`)
+runs.  The kernels do not synchronise: the caller reads the bitmap back.
 """
 
 from __future__ import annotations
 
 import ctypes
-import sys
 import threading
 from functools import lru_cache
 from typing import Optional
@@ -57,18 +59,18 @@ from . import field as F
 from .cuda_verify import _BITS, _OFFS, _check
 
 # The comb kernels, by the name :func:`kernel_of` gives them: comb.cu,
-# comb_tree.cu and comb_mxu.cu.
-KERNELS = ("chain", "tree", "chain_mxu")
+# comb_tree.cu, comb_mxu.cu and comb_tree_mxu.cu.
+KERNELS = ("chain", "tree", "chain_mxu", "tree_mxu")
 
 # Launches of each kernel, keyed by kernel (plain counts; the chip smoke
-# test zeroes them before driving a main path and reads them after).  The
+# test zeroes them before driving a main path and reads them after).  A
 # tree counts one per call, both passes.
 launches = dict.fromkeys(KERNELS, 0)
 _count_lock = threading.Lock()
 
 # Launch traces of each kernel, keyed by kernel, off when None.  When a
 # list, each launch appends (lanes, start, end): CUDA events recorded on the
-# launch's stream just before and just after the kernel (the tree's: both
+# launch's stream just before and just after the kernel (a tree's: both
 # passes).
 launch_logs = dict.fromkeys(KERNELS)
 
@@ -78,13 +80,15 @@ launch_logs = dict.fromkeys(KERNELS)
 # either kernel.  The data-dependent sqrt(-1) multiply of the decode is
 # left out.
 IMADS_PER_SIGNATURE = 917 * 100 + 255 * 55
-# What the tree kernel issues for the same verdict: 1,228 multiplies and the
+# What comb_tree.cu issues for the same verdict: 1,228 multiplies and the
 # same 255 squarings (the lanes that compute unread sums are not counted).
 IMADS_PER_SIGNATURE_TREE = 1228 * 100 + 255 * 55
 
-# The tree's per-signature record between its passes (comb_tree.cuh):
-# R's x and y, R's verdict, 128 int8 digits.
+# Each tree's per-signature record between its passes (comb_tree.cuh,
+# comb_tree17.cuh): R's x and y, R's verdict, 128 int8 digits.
 TREE_RECORD_INTS = 53
+TREE17_RECORD_INTS = 67
+_RECORD_INTS = {"tree": TREE_RECORD_INTS, "tree_mxu": TREE17_RECORD_INTS}
 
 # Multiplies and squarings one signature of the chain under mxu issues
 # (comb_mxu.cu: 128 mixed additions of 7, the decode's 275, its sqrt(-1)
@@ -94,6 +98,12 @@ TREE_RECORD_INTS = 53
 # m16n8k32 MMAs a warp of 32, fe17.cuh).
 MULS_PER_SIGNATURE_MXU = 128 * 7 + 275 + 2
 MMA_MACS_PER_MUL = 196 * 16 * 8 * 32 // 32
+# The same count for the tree under mxu (comb_tree_mxu.cu), in multiplies
+# of one lane's operands: the prepare pass's decode (275, one signature a
+# lane) and the accumulate pass's 76 warp-wide multiplies (a lane's two
+# windows of 10, their sum and 5 levels of 9, the compare's 2), each
+# serving the 32 lanes of one signature.
+MULS_PER_SIGNATURE_TREE_MXU = 275 + 32 * (2 * (3 + 7) + 9 + 5 * 9 + 2)
 
 # Bytes per signature in and out: key_idx, y_r, sign_r, s, h, the verdict.
 BYTES_PER_SIGNATURE = 4 + 17 * 4 + 4 + 32 + 32 + 1
@@ -147,27 +157,27 @@ def switches() -> tuple:
 
 
 def kernel_of(impl: str, multiply: str) -> str:
-    """The kernel a launch of ``(impl, multiply)`` runs: ``chain_mxu`` for
-    the chain under ``mxu``, else the impl's own (the tree keeps its pad
-    multiply under either)."""
+    """The kernel a launch of ``(impl, multiply)`` runs: the impl's own
+    (``chain``, ``tree``), or its tensor-core form under ``mxu``
+    (``chain_mxu``, ``tree_mxu``)."""
     impl = comb.check_impl(impl)
-    return "chain_mxu" if impl == "chain" and multiply == "mxu" else impl
+    return impl + "_mxu" if multiply == "mxu" else impl
 
 
 def multiply_of(impl: Optional[str] = None) -> str:
     """The multiply ``impl``'s kernel runs under the switch now (the
-    verifier's stats name it): ``mxu`` for the chain under
-    ``MOCHI_SKEW_IMPL=mxu``, else ``pad``."""
+    verifier's stats name it): ``mxu`` under ``MOCHI_SKEW_IMPL=mxu``, for
+    either accumulation, else ``pad``."""
     impl_, multiply = switches()
-    return "mxu" if kernel_of(impl_ if impl is None else impl, multiply) == "chain_mxu" else "pad"
+    return "mxu" if kernel_of(impl_ if impl is None else impl, multiply).endswith("_mxu") else "pad"
 
 
 def table_layout(device, impl: str, multiply: str) -> str:
     """The layout of ``SignerRegistry.device_table`` a launch of ``(impl,
     multiply)`` on ``device`` reads: ``fe17`` (the registry's 17 x 15 rows)
-    on the CPU, where the plain version runs, and for ``comb_mxu.cu``;
-    ``radix25`` for ``comb.cu`` and ``comb_tree.cu``."""
-    if torch.device(device).type != "cuda" or kernel_of(impl, multiply) == "chain_mxu":
+    on the CPU, where the plain version runs, and for ``comb_mxu.cu`` and
+    ``comb_tree_mxu.cu``; ``radix25`` for ``comb.cu`` and ``comb_tree.cu``."""
+    if torch.device(device).type != "cuda" or kernel_of(impl, multiply).endswith("_mxu"):
         return "fe17"
     return "radix25"
 
@@ -178,6 +188,7 @@ _LIBS = {
     "chain": ("comb", "mochi_comb_verify", 7, False),
     "tree": ("comb_tree", "mochi_comb_tree_verify", 8, True),
     "chain_mxu": ("comb_mxu", "mochi_comb_mxu_verify", 7, False),
+    "tree_mxu": ("comb_tree_mxu", "mochi_comb_tree_mxu_verify", 8, True),
 }
 
 
@@ -205,7 +216,7 @@ _ATTR_NAMES = ("registers", "local_bytes", "shared_bytes", "threads")
 def kernel_attributes(kernel: str = "chain") -> dict:
     """Registers per thread, local bytes per thread, static shared bytes and
     threads per block of ``kernel``'s compiled kernel (one of
-    :data:`KERNELS`; cudaFuncGetAttributes); for the tree, one such dict for
+    :data:`KERNELS`; cudaFuncGetAttributes); for a tree, one such dict for
     each pass (``prepare``, ``accumulate``)."""
     fn = getattr(_lib(kernel), _LIBS[kernel][1] + "_attrs")
 
@@ -221,10 +232,6 @@ def kernel_attributes(kernel: str = "chain") -> dict:
     return query()
 
 
-# A tree launch under mxu runs the tree's own pad multiply: said once on
-# stderr.
-_said_tree_mxu = False
-
 # The table shape each layout has, past its row count.
 _TABLE_SHAPES = {"radix25": (3, 10), "fe17": (comb.ROW_WIDTH,)}
 
@@ -234,9 +241,8 @@ def verify_comb_prepared(table, key_idx, y_r, sign_r, s_bytes, h_bytes, impl=Non
     """(B,) bool bitmap of the comb verify with ``impl``'s accumulation
     (default ``comb.COMB_IMPL``) and ``multiply`` (``pad`` or ``mxu``;
     default ``MOCHI_SKEW_IMPL``'s): on a card the kernel of
-    :func:`kernel_of`; on the CPU the plain version, whose multiplies follow
-    ``field.SKEW_IMPL`` at call time (see the module docstring)."""
-    global _said_tree_mxu
+    :func:`kernel_of`; on the CPU the plain version of the same pair (see
+    the module docstring)."""
     impl = comb.check_impl(impl)
     if multiply is None:
         multiply = switches()[1]
@@ -249,14 +255,11 @@ def verify_comb_prepared(table, key_idx, y_r, sign_r, s_bytes, h_bytes, impl=Non
         raise ValueError(f"table has shape {tuple(table.shape)}, expected (rows, "
                          f"{', '.join(map(str, _TABLE_SHAPES[layout]))}) in the {layout} layout")
     if device.type == "cpu":
-        return comb.verify_comb_prepared(table, key_idx, y_r, sign_r, s_bytes, h_bytes, impl=impl)
+        return comb.verify_comb_prepared(table, key_idx, y_r, sign_r, s_bytes, h_bytes, impl=impl,
+                                         multiply=multiply)
     if device.type != "cuda":
         raise ValueError(f"no comb kernel for device {device}")
     kernel = kernel_of(impl, multiply)
-    if impl == "tree" and multiply == "mxu" and not _said_tree_mxu:
-        _said_tree_mxu = True
-        print("mochi_tpu_torch: the comb tree kernel runs its own pad multiply under MOCHI_SKEW_IMPL=mxu "
-              "(its mxu multiply is not ported yet)", file=sys.stderr)
     n = y_r.shape[0]
     _check("table", table, torch.int32, tuple(table.shape), device)
     _check("key_idx", key_idx, torch.int32, (n,), device)
@@ -277,10 +280,10 @@ def verify_comb_prepared(table, key_idx, y_r, sign_r, s_bytes, h_bytes, impl=Non
             start.record(stream)
         args = (table.data_ptr(), table.shape[0], key_idx.data_ptr(), y_r.data_ptr(), sign_r.data_ptr(),
                 s_bytes.data_ptr(), h_bytes.data_ptr(), bcomb.data_ptr())
-        if kernel == "tree":
+        if kernel in _RECORD_INTS:
             # allocated on this stream: the caching allocator reuses it only
             # after work queued here, so the passes below own it
-            scratch = torch.empty((n, TREE_RECORD_INTS), dtype=torch.int32, device=device)
+            scratch = torch.empty((n, _RECORD_INTS[kernel]), dtype=torch.int32, device=device)
             args += (scratch.data_ptr(),)
         rc = getattr(lib, _LIBS[kernel][1])(*args, out.data_ptr(), n, stream.cuda_stream)
         if log is not None:

@@ -35,6 +35,8 @@ in the reference, or an unknown name, which the reference also runs as
 from __future__ import annotations
 
 import os
+import threading
+from contextlib import contextmanager
 from functools import lru_cache
 
 import numpy as np
@@ -62,6 +64,22 @@ DTYPE = torch.int64
 
 # How a multiply reduces its products to columns (see the module docstring).
 SKEW_IMPL = os.environ.get("MOCHI_SKEW_IMPL", "pad")
+
+# This thread's pinned skew (see :func:`skew`), None where SKEW_IMPL holds.
+_pinned = threading.local()
+
+
+@contextmanager
+def skew(name: str):
+    """Every multiply this thread makes inside the block reduces as ``name``
+    does (``mxu`` or any other value, as :data:`SKEW_IMPL`), whatever
+    :data:`SKEW_IMPL` reads meanwhile."""
+    before = getattr(_pinned, "name", None)
+    _pinned.name = name
+    try:
+        yield
+    finally:
+        _pinned.name = before
 
 
 def available_skews():
@@ -240,9 +258,10 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Schoolbook 17x17 multiply with the reference's lo/hi split: the
     15-bit halves of every product are summed into columns (lo at i+j, hi
     at i+j+1), the top 17 columns fold at 2^255 = 19, two carry passes.
-    Under ``SKEW_IMPL == "mxu"`` two rank-2 operands take
-    :func:`_mul_mxu` (the same limbs), as in the reference."""
-    if SKEW_IMPL == "mxu" and a.dim() == 2 == b.dim():
+    Under ``SKEW_IMPL == "mxu"`` (or a pinned :func:`skew`) two rank-2
+    operands take :func:`_mul_mxu` (the same limbs), as in the reference."""
+    name = getattr(_pinned, "name", None)
+    if (SKEW_IMPL if name is None else name) == "mxu" and a.dim() == 2 == b.dim():
         return _mul_mxu(a, b)
     prod = a[:, None] * b[None, :]  # (17, 17, *lanes)
     lanes = prod.shape[2:]

@@ -621,8 +621,7 @@ def verifier_stats(verifier) -> dict:
         st["comb"] = {
             "registered_signers": len(registry),
             # the accumulation every comb launch runs (MOCHI_COMB_IMPL), and
-            # its multiply: mxu for the chain under MOCHI_SKEW_IMPL=mxu, pad
-            # for the tree under either
+            # its multiply: mxu for either under MOCHI_SKEW_IMPL=mxu, else pad
             "impl": _comb.COMB_IMPL,
             "multiply": _cuda_comb.multiply_of(_comb.COMB_IMPL),
             "device_dispatches_process_total": _bv.comb_dispatch_count(),

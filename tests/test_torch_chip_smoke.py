@@ -163,7 +163,8 @@ def test_tree_service_phase_rehearsal_on_cpu(signers, monkeypatch):
     monkeypatch.setattr(comb, "COMB_IMPL", "tree")
     seen = []
     real = comb.verify_comb_prepared
-    monkeypatch.setattr(comb, "verify_comb_prepared", lambda *a, impl=None: seen.append(impl) or real(*a, impl=impl))
+    monkeypatch.setattr(comb, "verify_comb_prepared", lambda *a, impl=None, multiply=None: seen.append(impl) or real(
+        *a, impl=impl, multiply=multiply))
     cs._zero_counts()
     svc = asyncio.run(asyncio.wait_for(
         cs.drive_service(traffic, "cpu", b"k" * 32, signers=[s.pub for s in signers]), 240))
@@ -171,8 +172,8 @@ def test_tree_service_phase_rehearsal_on_cpu(signers, monkeypatch):
     assert svc["requests"] == 6 and svc["items"] == 30 and svc["mismatched_requests"] == 0
     assert svc["routing"]["comb_items"] == 30 and svc["routing"]["ladder_items"] == 0
     assert svc["fallback_batches"] == svc["crossover_batches"] == svc["remote_fallbacks"] == 0
-    assert svc["comb_launches"] == {"chain": 0, "tree": 0, "chain_mxu": 0} and svc["verify_launches"] == 0
-    assert logs == ({"pad": [], "mxu": []}, {"chain": [], "tree": [], "chain_mxu": []})
+    assert svc["comb_launches"] == {"chain": 0, "tree": 0, "chain_mxu": 0, "tree_mxu": 0} and svc["verify_launches"] == 0
+    assert logs == ({"pad": [], "mxu": []}, {"chain": [], "tree": [], "chain_mxu": [], "tree_mxu": []})
     assert seen and set(seen) == {"tree"}
 
 
@@ -194,7 +195,7 @@ def test_mxu_service_phase_rehearsal_on_cpu(signers, monkeypatch):
     logs = cs._read_counts(svc)
     assert svc["requests"] == 6 and svc["items"] == svc["device_items"] == 30
     assert svc["verify_mxu_launches"] == svc["verify_launches"] == 0 and used
-    assert logs == ({"pad": [], "mxu": []}, {"chain": [], "tree": [], "chain_mxu": []})
+    assert logs == ({"pad": [], "mxu": []}, {"chain": [], "tree": [], "chain_mxu": [], "tree_mxu": []})
     assert cs.mxu_service_problems(svc, launched=False) == []
     assert cs.mxu_service_problems(svc) == ["the mxu kernel was never launched"]
     bad = dict(svc, mismatched_requests=1, verify_launches=2, verify_mxu_launches=24)
@@ -225,7 +226,7 @@ def test_comb_mxu_service_phase_rehearsal_on_cpu(signers, monkeypatch):
     logs = cs._read_counts(svc)
     assert svc["requests"] == 6 and svc["items"] == svc["device_items"] == 30 and used
     assert svc["routing"]["comb_items"] == 30 and svc["stats_multiply"] == {"general": "mxu", "comb": "mxu"}
-    assert logs == ({"pad": [], "mxu": []}, {"chain": [], "tree": [], "chain_mxu": []})
+    assert logs == ({"pad": [], "mxu": []}, {"chain": [], "tree": [], "chain_mxu": [], "tree_mxu": []})
     assert cs.comb_mxu_service_problems(svc, launched=False) == []
     assert cs.comb_mxu_service_problems(svc) == ["the chain under mxu was never launched"]
     bad = dict(svc, comb_launches=dict(svc["comb_launches"], chain=3, chain_mxu=21),
@@ -233,11 +234,49 @@ def test_comb_mxu_service_phase_rehearsal_on_cpu(signers, monkeypatch):
     assert len(cs.comb_mxu_service_problems(bad)) == 3
 
 
+def test_comb_tree_mxu_service_phase_rehearsal_on_cpu(signers, monkeypatch):
+    """Phase 8tm at a small size: the service with signers under both
+    switches sends every item down the comb path, whose plain tree
+    multiplies through ``_mul_mxu`` on the CPU (launching nothing), every
+    bitmap as expected, and the stats name the tree and the mxu multiply;
+    the phase's check passes it once a card's launches are not asked for,
+    and flags what it must."""
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import field as F
+
+    traffic = cs.make_traffic(37, signers, clients=3, requests=2, grants=5)
+    monkeypatch.setattr(comb, "COMB_IMPL", "tree")
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    seen, used = [], []
+    real, real_mul = comb.verify_comb_prepared, F._mul_mxu
+    monkeypatch.setattr(comb, "verify_comb_prepared", lambda *a, impl=None, multiply=None: seen.append(
+        (impl, multiply)) or real(*a, impl=impl, multiply=multiply))
+    monkeypatch.setattr(F, "_mul_mxu", lambda a, b: used.append(1) or real_mul(a, b))
+    cs._zero_counts()
+    svc = asyncio.run(asyncio.wait_for(
+        cs.drive_service(traffic, "cpu", b"k" * 32, signers=[s.pub for s in signers]), 240))
+    logs = cs._read_counts(svc)
+    assert svc["requests"] == 6 and svc["items"] == svc["device_items"] == 30 and used
+    assert seen and set(seen) == {("tree", "mxu")}
+    assert svc["routing"]["comb_items"] == 30 and svc["stats_multiply"] == {"general": "mxu", "comb": "mxu"}
+    assert svc["stats_comb_impl"] == "tree"
+    assert logs == ({"pad": [], "mxu": []}, {"chain": [], "tree": [], "chain_mxu": [], "tree_mxu": []})
+    assert cs.comb_mxu_service_problems(svc, launched=False, kernel="tree_mxu") == []
+    assert cs.comb_mxu_service_problems(svc, kernel="tree_mxu") == ["the tree under mxu was never launched"]
+    good = dict(svc, comb_launches=dict(svc["comb_launches"], tree_mxu=24))
+    assert cs.comb_mxu_service_problems(good, kernel="tree_mxu") == []
+    # the chain under mxu (8m's kernel), or stats that name the chain, are flagged here
+    assert len(cs.comb_mxu_service_problems(good, kernel="chain_mxu")) == 3
+    bad = dict(good, comb_launches=dict(good["comb_launches"], chain_mxu=2), stats_comb_impl="chain",
+               verify_mxu_launches=1)
+    assert len(cs.comb_mxu_service_problems(bad, kernel="tree_mxu")) == 2
+
+
 def test_cluster_drive_counts_on_cpu():
     from mochi_tpu_torch.crypto import cuda_comb as CC
 
     CV.launches.update(pad=0, mxu=0)
-    CC.launches.update(chain=0, tree=0, chain_mxu=0)
+    CC.launches.update(chain=0, tree=0, chain_mxu=0, tree_mxu=0)
     BV.reset_counts()
     out = asyncio.run(asyncio.wait_for(cs.drive_cluster("cpu", 7, 2, 2), 300))
     assert out["quorum"] == 5 and out["writes"] == out["acked"] == out["read_back"] == 4
@@ -245,7 +284,7 @@ def test_cluster_drive_counts_on_cpu():
     assert out["registered_signers"] == 7 and out["txn_per_s"] > 0
     routed = BV.comb_routing_counts()
     assert routed["comb_items"] >= 4 * 5 and BV.comb_dispatch_count() > 0
-    assert CV.launches == {"pad": 0, "mxu": 0} and CC.launches == {"chain": 0, "tree": 0, "chain_mxu": 0}  # the plain versions on the CPU launch no kernel
+    assert CV.launches == {"pad": 0, "mxu": 0} and CC.launches == {"chain": 0, "tree": 0, "chain_mxu": 0, "tree_mxu": 0}  # the plain versions on the CPU launch no kernel
 
 
 # ------------------------------------------- multi-device phases (10-12)
@@ -344,12 +383,33 @@ def test_cluster_mxu_phase_check_flags_what_it_must():
             "verify_mxu_launches": 12, "routing": {"comb_items": 600}, "fallback_batches": 0,
             "crossover_batches": 0}
     assert cs.cluster_mxu_problems(good) == []
-    assert cs.cluster_mxu_problems(dict(good, comb_launches={"chain": 0, "tree": 0, "chain_mxu": 0}),
+    assert cs.cluster_mxu_problems(dict(good, comb_launches={"chain": 0, "tree": 0, "chain_mxu": 0, "tree_mxu": 0}),
                                    launched=False) == []
-    assert len(cs.cluster_mxu_problems(dict(good, comb_launches={"chain": 0, "tree": 0, "chain_mxu": 0}))) == 1
+    assert len(cs.cluster_mxu_problems(dict(good, comb_launches={"chain": 0, "tree": 0, "chain_mxu": 0, "tree_mxu": 0}))) == 1
     assert len(cs.cluster_mxu_problems(dict(good, verify_launches=1))) == 1
     assert len(cs.cluster_mxu_problems(dict(good, comb_launches={"chain": 2, "tree": 1, "chain_mxu": 9}))) == 1
     assert len(cs.cluster_mxu_problems(dict(good, routing={"comb_items": 0}, crossover_batches=1))) == 2
+
+
+def test_cluster_tree_mxu_phase_check_flags_what_it_must():
+    """Phase 9tm's check: a run with only the tree under mxu and the mxu
+    general kernel passes; a launch of the chain under mxu (9m's kernel),
+    of ``comb_tree.cu`` or of ``verify.cu``, no grant on the comb path or a
+    fallback is flagged."""
+    comb0 = {"chain": 0, "tree": 0, "chain_mxu": 0, "tree_mxu": 0}
+    good = {"comb_launches": dict(comb0, tree_mxu=7), "verify_launches": 0, "verify_mxu_launches": 12,
+            "routing": {"comb_items": 600}, "fallback_batches": 0, "crossover_batches": 0}
+    assert cs.cluster_mxu_problems(good, kernel="tree_mxu") == []
+    assert cs.cluster_mxu_problems(dict(good, comb_launches=comb0), launched=False, kernel="tree_mxu") == []
+    assert cs.cluster_mxu_problems(dict(good, comb_launches=comb0), kernel="tree_mxu") == [
+        f"the tree under mxu carried nothing: {comb0}"]
+    assert len(cs.cluster_mxu_problems(good)) == 2  # 9m's check: no chain under mxu, a tree launch
+    for other in ("chain", "tree", "chain_mxu"):
+        assert len(cs.cluster_mxu_problems(dict(good, comb_launches=dict(good["comb_launches"], **{other: 1})),
+                                           kernel="tree_mxu")) == 1
+    assert len(cs.cluster_mxu_problems(dict(good, verify_launches=1), kernel="tree_mxu")) == 1
+    assert len(cs.cluster_mxu_problems(dict(good, routing={"comb_items": 0}, fallback_batches=1),
+                                       kernel="tree_mxu")) == 2
 
 
 def test_cluster_mxu_phase_rehearsal_on_cpu(monkeypatch):
@@ -372,6 +432,35 @@ def test_cluster_mxu_phase_rehearsal_on_cpu(monkeypatch):
     out = asyncio.run(asyncio.wait_for(cs.drive_cluster("cpu", 4, 2, 2), 300))
     logs = cs._read_counts(out)
     assert out["quorum"] == 3 and out["writes"] == out["acked"] == out["read_back"] == 4 and used
-    assert logs == ({"pad": [], "mxu": []}, {"chain": [], "tree": [], "chain_mxu": []})
+    assert logs == ({"pad": [], "mxu": []}, {"chain": [], "tree": [], "chain_mxu": [], "tree_mxu": []})
     assert cs.cluster_mxu_problems(out, launched=False) == []
     assert cs.cluster_mxu_problems(out) == [f"the chain under mxu carried nothing: {out['comb_launches']}"]
+
+
+def test_cluster_tree_mxu_phase_rehearsal_on_cpu(monkeypatch):
+    """Phase 9tm at a small size: the cluster under both switches commits
+    and reads back every write, its grants on the comb path's plain tree
+    multiplying through ``_mul_mxu`` (no launch on the CPU), and the phase's
+    check passes it once a card's launches are not asked for.  The SDK
+    clients get the request budget of the 9m rehearsal."""
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import field as F
+    from mochi_tpu_torch.testing.virtual_cluster import VirtualCluster
+
+    real_client = VirtualCluster.client
+    monkeypatch.setattr(VirtualCluster, "client", lambda self, **kw: real_client(self, **{"timeout_s": 240, **kw}))
+    monkeypatch.setattr(comb, "COMB_IMPL", "tree")
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    seen = []
+    real = comb.verify_comb_prepared
+    monkeypatch.setattr(comb, "verify_comb_prepared", lambda *a, impl=None, multiply=None: seen.append(
+        (impl, multiply)) or real(*a, impl=impl, multiply=multiply))
+    cs._zero_counts()
+    out = asyncio.run(asyncio.wait_for(cs.drive_cluster("cpu", 4, 2, 2), 300))
+    logs = cs._read_counts(out)
+    assert out["quorum"] == 3 and out["writes"] == out["acked"] == out["read_back"] == 4
+    assert seen and set(seen) == {("tree", "mxu")}
+    assert logs == ({"pad": [], "mxu": []}, {"chain": [], "tree": [], "chain_mxu": [], "tree_mxu": []})
+    assert cs.cluster_mxu_problems(out, launched=False, kernel="tree_mxu") == []
+    assert cs.cluster_mxu_problems(out, kernel="tree_mxu") == [
+        f"the tree under mxu carried nothing: {out['comb_launches']}"]

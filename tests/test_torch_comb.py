@@ -222,12 +222,20 @@ def test_backend_registration_and_comb_stats(signers):
 # ---------------------------------------------------------------------- tree
 
 
-@pytest.mark.parametrize("n_points,lanes_n", [(8, 3), (128, 2), (128, 4)])
-def test_tree_accumulate_equals_the_reference_limb_for_limb(n_points, lanes_n):
+@pytest.mark.parametrize("n_points,lanes_n,skew", [
+    pytest.param(8, 3, "pad", id="8-3"),
+    pytest.param(128, 2, "pad", id="128-2"),
+    pytest.param(128, 4, "pad", id="128-4"),
+    pytest.param(8, 3, "mxu", id="8-3-mxu"),
+])
+def test_tree_accumulate_equals_the_reference_limb_for_limb(n_points, lanes_n, skew, monkeypatch):
     """The plain ``_tree_accumulate`` against the reference's, jitted on
     JAX-CPU: seeded rows of the basepoint comb and a signer table, signs
     applied by the reference's own negation, every coordinate of the sum
-    equal limb for limb."""
+    equal limb for limb.  Under ``mxu`` (both packages' ``SKEW_IMPL``) every
+    multiply on both sides is ``_mul_mxu``, the reference's traced afresh."""
+    monkeypatch.setattr(JF, "SKEW_IMPL", skew)
+    monkeypatch.setattr(F, "SKEW_IMPL", skew)
     rng = np.random.default_rng(31 + n_points + lanes_n)
     tables = np.concatenate([JC._b_comb().reshape(-1, 51),
                              JC.signer_table(keys.keypair_from_seed(rng.bytes(32)).public_key).reshape(-1, 51)])
@@ -237,7 +245,11 @@ def test_tree_accumulate_equals_the_reference_limb_for_limb(n_points, lanes_n):
     signed = (np.where(neg, ymx, ypx), np.where(neg, ypx, ymx),
               np.where(neg, np.asarray(JF.neg(jnp.asarray(xy2d))), xy2d))
     ref = jax.jit(partial(JC._tree_accumulate, n_points=n_points, lanes_n=lanes_n))(*map(jnp.asarray, signed))
+    used = []
+    real = F._mul_mxu
+    monkeypatch.setattr(F, "_mul_mxu", lambda a, b: used.append(1) or real(a, b))
     mine = TC._tree_accumulate(*(torch.from_numpy(c.astype(np.int64)) for c in signed), n_points, lanes_n)
+    assert bool(used) == (skew == "mxu")
     for r, m in zip(ref, mine):
         assert m.shape == (17, lanes_n)
         assert np.array_equal(np.asarray(r), m.numpy())
@@ -295,9 +307,8 @@ def test_comb_impl_switch_parsing_and_refusal(monkeypatch, capsys):
 @pytest.mark.parametrize("skew", ["pad", "mxu"])
 def test_stats_name_the_multiply_of_each_kernel(signers, monkeypatch, skew):
     """``verifier_stats`` names the multiply the general kernel runs and the
-    comb chain's, which both follow ``MOCHI_SKEW_IMPL``, and the tree's,
-    which stays ``pad`` under either; verdicts are unchanged under either
-    switch."""
+    comb chain's and tree's, which all follow ``MOCHI_SKEW_IMPL``; verdicts
+    are unchanged under either switch."""
     from mochi_tpu_torch.verifier.cuda import CudaBatchVerifier
 
     monkeypatch.setattr(F, "SKEW_IMPL", skew)
@@ -317,8 +328,8 @@ def test_stats_name_the_multiply_of_each_kernel(signers, monkeypatch, skew):
     chain, tree = asyncio.run(asyncio.wait_for(main(), 240))
     assert chain["general"] == {"multiply": skew} and chain["comb"]["impl"] == "chain"
     assert chain["comb"]["multiply"] == skew
-    assert tree["general"] == {"multiply": skew} and tree["comb"] == dict(tree["comb"], impl="tree", multiply="pad")
-    assert CC.multiply_of("chain") == skew and CC.multiply_of("tree") == "pad"
+    assert tree["general"] == {"multiply": skew} and tree["comb"] == dict(tree["comb"], impl="tree", multiply=skew)
+    assert CC.multiply_of("chain") == skew and CC.multiply_of("tree") == skew
 
 
 def test_routing_under_the_tree_switch_and_its_stats(signers, monkeypatch):
@@ -330,7 +341,8 @@ def test_routing_under_the_tree_switch_and_its_stats(signers, monkeypatch):
     monkeypatch.setattr(TC, "COMB_IMPL", "tree")
     seen = []
     real = TC.verify_comb_prepared
-    monkeypatch.setattr(TC, "verify_comb_prepared", lambda *a, impl=None: seen.append(impl) or real(*a, impl=impl))
+    monkeypatch.setattr(TC, "verify_comb_prepared", lambda *a, impl=None, multiply=None: seen.append(impl) or real(
+        *a, impl=impl, multiply=multiply))
 
     async def main():
         v = CudaBatchVerifier(device="cpu", signers=[s.pub for s in signers])
@@ -413,6 +425,62 @@ def test_plain_chain_under_mxu_equals_the_reference_chain_under_mxu(corpus, regi
     assert ref.any() and not ref.all()
 
 
+# ------------------------------------------------- the tree under mxu
+
+
+def test_plain_tree_under_mxu_calls_mul_mxu_and_equals_pad_the_chain_and_openssl(corpus, registries,
+                                                                                  monkeypatch):
+    """Under ``MOCHI_SKEW_IMPL=mxu`` the plain tree (the plain version of
+    ``comb_tree_mxu.cu``) multiplies through ``_mul_mxu`` and gives the raw
+    bitmap of the pad tree and of the chain, key indices past the table
+    included; ANDed with the host prechecks it is OpenSSL's verdict.  The
+    CPU wrapper runs it for ``multiply="mxu"`` whatever the switch reads."""
+    items, want, _ = corpus
+    _, treg = registries
+    prep = BV.prepare_packed(items)
+    kidx = np.asarray([treg.index_of(it.public_key) for it in items], dtype=np.int32)
+    clipped = kidx.copy()
+    clipped[3], clipped[7], clipped[11] = 9999, -2, treg.generation  # clipped into the table
+    table = treg.device_table("cpu", layout="fe17")
+    lanes, clipped_lanes = CC.from_prepared(kidx, prep, "cpu"), CC.from_prepared(clipped, prep, "cpu")
+    monkeypatch.setattr(F, "SKEW_IMPL", "pad")
+    pad = [TC.verify_comb_prepared(table, *ln, impl="tree") for ln in (lanes, clipped_lanes)]
+    chain = TC.verify_comb_prepared(table, *clipped_lanes, impl="chain")
+    used = []
+    real = F._mul_mxu
+    monkeypatch.setattr(F, "_mul_mxu", lambda a, b: used.append(1) or real(a, b))
+    assert not used
+    assert torch.equal(CC.verify_comb_prepared(table, *clipped_lanes, impl="tree", multiply="mxu"), pad[1])
+    assert used
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    used.clear()
+    mxu = [TC.verify_comb_prepared(table, *ln, impl="tree") for ln in (lanes, clipped_lanes)]
+    assert used and all(torch.equal(m, p) for m, p in zip(mxu, pad))
+    assert torch.equal(mxu[1], chain) and pad[1].any() and not pad[1].all()
+    assert np.logical_and(mxu[0].numpy(), prep[6]).tolist() == want == _openssl(items)
+
+
+@pytest.mark.slow
+def test_plain_tree_under_mxu_equals_the_reference_tree_under_mxu(corpus, registries, monkeypatch):
+    """The reference's tree program under ``mxu``, traced afresh (a
+    compile-heavy program, slow as the reference's own tree test), against
+    the port's plain tree under ``mxu``: raw bitmaps, key indices past the
+    table included."""
+    items, _, _ = corpus
+    jreg, treg = registries
+    kidx = np.asarray([treg.index_of(it.public_key) for it in items], dtype=np.int32)
+    kidx[3], kidx[7], kidx[11] = 9999, -2, treg.generation
+    prep = BV.prepare_packed(items)
+    _, _, y_r, sign_r, s_b, h_b, _ = prep
+    monkeypatch.setattr(JF, "SKEW_IMPL", "mxu")
+    ref = np.asarray(jax.jit(JC.verify_comb_prepared, static_argnames=("impl",))(
+        jreg.device_table(), kidx, y_r, sign_r, s_b, h_b, impl="tree"))
+    mine = TC.verify_comb_prepared(treg.device_table("cpu", layout="fe17"), *CC.from_prepared(kidx, prep, "cpu"),
+                                   impl="tree", multiply="mxu")
+    assert mine.tolist() == ref.tolist()
+    assert ref.any() and not ref.all()
+
+
 def test_device_table_keeps_both_layouts_of_one_generation(signers):
     """One generation, two layouts: the kernel-radix table (``radix25``)
     and the 17 x 15 rows (``fe17``), each cached apart, neither replacing
@@ -445,19 +513,19 @@ def test_device_table_keeps_both_layouts_of_one_generation(signers):
 
 def test_routing_pins_the_layout_of_the_switches_it_read(signers, monkeypatch):
     """A batch reads (impl, multiply) once, where it pins its table: the
-    layout it asks the registry for and the (impl, multiply) it passes to
-    the wrapper agree with the switches at that moment, even when
-    ``MOCHI_SKEW_IMPL`` flips between batches or right after the table is
-    pinned; verdicts are unchanged throughout.  On a card that pair picks
-    the kernel and its table's layout (checked below); on the CPU the plain
-    chain's multiplies follow ``field.SKEW_IMPL`` at call time, and its
-    bitmap is the same under either."""
+    layout it asks the registry for, the (impl, multiply) it passes to the
+    wrapper and the multiply that runs agree with the switches at that
+    moment, even when ``MOCHI_SKEW_IMPL`` flips between batches or right
+    after the table is pinned; verdicts are unchanged throughout.  On a card
+    that pair picks the kernel and its table's layout (checked below); on
+    the CPU it decides the plain version's multiplies, whose bitmap is the
+    same under either."""
     reg = TC.SignerRegistry("cpu")
     reg.register_all([s.pub for s in signers])
     items = _mixed(signers, np.random.default_rng(33))
     want = _openssl(items)
-    pinned, launched = [], []
-    real_table, real_launch = reg.device_table, CC.verify_comb_prepared
+    pinned, launched, mxu_calls = [], [], []
+    real_table, real_launch, real_mul_mxu = reg.device_table, CC.verify_comb_prepared, F._mul_mxu
 
     def device_table(device=None, gen=None, layout=None):
         pinned.append((torch.device(device).type, layout))
@@ -465,27 +533,37 @@ def test_routing_pins_the_layout_of_the_switches_it_read(signers, monkeypatch):
             F.SKEW_IMPL = "pad" if F.SKEW_IMPL == "mxu" else "mxu"
         return real_table(device, gen, layout=layout)
 
+    def launch(*a, impl=None, multiply=None):
+        before = len(mxu_calls)
+        out = real_launch(*a, impl=impl, multiply=multiply)
+        launched.append((impl, multiply, "mxu" if len(mxu_calls) > before else "pad"))  # the multiply that ran
+        return out
+
     monkeypatch.setattr(reg, "device_table", device_table)
-    monkeypatch.setattr(CC, "verify_comb_prepared",
-                        lambda *a, impl=None, multiply=None: launched.append((impl, multiply)) or real_launch(
-                            *a, impl=impl, multiply=multiply))
+    monkeypatch.setattr(CC, "verify_comb_prepared", launch)
+    monkeypatch.setattr(F, "_mul_mxu", lambda a, b: mxu_calls.append(1) or real_mul_mxu(a, b))
     monkeypatch.setattr(F, "SKEW_IMPL", "pad")
     flip_after_pin = False
     assert BV.verify_batch(items, "cpu", registry=reg) == want
     monkeypatch.setattr(F, "SKEW_IMPL", "mxu")  # between batches
     assert BV.verify_batch(items, "cpu", registry=reg) == want
-    flip_after_pin = True  # the switch flips once the table is pinned: the batch passes on what it read
+    flip_after_pin = True  # the switch flips once the table is pinned: the batch runs what it read
     assert BV.verify_batch(items, "cpu", registry=reg) == want
     assert F.SKEW_IMPL == "pad"
     monkeypatch.setattr(TC, "COMB_IMPL", "tree")
     flip_after_pin = False
     assert BV.verify_batch(items, "cpu", registry=reg) == want
-    assert launched == [("chain", "pad"), ("chain", "mxu"), ("chain", "mxu"), ("tree", "pad")]
-    assert pinned == [("cpu", "fe17")] * 4
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    flip_after_pin = True
+    assert BV.verify_batch(items, "cpu", registry=reg) == want
+    assert F.SKEW_IMPL == "pad"
+    assert launched == [("chain", "pad", "pad"), ("chain", "mxu", "mxu"), ("chain", "mxu", "mxu"),
+                        ("tree", "pad", "pad"), ("tree", "mxu", "mxu")]
+    assert pinned == [("cpu", "fe17")] * 5
     # on a card the same readings pin the kernel's own layout
-    assert [CC.table_layout("cuda", *sw) for sw in launched] == ["radix25", "fe17", "fe17", "radix25"]
-    assert [CC.kernel_of(*sw) for sw in launched] == ["chain", "chain_mxu", "chain_mxu", "tree"]
-    assert CC.kernel_of("tree", "mxu") == "tree" and CC.table_layout("cuda", "tree", "mxu") == "radix25"
+    switches = [sw[:2] for sw in launched]
+    assert [CC.table_layout("cuda", *sw) for sw in switches] == ["radix25", "fe17", "fe17", "radix25", "fe17"]
+    assert [CC.kernel_of(*sw) for sw in switches] == ["chain", "chain_mxu", "chain_mxu", "tree", "tree_mxu"]
 
 
 def test_comb_wrapper_refuses_the_layout_its_kernel_does_not_read(signers):
@@ -500,4 +578,4 @@ def test_comb_wrapper_refuses_the_layout_its_kernel_does_not_read(signers):
         CC.verify_comb_prepared(reg.device_table("cpu", layout="radix25"), *lanes)
     with pytest.raises(ValueError, match="multiply"):
         CC.verify_comb_prepared(reg.device_table("cpu", layout="fe17"), *lanes, multiply="shift")
-    assert set(CC.launches) == set(CC.launch_logs) == {"chain", "tree", "chain_mxu"}
+    assert set(CC.launches) == set(CC.launch_logs) == {"chain", "tree", "chain_mxu", "tree_mxu"}

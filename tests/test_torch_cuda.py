@@ -1,5 +1,5 @@
-"""The CUDA kernels (general verify and its mxu form, comb chain, its mxu
-form and tree, quorum tally) on the card.
+"""The CUDA kernels (general verify and its mxu form, comb chain and tree
+and the mxu form of each, quorum tally) on the card.
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA card and
 skips elsewhere.  On the card (this file imports no JAX, so the JAX-bound
@@ -305,9 +305,9 @@ def test_comb_mxu_kernel_equals_plain_chain_under_mxu_and_comb_cu(card, comb_set
 
 
 def test_comb_wrappers_refuse_the_other_layout(card, comb_setup):
-    """``comb_mxu.cu``'s wrapper refuses a kernel-radix table and
-    ``comb.cu``'s and ``comb_tree.cu``'s refuse the 17 x 15 rows; lanes of
-    the wrong type or device are refused too."""
+    """``comb_mxu.cu``'s and ``comb_tree_mxu.cu``'s wrappers refuse a
+    kernel-radix table and ``comb.cu``'s and ``comb_tree.cu``'s refuse the
+    17 x 15 rows; lanes of the wrong type or device are refused too."""
     from mochi_tpu_torch.crypto import cuda_comb as CC
 
     reg, items, _ = comb_setup
@@ -318,8 +318,8 @@ def test_comb_wrappers_refuse_the_other_layout(card, comb_setup):
     for impl in ("chain", "tree"):
         with pytest.raises(ValueError, match="radix25 layout"):
             CC.verify_comb_prepared(t17, *lanes, impl=impl, multiply="pad")
-    with pytest.raises(ValueError, match="radix25 layout"):  # the tree keeps its own multiply under mxu
-        CC.verify_comb_prepared(t17, *lanes, impl="tree", multiply="mxu")
+    with pytest.raises(ValueError, match="fe17 layout"):  # the tree under mxu reads the 17 x 15 rows
+        CC.verify_comb_prepared(t25, *lanes, impl="tree", multiply="mxu")
     bad = [t.clone() for t in lanes]
     bad[0] = bad[0].to(torch.int64)
     with pytest.raises(TypeError):
@@ -389,6 +389,77 @@ def test_sharded_backend_on_two_slices_under_the_mxu_switch(card, comb_setup, mo
     after = (dict(CC.launches), dict(CV.launches))
     assert after[0] == dict(before[0], chain_mxu=before[0]["chain_mxu"] + 2)
     assert after[1] == dict(before[1], mxu=before[1]["mxu"] + 2)
+
+
+# ------------------------------------------------- comb tree under mxu
+
+
+def test_comb_tree_mxu_kernel_equals_plain_tree_under_mxu_and_comb_mxu_cu(card, comb_setup, monkeypatch):
+    """``comb_tree_mxu.cu`` against the plain tree under ``mxu`` and the chain
+    under ``mxu`` (``comb_mxu.cu``) on the comb corpus: 600 lanes, a partial
+    last block of both passes (2 signatures a block of the accumulate pass,
+    64 of the prepare pass), one lane, indices past the table, and the
+    expected verdicts."""
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+    from mochi_tpu_torch.crypto import field as F
+
+    reg, items, want = comb_setup
+    prepared = BV.prepare_packed(items)
+    kidx = np.asarray([reg.index_of(it.public_key) for it in items], dtype=np.int32)
+    kidx[5], kidx[9] = 10 ** 6, -4  # clipped into the table, never read past it
+    table17 = reg.device_table(card, layout="fe17")
+    lanes = CC.from_prepared(kidx, prepared, card)
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    before = dict(CC.launches)
+    for n in (len(items), len(items) - 37, 33, 1):
+        part = [t[:n] for t in lanes]
+        got = CC.verify_comb_prepared(table17, *part, impl="tree")
+        plain = comb.verify_comb_prepared(table17, *part, impl="tree", multiply="mxu")
+        chain = CC.verify_comb_prepared(table17, *part, impl="chain")
+        assert torch.equal(got, plain) and torch.equal(got, chain)
+    assert CC.launches == dict(before, tree_mxu=before["tree_mxu"] + 4, chain_mxu=before["chain_mxu"] + 4)
+    full = CC.verify_comb_prepared(table17, *lanes, impl="tree", multiply="mxu")
+    ok = (full.cpu().numpy() & prepared[6]).tolist()
+    assert [w for j, w in enumerate(want) if j not in (5, 9)] == [o for j, o in enumerate(ok) if j not in (5, 9)]
+    attrs = CC.kernel_attributes("tree_mxu")
+    assert attrs["prepare"]["threads"] == attrs["accumulate"]["threads"] == 64
+    assert attrs["accumulate"]["registers"] > 0 and attrs["accumulate"]["shared_bytes"] > 0
+
+
+def test_verifier_with_signers_under_both_switches(card, comb_setup, monkeypatch):
+    """``CudaBatchVerifier(signers=...)`` under ``MOCHI_COMB_IMPL=tree`` and
+    ``MOCHI_SKEW_IMPL=mxu``: every item takes the tree under mxu against the
+    17 x 15 table, no other comb kernel and no general kernel, verdicts as
+    expected, and the stats name the tree and the mxu multiply."""
+    import asyncio
+
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+    from mochi_tpu_torch.crypto import field as F
+    from mochi_tpu_torch.verifier.cuda import CudaBatchVerifier
+    from mochi_tpu_torch.verifier.spi import verifier_stats
+
+    reg, items, want = comb_setup
+    monkeypatch.setattr(comb, "COMB_IMPL", "tree")
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+
+    async def main():
+        v = CudaBatchVerifier(device=card, signers=reg.public_keys())
+        try:
+            before = (dict(CC.launches), dict(CV.launches), BV.comb_routing_counts()["comb_items"])
+            got = await v.verify_batch(items)
+            after = (dict(CC.launches), dict(CV.launches), BV.comb_routing_counts()["comb_items"])
+            st = verifier_stats(v)["comb"]
+            return got, before, after, (st["impl"], st["multiply"])
+        finally:
+            await v.close()
+
+    got, before, after, stats = asyncio.run(asyncio.wait_for(main(), 300))
+    assert got == want and stats == ("tree", "mxu")
+    assert after[0]["tree_mxu"] > before[0]["tree_mxu"]
+    assert dict(after[0], tree_mxu=0) == dict(before[0], tree_mxu=0) and after[1] == before[1]
+    assert after[2] - before[2] == len(items)
 
 
 # --------------------------------------------- the mxu general kernel

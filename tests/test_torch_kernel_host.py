@@ -1,7 +1,7 @@
 """The CUDA kernels' arithmetic, compiled for the host and fuzzed.
 
 ``mochi_tpu_torch/csrc/fe25519.cuh``, ``ge25519.cuh``, ``comb25519.cuh``,
-``comb_tree.cuh``, ``fe17.cuh`` and ``comb17.cuh`` are plain
+``comb_tree.cuh``, ``fe17.cuh``, ``comb17.cuh`` and ``comb_tree17.cuh`` are plain
 ``__host__ __device__`` code,
 so ``g++`` builds them here into small ctypes libraries (the test-only
 shims below), with
@@ -17,10 +17,13 @@ multiply, which sums the same product bytes against the same 0/1 entries
 over the same live tiles: it is held limb for limb against the plain
 ``_mul_mxu`` (at the limb maximum too), its carries against Python
 integers, the whole verify over it (``ge25519.cuh`` on ``fe17``) against
-the plain verify, and the comb chain over it (``comb17.cuh``, the
+the plain verify, the comb chain over it (``comb17.cuh``, the
 arithmetic of ``comb_mxu.cu``): its negated-Niels mixed addition against
 Python integers at the limb maximum, its whole verify against the plain
-chain under ``mxu``.  The port never loads these builds; they exist
+chain under ``mxu``, and the comb tree over it (``comb_tree17.cuh``, the
+arithmetic of ``comb_tree_mxu.cu``): its leaf at the limb maximum, its sum,
+its prepare record and its whole verify against Python integers, the plain
+tree under ``mxu`` and the chain over ``fe17``.  The port never loads these builds; they exist
 to catch radix, schedule and bounds faults before the kernels reach a card.
 """
 
@@ -124,6 +127,7 @@ SHIM17 = r"""
 #include "fe17.cuh"
 #include "ge25519.cuh"
 #include "comb17.cuh"
+#include "comb_tree17.cuh"
 
 extern "C" {
 // n multiplies, (n, 17) each
@@ -168,6 +172,21 @@ int t17_comb_verify(const int32_t* table, long long rows, int key_idx,
                     const int32_t* y_r, int sign_r, const uint8_t* s,
                     const uint8_t* h, const int32_t* bcomb) {
   return comb17_verify_one(table, rows, key_idx, y_r, sign_r, s, h, bcomb);
+}
+void t17_tree_leaf(int32_t* r, const int32_t* entry, int neg) {
+  comb_tree17_leaf((ge_p3_t<fe17>*)r, entry, neg);
+}
+void t17_tree_sum(int32_t* q, const int32_t* entries, const int8_t* neg) {
+  comb_tree17_sum_serial((ge_p3_t<fe17>*)q, entries, neg);
+}
+void t17_tree_prepare(int32_t* rec, const int32_t* y_r, int sign_r, const uint8_t* s,
+                      const uint8_t* h) {
+  comb_tree17_prepare(rec, y_r, sign_r, s, h);
+}
+int t17_tree_verify(const int32_t* table, long long rows, int key_idx,
+                    const int32_t* y_r, int sign_r, const uint8_t* s,
+                    const uint8_t* h, const int32_t* bcomb) {
+  return comb_tree17_verify_one(table, rows, key_idx, y_r, sign_r, s, h, bcomb);
 }
 }
 """
@@ -912,3 +931,177 @@ def test_fe17_comb_verify_equals_the_plain_chain_under_mxu_lane_for_lane(lib17, 
     want = [keys.verify(it.public_key, it.message, it.signature) for it in items]
     assert [h and ok for h, ok in zip(host, prep[6])][:4] == want[:4]
     assert any(host) and not all(host)
+
+
+# ------------------------------------------------ the comb tree over fe17
+
+U8P = ctypes.POINTER(ctypes.c_uint8)
+
+
+def _tree17_ints(out):
+    """(4 x 17) int32 point -> the affine (x, y) of X/Z, Y/Z on Python ints."""
+    X, Y, Z = (F.limbs_to_int(out[F.NLIMBS * k : F.NLIMBS * (k + 1)]) for k in range(3))
+    zi = pow(Z % P, P - 2, P)
+    return X * zi % P, Y * zi % P
+
+
+def test_fe17_tree_leaf_fuzz_at_the_limb_maximum(lib17):
+    """The tree's leaf over ``fe17`` (no carry of ypx + ymx by hand: fe17's
+    add and sub carry once): canonical and negated entries with every limb
+    at 2^15 - 1 or random give the formula mod p with every limb in [0,
+    LOOSE], and the plain leaf under ``mxu``'s limbs exactly."""
+    rng = random.Random(171)
+    max_entry = [(1 << 15) - 1] * F.NLIMBS
+    inv2 = F.const(INV2, (1,))
+    inv2d = F.const(INV2D, (1,))
+    for trial in range(160):
+        ent = [max_entry if rng.random() < 0.5 or trial < 8 else list(F.int_to_limbs(rng.randrange(P)))
+               for _ in range(3)]
+        neg = trial % 2
+        out = np.zeros(4 * F.NLIMBS, np.int32)
+        lib17.t17_tree_leaf(ptr(out), ptr(arr(sum(ent, []))), neg)
+        want = _leaf_ints([F.limbs_to_int(c) for c in ent], neg)
+        got = [F.limbs_to_int(out[F.NLIMBS * k : F.NLIMBS * (k + 1)]) % P for k in range(4)]
+        assert got == want, trial
+        assert out.min() >= 0 and out.max() <= F.LOOSE, trial
+        ypx, ymx, xy2d = (torch.tensor(c, dtype=torch.int64)[:, None] for c in ent)
+        if neg:
+            ypx, ymx, xy2d = ymx, ypx, F.neg(xy2d)
+        with F.skew("mxu"):
+            plain = (F.mul(F.sub(ypx, ymx), inv2), F.mul(F.add(ypx, ymx), inv2), F.mul(xy2d, inv2d))
+        for k, c in zip((0, 1, 3), plain):
+            np.testing.assert_array_equal(out[F.NLIMBS * k : F.NLIMBS * (k + 1)], c[:, 0].numpy())
+
+
+def test_fe17_tree_sum_serial_equals_the_plain_tree_under_mxu_and_python_ints(lib17):
+    """The header's 7-level sum of 128 window points over ``fe17``: its
+    affine value equals the plain tree's under ``mxu`` and the sum of the
+    points on Python ints, every limb in [0, LOOSE]."""
+    from mochi_tpu_torch.crypto import comb
+
+    for seed in (181, 182):
+        _, rows, neg = _tree_entries(seed)
+        q = np.zeros(4 * F.NLIMBS, np.int32)
+        lib17.t17_tree_sum(ptr(q), ptr(arr(rows)), neg.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)))
+        t15 = torch.from_numpy(rows.astype(np.int64)).T
+        ngt = torch.from_numpy(neg.astype(bool))
+        ypx, ymx, xy2d = t15[:17], t15[17:34], t15[34:]
+        with F.skew("mxu"):
+            pt = comb._tree_accumulate(F.select(ngt, ymx, ypx), F.select(ngt, ypx, ymx),
+                                       F.select(ngt, F.neg(xy2d), xy2d), 128, 1)
+        X, Y, Z = (F.limbs_to_int(c) for c in pt[:3])
+        zi = pow(Z % P, P - 2, P)
+        want = (0, 1)
+        for r, ng in zip(rows, neg):
+            x, y = _leaf_ints([F.limbs_to_int(r[17 * k : 17 * k + 17]) for k in range(3)], ng)[:2]
+            want = C._py_edwards_add(want, (x, y))
+        assert _tree17_ints(q) == (X * zi % P, Y * zi % P) == want, seed
+        assert q.min() >= 0 and q.max() <= F.LOOSE
+
+
+def test_fe17_tree_prepare_record_equals_the_plain_decode_under_mxu(lib17, monkeypatch):
+    """The prepare pass's record over ``fe17``: R's x and y limb for limb and
+    its verdict equal the plain ``curve.decompress`` under ``mxu`` (low
+    order, non-canonical, non-point and random encodings), and the 128
+    digits the plain signed recoding of both scalars, in the wrapper's
+    ``TREE17_RECORD_INTS``."""
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    cases = _decode_cases()
+    ys = np.stack([F.int_to_limbs(y) for y, _ in cases])  # (n, 17): the public layout's 15-bit limbs
+    signs = [s for _, s in cases]
+    rng = np.random.default_rng(191)
+    s_b = rng.integers(0, 256, (len(cases), 32), dtype=np.uint8)
+    h_b = rng.integers(0, 256, (len(cases), 32), dtype=np.uint8)
+    s_b[0], h_b[1] = 0xFF, 0x88  # every digit carries / sits at 8
+    used = []
+    real = F._mul_mxu
+    monkeypatch.setattr(F, "_mul_mxu", lambda a, b: used.append(1) or real(a, b))
+    with F.skew("mxu"):
+        plain_pt, plain_ok = C.decompress(torch.from_numpy(ys.T.astype(np.int64)),
+                                          torch.tensor(signs, dtype=torch.int64))
+    assert used
+    s_mag, s_neg = C.recode_signed4(C.digits4_from_bytes(torch.from_numpy(s_b)))
+    h_mag, h_neg = C.recode_signed4(C.digits4_from_bytes(torch.from_numpy(h_b)))
+    for j in range(len(cases)):
+        rec = np.zeros(CC.TREE17_RECORD_INTS, np.int32)
+        lib17.t17_tree_prepare(ptr(rec), ptr(arr(ys[j])), signs[j], s_b[j].ctypes.data_as(U8P),
+                               h_b[j].ctypes.data_as(U8P))
+        np.testing.assert_array_equal(rec[:17], plain_pt.x[:, j].numpy())
+        np.testing.assert_array_equal(rec[17:34], plain_pt.y[:, j].numpy())
+        assert rec[34] == int(plain_ok[j]), cases[j]
+        dig = rec[35:].view(np.int8)  # the record's last 32 words
+        want = np.concatenate([torch.where(s_neg[:, j], -s_mag[:, j], s_mag[:, j]).numpy(),
+                               torch.where(h_neg[:, j], -h_mag[:, j], h_mag[:, j]).numpy()])
+        np.testing.assert_array_equal(dig, want)
+    assert 0 < int(plain_ok.sum()) < len(cases)
+
+
+def _tree17_corpus(seed):
+    """Comb lanes for three registered signers: valid, flipped S bit,
+    small-order R, S + L (S >= L), non-point R, x = 0 with the sign bit R,
+    another signer's key, and key indices past both ends of the table."""
+    from mochi_tpu_torch.crypto import batch_verify as BV
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.verifier.spi import VerifyItem
+
+    rng = random.Random(seed)
+    seeds = [bytes(rng.randrange(256) for _ in range(32)) for _ in range(3)]
+    pubs = [hf.public_from_seed(sd) for sd in seeds]
+    reg = comb.SignerRegistry("cpu")
+    reg.register_all(pubs)
+    non_point = next(y for y in range(2, 64) if _recover_x(y, 0) is None)
+    items, kidx = [], []
+    for i in range(18):
+        k = i % 3
+        msg = b"tree17 host %d" % i
+        sig = bytearray(hf.sign(seeds[k], msg))
+        kind = i % 6
+        if kind == 1:
+            sig[43] ^= 16  # flipped S bit
+        elif kind == 2:
+            sig[:32] = bytes.fromhex(ORDER8)  # small-order R
+        elif kind == 3:
+            sig[32:] = (int.from_bytes(sig[32:], "little") + F.L_INT).to_bytes(32, "little")  # S >= L
+        elif kind == 4:
+            sig[:32] = non_point.to_bytes(32, "little")  # non-point R
+        elif kind == 5:
+            sig[:32] = (1 | 1 << 255).to_bytes(32, "little")  # x = 0 with the sign bit
+        items.append(VerifyItem(pubs[k], msg, bytes(sig)))
+        kidx.append(k)
+    kidx[6], kidx[12], kidx[13], kidx[17] = 1, 1000, -7, 5000  # another key, past the end, negative
+    return reg, items, np.asarray(kidx, dtype=np.int32), BV.prepare_packed(items)
+
+
+def test_fe17_tree_verify_equals_the_plain_tree_under_mxu_and_the_chain(lib17, monkeypatch):
+    """The comb tree over ``fe17`` (the arithmetic of ``comb_tree_mxu.cu``,
+    with the serial twin of the tensor-core multiply) on the registry's own
+    17 x 15 rows equals, lane for lane, the plain tree under ``mxu`` (every
+    multiply through ``_mul_mxu``) and the chain over ``fe17``: adversarial
+    R, S >= L, another signer's key and key indices clipped at both ends of
+    the table."""
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    reg, items, kidx, prep = _tree17_corpus(201)
+    t15 = reg.device_table("cpu", layout="fe17")
+    used = []
+    real = F._mul_mxu
+    monkeypatch.setattr(F, "_mul_mxu", lambda a, b: used.append(1) or real(a, b))
+    plain = comb.verify_comb_prepared(t15, *CC.from_prepared(kidx, prep, "cpu"), impl="tree",
+                                      multiply="mxu").tolist()
+    assert used
+    table = arr(t15.numpy())
+    bcomb = arr(comb._b_comb().reshape(-1, comb.ROW_WIDTH))
+    _, _, y_r, sign_r, s_b, h_b, _ = prep
+    for fn in (lib17.t17_tree_verify, lib17.t17_comb_verify):
+        fn.argtypes = [I32P, ctypes.c_longlong, ctypes.c_int, I32P, ctypes.c_int, U8P, U8P, I32P]
+    tree, chain = (
+        [bool(fn(ptr(table), table.shape[0], int(kidx[j]), ptr(arr(y_r[j])), int(sign_r[j]),
+                 s_b[j].ctypes.data_as(U8P), h_b[j].ctypes.data_as(U8P), ptr(bcomb)))
+         for j in range(len(items))]
+        for fn in (lib17.t17_tree_verify, lib17.t17_comb_verify))
+    assert tree == plain == chain
+    want = [keys.verify(it.public_key, it.message, it.signature) for it in items]
+    assert [t and ok for t, ok in zip(tree, prep[6])][:6] == want[:6]
+    assert any(tree) and not all(tree)
