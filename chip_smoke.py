@@ -12,7 +12,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``verify_mxu.cu``, ``comb.cu``, ``comb_mxu.cu``, ``comb_tree.cu``,
    ``comb_tree_mxu.cu`` and ``tally.cu``, one nvcc each, started together;
    report ptxas's registers, spills and shared bytes and each kernel's
-   attributes (both passes of each tree).
+   attributes (both passes of each tree; for ``verify.cu`` also its team
+   size, threads a block and dynamic shared bytes).
 3. Kernel vs plain — an 8192-item corpus made from ``--seed``: valid
    signatures from 64 signers, forgeries, and adversarial encodings
    (low-order and mixed-order points, non-points, x = 0 with the sign bit,
@@ -20,11 +21,14 @@ Phases (any failure exits non-zero and prints no result line):
    plain PyTorch version's on the card and the expected verdicts; a random
    sample of 256 lanes is also checked against the port's ``keys.verify``.
    The same holds on the first wave of the service traffic, 64 x 43 = 2,752
-   lanes (a partial last block), and, after phase 5, on a slice of the
-   traffic at every other lane count the service launched.
+   lanes (a partial last block), on a slice of the traffic at every lane
+   count of phase 4's sweep up to 65536, and, after phase 5, at every other
+   lane count the service launched.
 4. Times — CUDA events, median over repeats after a warm-up: the kernel at
-   8192 and 65536 lanes, the plain version at 8192, host prepare per item,
-   and the bound (integer multiply-adds over the card's IMAD rate).
+   8192 and 65536 lanes and at one launch of each of 1, 8, 64, 256, 512,
+   then 1024 to 262,144 lanes, the plain version at 8192, host prepare per
+   item, and the bound (integer multiply-adds over the card's IMAD rate)
+   beside the multiply-adds the kernel's team issues.
 3m. The mxu kernel (``MOCHI_SKEW_IMPL=mxu``, ``verify_mxu.cu``, every
    field multiply's column reduction on the integer tensor cores) on phase
    3's corpus and on a partial last block: its bitmap must equal the plain
@@ -210,6 +214,9 @@ NS_SLOTS, NS_VOTERS, NS_FORGED = 4, 64, 30  # the north-star quorum leg: slot 3 
 MULTIHOST_LANES = 8  # lanes per process of the multi-process leg
 HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's memory rate
 REPEATS = 20  # timed kernel launches at CORPUS lanes
+# lane counts of phase 4's launch-size sweep (each up to BIG also held
+# against the plain version)
+SWEEP = (1, 8, 64, 256, 512, 1024, 4096, 8192, 16384, 32768, 65536, 131072, 262144)
 IMAD_PER_SM_PER_CLOCK = 64  # 32-bit integer multiply-add, compute capability 9.0
 INT8_OPS_PER_S = 1.979e15  # the H100 SXM's dense int8 tensor-core rate
 
@@ -1171,6 +1178,10 @@ def run(args) -> dict:
                                 "comb_tree": CC.kernel_attributes("tree"),
                                 "comb_tree_mxu": CC.kernel_attributes("tree_mxu"), "tally": CT.kernel_attributes()}
     print(f"[build] {res['build_s']:.1f} s {took}; {res['kernel_attributes']}", flush=True)
+    va = res["kernel_attributes"]["verify"]
+    print(f"[build] verify.cu: a team of {va['team']} lanes a signature, {va['threads']} threads a block, "
+          f"{va['shared_bytes']} static and {va['dynamic_shared_bytes']} dynamic shared bytes, "
+          f"{va['registers']} registers, {va['local_bytes']} local bytes", flush=True)
     res["ptxas"] = {}
     for name in ("verify", "verify_mxu", "comb", "comb_mxu", "comb_tree", "comb_tree_mxu", "tally"):
         for ln in kernels.build_logs.get(name, "").splitlines():
@@ -1230,15 +1241,20 @@ def run(args) -> dict:
     for _ in range(10):
         BV.verify_batch(cert, dev)
     cert_ms, cert_launches = 1e2 * (time.perf_counter() - t0), (CV.launches["pad"] - l0) / 10
-    # launch size: one launch of n lanes, n from 1024 to 4 x the large launch
+    # launch size: one launch of n lanes, n from 1 to 4 x the large launch;
+    # up to the large launch each also against the plain version (phase 3)
     tiled = [torch.cat([t] * 4) for t in big_t]
     sweep = {}
-    for n in (1024, 4096, 8192, 16384, 32768, 65536, 131072, 262144):
+    for n in SWEEP:
         if n <= tiled[0].shape[0]:
             part = [t[:n] for t in tiled]
+            if n <= len(flat) and n not in checked:
+                checked[n] = check_kernel_vs_plain([t[:n] for t in big_t], big[6][:n], flat_want[:n])
             ms = _ms_median(lambda: CV.verify_prepared_packed(*part), 1, 5)
             sweep[n] = {"ms": ms, "sigs_per_s": n / (ms / 1e3)}
+    print(f"[kernel vs plain] equal at lane counts {sorted(checked)}", flush=True)
     per_sig_ops = CV.IMADS_PER_SIGNATURE
+    issued = CV.IMADS_ISSUED_PER_SIGNATURE
     bytes_per_sig = 2 * 17 * 4 + 2 * 4 + 2 * 32 + 1
     bound = lambda n: 1e3 * max(n * per_sig_ops / rate, n * bytes_per_sig / 3.35e12)  # noqa: E731
     res["times"] = {
@@ -1246,6 +1262,7 @@ def run(args) -> dict:
         "bound_ms_8192": bound(len(items)), "bound_ms_65536": bound(len(flat)),
         "sigs_per_s_8192": len(items) / (ms_8k / 1e3), "sigs_per_s_65536": len(flat) / (ms_64k / 1e3),
         "host_prepare_us_per_item": prep_us, "imads_per_signature": per_sig_ops,
+        "imads_issued_per_signature": issued, "issued_bound_ms_8192": 1e3 * len(items) * issued / rate,
         "imad_rate_per_s": rate, "launch_size_sweep": sweep,
         "cert43_verify_batch_ms": cert_ms, "cert43_launches": cert_launches,
     }
@@ -1711,14 +1728,17 @@ def run(args) -> dict:
         "name": "ed25519_verify",
         "route": "cuda",
         "source": "mochi_tpu_torch/csrc/verify.cu",
+        "design": "a team of 4 lanes a signature (csrc/verify25519.cuh), [S]B by the basepoint comb",
         "replaces": "mochi_tpu/crypto/pallas_verify.py:132",
         "launches": svc["verify_launches"],
         "max_abs_err": max([max_abs_err, *checked.values()]),
         "ms": ms_8k,
+        "ms_65536": ms_64k,
         "plain_ms": plain_ms,
         "bound_ms": bound(len(items)),
         "bound_by": "operations",
         "library_ms": None,
+        "imads_issued_per_signature": issued,
     }, {
         "name": "ed25519_verify_mxu",
         "route": "cuda",

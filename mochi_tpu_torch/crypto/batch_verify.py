@@ -7,7 +7,7 @@ Division of labour (as in the reference package):
   prechecks (lengths, y < p on the masked encoding, S < L), and packing
   into fixed-shape tensors (scalars as bytes).
 * **Device** — decode and the double-scalar multiply, one signature per
-  thread (:mod:`.cuda_verify`); or, for a key registered in a
+  team of four lanes (:mod:`.cuda_verify`); or, for a key registered in a
   :class:`~mochi_tpu_torch.crypto.comb.SignerRegistry` (the cluster's
   replica identities), the doubling-free comb kernel (:mod:`.cuda_comb`).
 

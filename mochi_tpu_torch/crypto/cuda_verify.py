@@ -6,8 +6,9 @@ its jitted general verify programs.  Which kernel runs follows
 reference's multiply reads it while it traces):
 
 * ``pad`` (the default, and every value but ``mxu``): ``csrc/verify.cu``
-  (arithmetic in ``csrc/fe25519.cuh`` and ``csrc/ge25519.cuh``), one
-  signature per thread in radix 2^25.5;
+  (arithmetic in ``csrc/fe25519.cuh`` and ``csrc/ge25519.cuh``, the team's
+  verify in ``csrc/verify25519.cuh``), one signature per team of four lanes
+  in radix 2^25.5, [S]B from the basepoint comb;
 * ``mxu``: ``csrc/verify_mxu.cu`` (``csrc/fe17.cuh`` under the same curve
   code), the reference's 17 x 15-bit field with every multiply's column
   reduction an integer tensor-core product, 32 signatures a warp.
@@ -58,6 +59,17 @@ launch_logs = dict.fromkeys(SKEWS)
 # 1,534 squarings of 55.  The data-dependent sqrt(-1) multiply of a decode
 # (at most two per signature) is left out, so a bound built on it errs low.
 IMADS_PER_SIGNATURE = 1897 * 100 + 1534 * 55
+# The multiply-adds verify.cu's team of four lanes issues a signature
+# (verify25519.cuh): each lane decodes (A on two lanes, R on two: 4 x (19
+# multiplies + 255 squarings)); the comb's 64 mixed additions of 7 and each
+# lane's partial sum to cached form (1); 4 team additions of 8 to sum the
+# partials; [S]B and [1..8](-A) to cached form, 1 a lane each (9 x 4); 7
+# team additions for the table; the ladder's 252 doublings (4 squarings and
+# 4 multiplies: T always) and 64 additions of 8; the last addition; the
+# compare's 2 on every lane.  The sqrt(-1) multiply is left out as above.
+IMADS_ISSUED_PER_SIGNATURE = (
+    4 * 19 + 64 * 7 + 4 + 4 * 8 + 9 * 4 + 7 * 8 + 252 * 4 + 64 * 8 + 8 + 4 * 2
+) * 100 + (4 * 255 + 252 * 4) * 55
 
 # Bytes a multiply of fe_mul_mxu moves: two (17,) int32 operands in, one out.
 BYTES_PER_MUL = 3 * 17 * 4
@@ -84,14 +96,6 @@ def int_to_limbs25(x: int) -> np.ndarray:
     return np.array([(x >> o) & ((1 << b) - 1) for o, b in zip(_OFFS, _BITS)], dtype=np.int32)
 
 
-def basepoint_table25() -> np.ndarray:
-    """[0..8]B in Niels form for the kernel: (9, 3, 10) int32, entries
-    (y+x, y-x, 2dxy) canonical, the same points as ``curve.B_TAB_*``."""
-    return np.stack(
-        [np.stack([int_to_limbs25(c) for c in ent]) for ent in curve.basepoint_niels_ints()]
-    )
-
-
 def basepoint_table17() -> np.ndarray:
     """[0..8]B in Niels form for the mxu kernel: (9, 3, 17) int32 in the
     17 x 15-bit layout, ``curve.B_TAB_*`` entry by entry."""
@@ -101,8 +105,14 @@ def basepoint_table17() -> np.ndarray:
 
 @lru_cache(maxsize=None)
 def _table_on(device: str, skew_: str = "pad") -> torch.Tensor:
-    table = basepoint_table17() if skew_ == "mxu" else basepoint_table25()
-    return torch.from_numpy(table).to(device)
+    """The basepoint table ``skew_``'s kernel reads, uploaded once per
+    device: for ``pad`` the basepoint comb ([d 16^w]B, (576, 3, 10) int32,
+    the comb kernels' own upload), for ``mxu`` [0..8]B in 17 x 15 limbs."""
+    if skew_ == "mxu":
+        return torch.from_numpy(basepoint_table17()).to(device)
+    from . import cuda_comb  # imports this module
+
+    return cuda_comb._bcomb_on(device, "radix25")
 
 
 def _lib(skew_: str = "pad"):
@@ -124,7 +134,7 @@ def _lib(skew_: str = "pad"):
     if not getattr(lib, "_mochi_typed", False):
         lib.mochi_ed25519_verify.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
         lib.mochi_ed25519_verify.restype = ctypes.c_int
-        lib.mochi_ed25519_verify_attrs.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+        lib.mochi_ed25519_verify_attrs.argtypes = [ctypes.POINTER(ctypes.c_int)] * 6
         lib.mochi_ed25519_verify_attrs.restype = ctypes.c_int
         lib._mochi_typed = True
     return lib
@@ -133,20 +143,22 @@ def _lib(skew_: str = "pad"):
 def kernel_attributes(skew_: str = "pad") -> dict:
     """Registers per thread, local bytes per thread, static shared bytes and
     threads per block of ``skew_``'s compiled kernel (cudaFuncGetAttributes);
-    for ``mxu`` one such dict for the verify kernel and one for the batch
-    multiply (``verify``, ``mul``)."""
+    for ``pad`` also the lanes a signature (``team``) and the dynamic shared
+    bytes of a launch; for ``mxu`` one such dict for the verify kernel and
+    one for the batch multiply (``verify``, ``mul``)."""
+    keys = ("registers", "local_bytes", "shared_bytes", "threads")
 
-    def query(fn, *which):
-        vals = [ctypes.c_int(0) for _ in range(4)]
+    def query(fn, *which, keys=keys):
+        vals = [ctypes.c_int(0) for _ in keys]
         rc = fn(*which, *[ctypes.byref(v) for v in vals])
         if rc:
             raise RuntimeError(f"cudaFuncGetAttributes failed with CUDA error {rc}")
-        return dict(zip(("registers", "local_bytes", "shared_bytes", "threads"), (v.value for v in vals)))
+        return dict(zip(keys, (v.value for v in vals)))
 
     if skew_ == "mxu":
         fn = _lib("mxu").mochi_ed25519_verify_mxu_attrs
         return {"verify": query(fn, 0), "mul": query(fn, 1)}
-    return query(_lib().mochi_ed25519_verify_attrs)
+    return query(_lib().mochi_ed25519_verify_attrs, keys=keys + ("team", "dynamic_shared_bytes"))
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:

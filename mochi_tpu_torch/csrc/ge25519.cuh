@@ -1,6 +1,9 @@
 // Ed25519 group operations and the cofactorless verify of one signature,
 // for one thread.  Counterpart of the reference package's curve.verify_core
-// (the body of its Pallas kernel, crypto/pallas_verify.py::_kernel).
+// (the body of its Pallas kernel, crypto/pallas_verify.py::_kernel).  The
+// one-thread verify below is verify_mxu.cu's, over fe17; verify.cu's
+// verify is verify25519.cuh's, a team of four lanes over these formulas'
+// kernel-radix pieces (decode, mixed addition, recode).
 //
 // Points are extended twisted-Edwards coordinates (X:Y:Z:T), x = X/Z,
 // y = Y/Z, T = XY/Z, with the complete a = -1 addition law (add-2008-hwcd-3,
@@ -29,11 +32,10 @@
 // fe_sq/fe_eq/fe_is_zero/fe_canonical/fe_pow22523/fe_from_limbs15, the
 // constants fe_const_d/_d2/_sqrtm1, fe_mul_sqrtm1_if and fe_neg_if (the
 // decode's conditional multiply and parity flip) and fe_select.  Where the
-// kernel radix branches on a lane's data (those two, the ladder's
-// signed-digit selects), it keeps its own non-template code below; any
-// other field type takes a branchless form: a warp-cooperative multiply
-// needs every lane of the warp converged at every call, and a lane that
-// branched on its own data need not be.
+// kernel radix branches on a lane's data (those two), it keeps its own
+// non-template code below; any other field type takes a branchless form: a
+// warp-cooperative multiply needs every lane of the warp converged at every
+// call, and a lane that branched on its own data need not be.
 #pragma once
 
 #include "fe25519.cuh"
@@ -247,21 +249,8 @@ MOCHI_HD void ge_small_multiples(ge_cached_t<FE>* ptab, const ge_p3_t<FE>* p) {
   }
 }
 
-// r = e, or -e when `neg` (y+x and y-x swapped, the T term negated).  The
-// kernel radix branches; other field types select without a branch.
-MOCHI_HD void ge_cached_signed(ge_cached* r, const ge_cached* e, int neg) {
-  if (neg) {
-    fe_copy(&r->YplusX, &e->YminusX);
-    fe_copy(&r->YminusX, &e->YplusX);
-    fe_neg(&r->T2d, &e->T2d);
-  } else {
-    fe_copy(&r->YplusX, &e->YplusX);
-    fe_copy(&r->YminusX, &e->YminusX);
-    fe_copy(&r->T2d, &e->T2d);
-  }
-  fe_copy(&r->Z, &e->Z);
-}
-
+// r = e, or -e when `neg` (y+x and y-x swapped, the T term negated),
+// without a branch.
 template <class FE>
 MOCHI_HD void ge_cached_signed(ge_cached_t<FE>* r, const ge_cached_t<FE>* e,
                                int neg) {
@@ -271,16 +260,6 @@ MOCHI_HD void ge_cached_signed(ge_cached_t<FE>* r, const ge_cached_t<FE>* e,
   fe_select(&r->YminusX, &e->YplusX, &e->YminusX, neg);
   fe_select(&r->T2d, &nt, &e->T2d, neg);
   fe_copy(&r->Z, &e->Z);
-}
-
-MOCHI_HD void ge_niels_signed(ge_niels* r, const ge_niels* e, int neg) {
-  if (neg) {
-    fe_copy(&r->ypx, &e->ymx);
-    fe_copy(&r->ymx, &e->ypx);
-    fe_neg(&r->xy2d, &e->xy2d);
-  } else {
-    *r = *e;
-  }
 }
 
 template <class FE>

@@ -109,6 +109,29 @@ def test_refuses_to_run_without_a_card(monkeypatch, capsys):
     assert '"ok"' not in out.out and "no CUDA device" in out.err
 
 
+def test_verify_sweep_refuses_to_run_without_a_card(monkeypatch, capsys, tmp_path):
+    import verify_sweep
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert verify_sweep.main(["--out", str(tmp_path / "sweep.json")]) == 2
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err
+    assert not (tmp_path / "sweep.json").exists()
+
+
+def test_verify_sweep_variants_apply_to_the_sources():
+    """Each variant ``verify_sweep.py`` measures is an edit of text that the
+    shipped sources still hold, once."""
+    import verify_sweep
+
+    from mochi_tpu_torch import kernels
+
+    for name, edits in verify_sweep.VARIANTS.items():
+        for fname, old, new in edits:
+            text = (kernels.CSRC / fname).read_text()
+            assert text.count(old) == 1 and old != new, (name, fname)
+
+
 def test_fails_alone_outside_the_checkout(tmp_path):
     shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path / "chip_smoke.py")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -48,6 +48,50 @@ def test_kernel_equals_plain_version_and_expected_verdicts(card, corpus):
     assert (got.cpu().numpy() & prepared[6]).tolist() == want
 
 
+@pytest.fixture(scope="module")
+def tiled(card, corpus):
+    """The corpus tiled to 65,536 lanes on the card, its prechecks and the
+    expected verdicts."""
+    items, want, _ = corpus
+    prepared = BV.prepare_packed(items)
+    reps = -(-65536 // len(items))
+    tens = [torch.cat([t] * reps) for t in CV.from_reference_prepared(prepared, card)]
+    return tens, np.tile(prepared[6], reps), list(want) * reps
+
+
+@pytest.mark.parametrize("n", [1, 2, 31, 32, 33, 127, 128, 129, 344, 512, 8192, 65536])
+def test_team_kernel_equals_plain_version_at_team_and_block_edges(card, tiled, n):
+    """verify.cu (a team of four lanes a signature, 16 teams a block) at
+    lane counts around a team, a warp and a block, the cluster's launch
+    sizes, MAX_LAUNCH and 65,536: one launch, the plain version's bitmap
+    lane for lane, the expected verdicts."""
+    tens, pre_ok, want = tiled
+    part = [t[:n] for t in tens]
+    before = CV.launches["pad"]
+    got = CV.verify_prepared_packed(*part)
+    assert CV.launches["pad"] == before + 1
+    assert torch.equal(got, curve.verify_prepared_packed(*part))
+    assert (got.cpu().numpy() & pre_ok[:n]).tolist() == want[:n]
+
+
+def test_team_kernel_accepts_the_host_rejected_lanes_raw(card):
+    """The two lanes the host rejects while the device accepts them
+    (ROADMAP Queue C): the kernel's raw bitmap says True on both, as the
+    plain version's, alone and among other lanes."""
+    signer = cs.make_signers(np.random.default_rng(3), 1)[0]
+    items = cs.host_rejected_items(signer)
+    prepared = BV.prepare_packed(items)
+    assert prepared[6].tolist() == [False, False]
+    tens = CV.from_reference_prepared(prepared, card)
+    for n in (1, 2):
+        got = CV.verify_prepared_packed(*(t[:n] for t in tens))
+        assert got.tolist() == [True] * n
+        assert torch.equal(got, curve.verify_prepared_packed(*(t[:n] for t in tens)))
+    attrs = CV.kernel_attributes()
+    assert attrs["team"] == 4 and attrs["threads"] == 64 and attrs["dynamic_shared_bytes"] == 0
+    assert attrs["shared_bytes"] >= 16 * 1988
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(card, corpus):
     tens = list(CV.from_reference_prepared(BV.prepare_packed(corpus[0][:8]), card))
     bad = [t.clone() for t in tens]

@@ -8,7 +8,7 @@ shims below), with
 ``-fwrapv`` so that a signed int32 overflow wraps as it does on the card.
 The fuzz holds every field op against Python integers, with inputs at the
 edges of the bounds the header states (maximum loose limbs, every sign
-pattern), and decode, one ladder window, the whole verify, the comb's
+pattern), and decode, the comb's
 negated-Niels mixed addition, the whole comb verify, the tree's leaf
 conversion, its 7-level sum and its whole verify against Python integers
 and the port's plain PyTorch versions.  The 17 x 15-bit field of the mxu
@@ -23,7 +23,12 @@ Python integers at the limb maximum, its whole verify against the plain
 chain under ``mxu``, and the comb tree over it (``comb_tree17.cuh``, the
 arithmetic of ``comb_tree_mxu.cu``): its leaf at the limb maximum, its sum,
 its prepare record and its whole verify against Python integers, the plain
-tree under ``mxu`` and the chain over ``fe17``.  The port never loads these builds; they exist
+tree under ``mxu`` and the chain over ``fe17``.  ``verify.cu``'s team of four
+lanes (``verify25519.cuh``) builds with its serial twin, one thread playing
+the four lanes: its basepoint comb, its [S]B (the dropped carry too), both
+team steps at the TIGHT maximum, one ladder window, and its whole verify
+against Python integers, the plain version and ``keys.verify``, on the
+adversarial corpus and the lanes only the host rejects.  The port never loads these builds; they exist
 to catch radix, schedule and bounds faults before the kernels reach a card.
 """
 
@@ -55,6 +60,7 @@ SHIM = r"""
 #include "ge25519.cuh"
 #include "comb25519.cuh"
 #include "comb_tree.cuh"
+#include "verify25519.cuh"
 
 extern "C" {
 void t_fe_mul(int32_t* h, const int32_t* f, const int32_t* g) {
@@ -79,16 +85,45 @@ void t_consts(int32_t* out) {
 int t_ge_decode(int32_t* p, const int32_t* y15, int sign) {
   return ge_decode((ge_p3*)p, y15, 1, sign);
 }
-void t_ge_window(int32_t* q, int dh, int ds, const int32_t* p,
-                 const int32_t* btab) {
-  ge_cached ptab[9];
-  ge_small_multiples(ptab, (const ge_p3*)p);
-  ge_window((ge_p3*)q, dh, ds, ptab, (const ge_niels*)btab);
+// verify.cu's team (verify25519.cuh) as its serial twin: one thread plays
+// the four lanes.  One ladder window: the team's [1..8]P, q = 16 q + [dh]P.
+void t_window(int32_t* q, int dh, const int32_t* p) {
+  vt_area a;
+  int xb = 0;
+  vt_table(vt_serial_lanes(), &a, &xb, (const ge_p3*)p);
+  for (int i = 0; i < 4; ++i) vt_dbl(vt_serial_lanes(), &a, &xb, (ge_p3*)q);
+  vt_add(vt_serial_lanes(), &a, &xb, (ge_p3*)q, dh < 0 ? -dh : dh, dh < 0, dh == 0);
 }
 int t_verify(const int32_t* y_a, int sign_a, const int32_t* y_r, int sign_r,
-             const uint8_t* s, const uint8_t* h, const int32_t* btab) {
-  return ed25519_verify_one(y_a, sign_a, y_r, sign_r, s, h, 1,
-                            (const ge_niels*)btab);
+             const uint8_t* s, const uint8_t* h, const int32_t* bcomb) {
+  vt_area a;
+  return vt_verify(vt_serial_lanes(), &a, y_a, sign_a, y_r, sign_r, s, h, bcomb);
+}
+// [S]B by the comb: the digits, the four partial sums and their team sum.
+void t_comb_sb(int32_t* q, const uint8_t* s, const int32_t* bcomb) {
+  vt_area a;
+  const uint8_t zero[32] = {0};
+  int xb = 0;
+  vt_digits(vt_serial_lanes(), &a, s, zero);
+  vt_comb_sb(vt_serial_lanes(), &a, &xb, (ge_p3*)q, bcomb);
+}
+// q + entry (4 coordinates: y-x, y+x, 2dt, z), negated or the identity.
+void t_team_add(int32_t* q, const int32_t* entry, int neg, int ident) {
+  vt_area a;
+  memcpy(a.tab[3], entry, sizeof(a.tab[3]));
+  int xb = 0;
+  vt_add(vt_serial_lanes(), &a, &xb, (ge_p3*)q, 3, neg, ident);
+}
+void t_team_dbl(int32_t* q) {
+  vt_area a;
+  int xb = 0;
+  vt_dbl(vt_serial_lanes(), &a, &xb, (ge_p3*)q);
+}
+// The four coordinates of p's cached form, as the team stores them.
+void t_team_cached(int32_t* out, const int32_t* p) {
+  vt_area a;
+  vt_put_cached(vt_serial_lanes(), &a, 5, (const ge_p3*)p);
+  memcpy(out, a.tab[5], sizeof(a.tab[5]));
 }
 void t_comb_madd(int32_t* r, const int32_t* p, const int32_t* entry, int neg) {
   ge_niels n;
@@ -213,7 +248,11 @@ def _build(tmp_path_factory, name, text):
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    return _build(tmp_path_factory, "kernel_host", SHIM)
+    lib = _build(tmp_path_factory, "kernel_host", SHIM)
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    lib.t_verify.argtypes = [I32P, ctypes.c_int, I32P, ctypes.c_int, u8, u8, I32P]
+    lib.t_comb_sb.argtypes = [I32P, u8, I32P]
+    return lib
 
 
 @pytest.fixture(scope="module")
@@ -251,6 +290,12 @@ def call2(fn, f, g):
     out = np.zeros(10, np.int32)
     fn(ptr(out), ptr(arr(f)), ptr(arr(g)))
     return out
+
+
+def _bcomb25():
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    return arr(CC.bcomb_table25())
 
 
 def rand_limbs(rng, even_bound, odd_bound):
@@ -426,23 +471,24 @@ def test_decode_matches_python_and_plain(lib):
 
 
 def test_one_ladder_window_matches_python_ints(lib):
+    """One window of verify.cu's ladder as the team runs it (the team's
+    [1..8]P table, four doublings, one cached addition of a signed digit;
+    [S]B is not in the ladder): q = 16 q + [dh]P on Python integers."""
     rng = random.Random(71)
-    btab = CV.basepoint_table25()
     bpt = (F.BX_INT, F.BY_INT)
     for trial in range(40):
         q_aff = _mul(rng.randrange(1, 1 << 64), bpt)
         p_aff = _mul(rng.randrange(1, 1 << 64), bpt)
         if trial % 8 == 0:
             p_aff = (0, P - 1)  # a low-order P
-        dh, ds = rng.randint(-8, 8), rng.randint(-8, 8)
+        dh = rng.randint(-8, 8) if trial > 2 else trial - 1  # -1, 0 and 1 first
         q = _proj(lib, q_aff, rng)
         p = _proj(lib, p_aff, rng)
-        lib.t_ge_window(ptr(q), dh, ds, ptr(p), ptr(arr(btab)))
+        lib.t_window(ptr(q), dh, ptr(p))
         want = _mul(16, q_aff)
         neg = lambda pt: ((P - pt[0]) % P, pt[1])  # noqa: E731
         want = C._py_edwards_add(want, _mul(abs(dh), p_aff if dh >= 0 else neg(p_aff)))
-        want = C._py_edwards_add(want, _mul(abs(ds), bpt if ds >= 0 else neg(bpt)))
-        assert _affine(q) == want, (trial, dh, ds)
+        assert _affine(q) == want, (trial, dh)
         assert is_tight(q[:10]) and is_tight(q[10:20]) and is_tight(q[20:30]) and is_tight(q[30:])
 
 
@@ -470,11 +516,12 @@ def _host_verdicts(lib, items):
     from mochi_tpu_torch.crypto import batch_verify as BV
 
     y_a, sign_a, y_r, sign_r, s_b, h_b, pre_ok = BV.prepare_packed(items)
-    btab = arr(CV.basepoint_table25())
+    bcomb = _bcomb25()
     u8 = ctypes.POINTER(ctypes.c_uint8)
     raw = [
         bool(lib.t_verify(ptr(arr(y_a[j])), int(sign_a[j]), ptr(arr(y_r[j])), int(sign_r[j]),
-                          s_b[j].ctypes.data_as(u8), h_b[j].ctypes.data_as(u8), ptr(btab)))
+                          np.ascontiguousarray(s_b[j]).ctypes.data_as(u8),
+                          np.ascontiguousarray(h_b[j]).ctypes.data_as(u8), ptr(bcomb)))
         for j in range(len(items))
     ]
     return raw, [r and bool(ok) for r, ok in zip(raw, pre_ok)]
@@ -1105,3 +1152,171 @@ def test_fe17_tree_verify_equals_the_plain_tree_under_mxu_and_the_chain(lib17, m
     want = [keys.verify(it.public_key, it.message, it.signature) for it in items]
     assert [t and ok for t, ok in zip(tree, prep[6])][:6] == want[:6]
     assert any(tree) and not all(tree)
+
+
+# ------------------------------------------- the team verify (verify25519.cuh)
+
+def _niels_ints(x, y):
+    return ((y + x) % P, (y - x) % P, 2 * F.D_INT * x % P * y % P)
+
+
+def test_team_basepoint_comb_equals_python_ints_and_the_plain_curve():
+    """The table ``verify.cu`` reads for [S]B (uploaded by
+    ``cuda_verify._table_on``): entry w * 9 + d is [d 16^w]B in Niels form,
+    canonical limbs, entry for entry against Python-integer point
+    multiplication and against the plain curve's ladder on the same
+    scalars."""
+    table = CV._table_on("cpu", "pad").numpy()
+    assert table.shape == (576, 3, 10) and table.dtype == np.int32
+    assert np.array_equal(table, _bcomb25())
+    bpt = (F.BX_INT, F.BY_INT)
+    base = bpt
+    for w in range(64):
+        acc = (0, 1)
+        for d in range(9):
+            got = tuple(value(table[9 * w + d, c]) for c in range(3))
+            assert got == _niels_ints(*acc), (w, d)
+            assert all(0 <= table[9 * w + d, c, i] < (1 << (26 if i % 2 == 0 else 25))
+                       for c in range(3) for i in range(10))
+            acc = C._py_edwards_add(acc, base)
+        base = _mul(16, base)
+    # the plain ladder's [d 16^w]B for every entry, one lane each
+    ks = [d << (4 * w) for w in range(64) for d in range(9)]
+    s_dig = torch.tensor([[(k >> (4 * i)) & 15 for k in ks] for i in range(64)], dtype=F.DTYPE)
+    zero = torch.zeros_like(s_dig)
+    ident = C.identity((len(ks),), "cpu")
+    q = C.double_scalar_mul_windowed(s_dig, zero, ident)
+    xs, ys, zs = (F.limbs_to_int_batch(F.canonical(c)) for c in (q.x, q.y, q.z))
+    for j, (x, y, z) in enumerate(zip(xs, ys, zs)):
+        zi = pow(z, P - 2, P)
+        assert _niels_ints(x * zi % P, y * zi % P) == tuple(value(table[j, c]) for c in range(3)), j
+
+
+def _recoded(s: int) -> int:
+    """The scalar the signed-4 recode of 32 bytes stands for, the carry out
+    of window 63 dropped."""
+    out, c = 0, 0
+    for k in range(64):
+        t = ((s >> (4 * k)) & 15) + c
+        c = int(t > 8)
+        out += (t - 16 * c) << (4 * k)
+    return out
+
+
+def test_team_comb_sb_equals_python_ints_and_the_plain_ladder(lib):
+    """The team's [S]B (four partial comb sums, added by the team) equals
+    [S']B on Python integers, S' the recoded scalar with window 63's carry
+    dropped, and the plain ladder's [S]B: random S, 0, L - 1, L, L + 1 and
+    2^256 - 1 (which recodes to -1)."""
+    rng = random.Random(301)
+    ss = [0, F.L_INT - 1, F.L_INT, F.L_INT + 1, (1 << 256) - 1, (1 << 252) + 8 * 16 ** 62]
+    ss += [rng.randrange(1 << 256) for _ in range(14)] + [rng.randrange(F.L_INT) for _ in range(6)]
+    assert _recoded((1 << 256) - 1) == -1
+    bcomb = _bcomb25()
+    raw = np.array([list(s.to_bytes(32, "little")) for s in ss], dtype=np.uint8)
+    s_dig = C.digits4_from_bytes(torch.from_numpy(raw))
+    plain = C.double_scalar_mul_windowed(s_dig, torch.zeros_like(s_dig), C.identity((len(ss),), "cpu"))
+    px, py, pz = (F.limbs_to_int_batch(F.canonical(c)) for c in (plain.x, plain.y, plain.z))
+    for j, s in enumerate(ss):
+        q = np.zeros(40, np.int32)
+        sb = np.ascontiguousarray(raw[j])
+        lib.t_comb_sb(ptr(q), sb.ctypes.data_as(U8P), ptr(bcomb))
+        want = _mul(_recoded(s) % F.L_INT, (F.BX_INT, F.BY_INT))
+        assert _affine(q) == want, hex(s)
+        zi = pow(pz[j], P - 2, P)
+        assert (px[j] * zi % P, py[j] * zi % P) == want
+        assert value(q[30:]) * pow(value(q[20:30]), P - 2, P) % P == want[0] * want[1] % P  # T = XY/Z
+        assert all(is_tight(q[10 * k : 10 * k + 10]) for k in range(4))
+
+
+def _add_ints(q, ent, neg, ident):
+    """add-2008-hwcd-3 on Python ints mod p: q (X, Y, Z, T) plus the cached
+    entry (Y-X, Y+X, 2dT, Z), negated when ``neg``, the identity when
+    ``ident``."""
+    X, Y, Z, T = q
+    ymx, ypx, t2d, z2 = (1, 1, 0, 1) if ident else ent
+    if neg:
+        ymx, ypx, t2d = ypx, ymx, -t2d
+    a, b, c, d = (Y - X) * ymx, (Y + X) * ypx, T * t2d, 2 * Z * z2
+    e, f, g, h = b - a, d - c, d + c, b + a
+    return [v % P for v in (e * f, g * h, f * g, e * h)]
+
+
+def _dbl_ints(q):
+    X, Y, Z, _ = q
+    a, b, c = X * X, Y * Y, 2 * Z * Z
+    h = a + b
+    e, g = h - (X + Y) ** 2, a - b
+    f = c + g
+    return [v % P for v in (e * f, g * h, f * g, e * h)]
+
+
+def _tight_max(rng):
+    return [(TIGHT_EVEN if i % 2 == 0 else TIGHT_ODD) * rng.choice((-1, 1)) for i in range(10)]
+
+
+def test_team_steps_fuzz_at_the_tight_maximum(lib):
+    """The team's two-step addition (every sign of digit, the identity
+    entry) and doubling, and the cached form the team stores, with the
+    point's limbs at the TIGHT maximum (every sign pattern) and the entry's
+    at their own maximum (two TIGHT terms for y-x and y+x): the formulas mod
+    p on Python integers, every output TIGHT."""
+    rng = random.Random(311)
+    for trial in range(240):
+        if trial % 4 == 0:
+            pt = [rand_limbs(rng, TIGHT_EVEN, TIGHT_ODD) for _ in range(4)]
+        else:
+            pt = [_tight_max(rng) for _ in range(4)]
+        two = [[2 * v for v in _tight_max(rng)] for _ in range(2)]
+        ent = two + [_tight_max(rng), _tight_max(rng)] if trial % 2 else \
+            [rand_limbs(rng, 2 * TIGHT_EVEN, 2 * TIGHT_ODD) for _ in range(2)] + \
+            [rand_limbs(rng, TIGHT_EVEN, TIGHT_ODD) for _ in range(2)]
+        neg, ident = trial % 3 == 1, trial % 7 == 3
+        ints = [value(c) for c in pt]
+        out = arr(sum(pt, []))
+        lib.t_team_add(ptr(out), ptr(arr(sum(ent, []))), int(neg), int(ident))
+        assert [value(out[10 * k : 10 * k + 10]) % P for k in range(4)] == \
+            _add_ints(ints, [value(c) for c in ent], neg, ident), trial
+        assert all(is_tight(out[10 * k : 10 * k + 10]) for k in range(4))
+        out = arr(sum(pt, []))
+        lib.t_team_dbl(ptr(out))
+        assert [value(out[10 * k : 10 * k + 10]) % P for k in range(4)] == _dbl_ints(ints), trial
+        assert all(is_tight(out[10 * k : 10 * k + 10]) for k in range(4))
+        cached = np.zeros(40, np.int32)
+        lib.t_team_cached(ptr(cached), ptr(arr(sum(pt, []))))
+        X, Y, Z, T = ints
+        assert [value(cached[10 * k : 10 * k + 10]) % P for k in range(4)] == \
+            [(Y - X) % P, (Y + X) % P, 2 * F.D_INT * T % P, Z % P]
+        assert is_tight(cached[20:30]) and is_tight(cached[30:])
+
+
+def test_team_verify_equals_the_plain_bitmap_and_keys_verify(lib):
+    """The serial twin of the team's whole verify, lane for lane: the raw
+    bitmap equals the plain version's on the adversarial corpus (every kind
+    of ``chip_smoke.py``'s, forgeries, mutated bits, the identity key) and
+    on the two lanes the host rejects but the device accepts (A y = p + 1
+    with R = B, S = 1; a valid A with R = B, S = L + 1, both raw True);
+    ANDed with the host prechecks it equals ``keys.verify``."""
+    import chip_smoke as cs
+    from mochi_tpu_torch.crypto import batch_verify as BV
+    from mochi_tpu_torch.verifier.spi import VerifyItem
+
+    signers = cs.make_signers(np.random.default_rng(321), 4)
+    items, _, kinds = cs.make_corpus(322, 170, signers)
+    assert len(set(kinds)) >= 28
+    items = items + [VerifyItem(*t) for t in _items(random.Random(323))] + cs.host_rejected_items(signers[0])
+    prep = BV.prepare_packed(items)
+    plain = C.verify_prepared_packed(*CV.from_reference_prepared(prep, "cpu")).tolist()
+    y_a, sign_a, y_r, sign_r, s_b, h_b, pre_ok = prep
+    bcomb = _bcomb25()
+    host = [
+        bool(lib.t_verify(ptr(arr(y_a[j])), int(sign_a[j]), ptr(arr(y_r[j])), int(sign_r[j]),
+                          np.ascontiguousarray(s_b[j]).ctypes.data_as(U8P),
+                          np.ascontiguousarray(h_b[j]).ctypes.data_as(U8P), ptr(bcomb)))
+        for j in range(len(items))
+    ]
+    assert host == plain
+    assert host[-2:] == [True, True] and pre_ok[-2:].tolist() == [False, False]
+    want = [keys.verify(it.public_key, it.message, it.signature) for it in items]
+    assert [h and bool(ok) for h, ok in zip(host, pre_ok)] == want
+    assert 0.3 < np.mean(want) < 0.95
