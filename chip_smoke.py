@@ -13,7 +13,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``comb_tree_mxu.cu`` and ``tally.cu``, one nvcc each, started together;
    report ptxas's registers, spills and shared bytes and each kernel's
    attributes (both passes of each tree; for ``verify.cu`` also its team
-   size, threads a block and dynamic shared bytes).
+   size, threads a block and dynamic shared bytes, and from its
+   ``cuobjdump -sass`` listing the instructions, IMAD and local stores and
+   loads).
 3. Kernel vs plain — an 8192-item corpus made from ``--seed``: valid
    signatures from 64 signers, forgeries, and adversarial encodings
    (low-order and mixed-order points, non-points, x = 0 with the sign bit,
@@ -185,6 +187,7 @@ import asyncio
 import hashlib
 import json
 import os
+import re
 import socket
 import statistics
 import subprocess
@@ -192,6 +195,7 @@ import sys
 import time
 import traceback
 from dataclasses import dataclass
+from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -658,6 +662,18 @@ def _nvidia_smi(query: str) -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return proc.stdout.strip().splitlines()[0].strip()
+
+
+_SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)")
+
+
+def sass_counts(sass: str) -> dict:
+    """Static counts of a ``cuobjdump -sass`` listing: its instructions, the
+    integer multiply-adds among them (IMAD of every width) and the local
+    stores and loads (STL, LDL of every width: spills and stack arrays)."""
+    ops = _SASS_OP.findall(sass)
+    return {"instructions": len(ops), "imad": sum(op.startswith("IMAD") for op in ops),
+            "local_stores": ops.count("STL"), "local_loads": ops.count("LDL")}
 
 
 def _ms_median(fn, warmup: int, repeats: int) -> float:
@@ -1188,6 +1204,10 @@ def run(args) -> dict:
             if "Compiling entry" in ln or "registers" in ln or "spill" in ln:
                 res["ptxas"].setdefault(name, []).append(ln.strip())
                 print(f"[build] ptxas {name}: {ln.strip()}", flush=True)
+    sass = subprocess.run([str(Path(kernels.nvcc_path()).parent / "cuobjdump"), "-sass",
+                           str(kernels.library_path("verify"))], capture_output=True, text=True, timeout=120, check=True)
+    res["sass_verify"] = sass_counts(sass.stdout)
+    print(f"[build] sass verify: {res['sass_verify']}", flush=True)
 
     # 3. kernel vs plain on the card
     rng = np.random.default_rng(args.seed)
@@ -1738,7 +1758,6 @@ def run(args) -> dict:
         "bound_ms": bound(len(items)),
         "bound_by": "operations",
         "library_ms": None,
-        "imads_issued_per_signature": issued,
     }, {
         "name": "ed25519_verify_mxu",
         "route": "cuda",

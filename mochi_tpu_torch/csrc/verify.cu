@@ -31,12 +31,8 @@
 // 330,340 multiply-adds a signature (IMADS_ISSUED_PER_SIGNATURE in
 // cuda_verify.py), 1.2x the function's, since lanes 2 and 3 repeat the
 // decodes and a doubling's T is always computed.  Blocks are 64 threads (16
-// teams, 1,988 bytes of shared scratch each), at most 6 an SM: 168
-// registers a thread, so 12 warps an SM instead of the 8 that 255
-// registers allow (PERF.md: 8 and 12 warps an SM measured the same time
-// from 1 to 66,050 lanes; 14, at 128 registers, spills 528 bytes and is
-// slower above 8192).  Teams past the batch verify its last signature again and store
-// nothing, so every team runs whole.
+// teams, 1,988 bytes of shared scratch each).  Teams past the batch verify
+// its last signature again and store nothing, so every team runs whole.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -44,9 +40,8 @@
 
 #define MOCHI_VERIFY_TEAMS 16
 #define MOCHI_VERIFY_THREADS (MOCHI_VERIFY_TEAMS * MOCHI_VT_TEAM)
-#define MOCHI_VERIFY_BLOCKS_PER_SM 6
 
-__global__ void __launch_bounds__(MOCHI_VERIFY_THREADS, MOCHI_VERIFY_BLOCKS_PER_SM)
+__global__ void __launch_bounds__(MOCHI_VERIFY_THREADS)
     mochi_ed25519_verify_kernel(const int32_t* __restrict__ y_a,
                                 const int32_t* __restrict__ sign_a,
                                 const int32_t* __restrict__ y_r,

@@ -57,7 +57,8 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def _path(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu``'s library is, or will be, built."""
     return BUILD_DIR / f"{name}-{_source_hash()}.so"
 
 
@@ -89,7 +90,7 @@ def _build_missing() -> Dict[str, float]:
     errors = []
     try:
         for name in names:
-            out = _path(name)
+            out = library_path(name)
             if not out.exists():
                 started[name] = (out, *_start(name, out))
     finally:
@@ -116,7 +117,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            path = _path(name)
+            path = library_path(name)
             if not path.exists():
                 _build_missing()
             lib = _libs[name] = ctypes.CDLL(str(path))

@@ -109,27 +109,19 @@ def test_refuses_to_run_without_a_card(monkeypatch, capsys):
     assert '"ok"' not in out.out and "no CUDA device" in out.err
 
 
-def test_verify_sweep_refuses_to_run_without_a_card(monkeypatch, capsys, tmp_path):
-    import verify_sweep
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert verify_sweep.main(["--out", str(tmp_path / "sweep.json")]) == 2
-    out = capsys.readouterr()
-    assert out.out == "" and "no CUDA device" in out.err
-    assert not (tmp_path / "sweep.json").exists()
-
-
-def test_verify_sweep_variants_apply_to_the_sources():
-    """Each variant ``verify_sweep.py`` measures is an edit of text that the
-    shipped sources still hold, once."""
-    import verify_sweep
-
-    from mochi_tpu_torch import kernels
-
-    for name, edits in verify_sweep.VARIANTS.items():
-        for fname, old, new in edits:
-            text = (kernels.CSRC / fname).read_text()
-            assert text.count(old) == 1 and old != new, (name, fname)
+def test_sass_counts_name_every_width_and_predicate():
+    sass = """
+        Function : mochi_ed25519_verify_kernel
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                 /* 0x00000a00ff017b82 */
+        /*0010*/                   IMAD.WIDE.U32 R2, R4, R5, RZ ;         /* 0x0000000504027225 */
+        /*0020*/               @P0 IMAD R6, R7, R8, R9 ;                  /* 0x0000000807060224 */
+        /*0030*/                   STL.128 [R1], R4 ;                     /* 0x0000000401007387 */
+        /*0040*/              @!P2 STL [R1+0x10], R2 ;                    /* 0x0000100201002387 */
+        /*0050*/                   LDL.LU R3, [R1+0x10] ;                 /* 0x0000100001037983 */
+        /*0060*/                   LDS R9, [R10] ;                        /* 0x000000000a097984 */
+        /*0070*/                   EXIT ;                                 /* 0x000000000000794d */
+    """
+    assert cs.sass_counts(sass) == {"instructions": 8, "imad": 2, "local_stores": 2, "local_loads": 1}
 
 
 def test_fails_alone_outside_the_checkout(tmp_path):
