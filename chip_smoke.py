@@ -12,10 +12,10 @@ Phases (any failure exits non-zero and prints no result line):
    ``verify_mxu.cu``, ``comb.cu``, ``comb_mxu.cu``, ``comb_tree.cu``,
    ``comb_tree_mxu.cu`` and ``tally.cu``, one nvcc each, started together;
    report ptxas's registers, spills and shared bytes and each kernel's
-   attributes (both passes of each tree; for ``verify.cu`` also its team
-   size, threads a block and dynamic shared bytes, and from its
-   ``cuobjdump -sass`` listing the instructions, IMAD and local stores and
-   loads).
+   attributes (both passes of each tree; for ``verify.cu`` and ``comb.cu``
+   also the team size, threads a block and dynamic shared bytes, and from
+   each one's ``cuobjdump -sass`` listing the instructions, IMAD and local
+   stores and loads).
 3. Kernel vs plain — an 8192-item corpus made from ``--seed``: valid
    signatures from 64 signers, forgeries, and adversarial encodings
    (low-order and mixed-order points, non-points, x = 0 with the sign bit,
@@ -64,11 +64,13 @@ Phases (any failure exits non-zero and prints no result line):
    The kernel's bitmap must equal the plain version's on the card and the
    expected verdicts, 256 sampled lanes must equal ``keys.verify``, and the
    uploaded kernel-radix table must equal the 17 x 15 rows integer for
-   integer.  The tree kernel (``MOCHI_COMB_IMPL=tree``, ``comb_tree.cu``)
+   integer; the chain is also held against the plain chain and the
+   expected verdicts at every lane count of phase 7's sweep up to 65536
+   (the corpus tiled).  The tree kernel (``MOCHI_COMB_IMPL=tree``, ``comb_tree.cu``)
    must equal the plain tree at both lane counts, the chain kernel's bitmap
    lane for lane, and ``keys.verify`` on the same 256 lanes.
 7. Comb times — for the chain and the tree kernel: CUDA events at 8192 and
-   65536 lanes, a launch-size sweep (1024 ... 262144), the plain version at
+   65536 lanes, a launch-size sweep (phase 4's, 1 ... 262144), the plain version at
    8192, the bound (the function's, one for both: they compute the same
    bitmap), the tree's two passes apart by ``torch.profiler``, and one lone
    43-grant certificate through ``verify_batch`` with the registry (the
@@ -1208,6 +1210,14 @@ def run(args) -> dict:
                            str(kernels.library_path("verify"))], capture_output=True, text=True, timeout=120, check=True)
     res["sass_verify"] = sass_counts(sass.stdout)
     print(f"[build] sass verify: {res['sass_verify']}", flush=True)
+    ca = res["kernel_attributes"]["comb"]
+    print(f"[build] comb.cu: a team of {ca['team']} lanes a signature, {ca['threads']} threads a block, "
+          f"{ca['shared_bytes']} static and {ca['dynamic_shared_bytes']} dynamic shared bytes, "
+          f"{ca['registers']} registers, {ca['local_bytes']} local bytes", flush=True)
+    sass = subprocess.run([str(Path(kernels.nvcc_path()).parent / "cuobjdump"), "-sass",
+                           str(kernels.library_path("comb"))], capture_output=True, text=True, timeout=120, check=True)
+    res["sass_comb"] = sass_counts(sass.stdout)
+    print(f"[build] sass comb: {res['sass_comb']}", flush=True)
 
     # 3. kernel vs plain on the card
     rng = np.random.default_rng(args.seed)
@@ -1389,6 +1399,11 @@ def run(args) -> dict:
     ccheck = {len(citems): check_comb_vs_plain(table25, table15, lanes, cprep[6], cwant)}
     part = len(citems) - PARTIAL
     ccheck[part] = check_comb_vs_plain(table25, table15, [t[:part] for t in lanes], cprep[6][:part], cwant[:part])
+    # and at every lane count of the sweep up to the large launch
+    big_lanes = [torch.cat([t] * (BIG // len(citems))) for t in lanes]
+    for n in SWEEP:
+        if n <= BIG and n not in ccheck:
+            ccheck[n] = _check_comb_at(n, table25, table15, lanes, big_lanes, cprep[6], cwant)
     csample = np.random.default_rng(args.seed + 4).choice(len(citems), 256, replace=False).tolist()
     csample_wrong = [j for j in csample if keys.verify(citems[j].public_key, citems[j].message,
                                                        citems[j].signature) != bool(cfinal[j])]
@@ -1425,7 +1440,6 @@ def run(args) -> dict:
                              f"{sorted(set(cwrong))[:10]}, sample lanes {csample_wrong[:10]}")
 
     # 7. comb times
-    big_lanes = [torch.cat([t] * (BIG // len(citems))) for t in lanes]
     c8k = _ms_median(lambda: CC.verify_comb_prepared(table25, *lanes), 3, REPEATS)
     c64k = _ms_median(lambda: CC.verify_comb_prepared(table25, *big_lanes), 2, REPEATS // 2)
     cplain = _ms_median(lambda: comb.verify_comb_prepared(table15, *lanes), 1, 3)
@@ -1436,7 +1450,7 @@ def run(args) -> dict:
     ccert_ms, ccert_launches = 1e2 * (time.perf_counter() - t0), (CC.launches["chain"] - l0) / 10
     ctiled = [torch.cat([t] * 4) for t in big_lanes]
     csweep = {}
-    for n in (1024, 4096, 8192, 16384, 32768, 65536, 131072, 262144):
+    for n in SWEEP:
         part_l = [t[:n] for t in ctiled]
         ms = _ms_median(lambda: CC.verify_comb_prepared(table25, *part_l), 1, 5)
         csweep[n] = {"ms": ms, "sigs_per_s": n / (ms / 1e3)}
@@ -1491,6 +1505,8 @@ def run(args) -> dict:
         "imads_per_signature": CC.IMADS_PER_SIGNATURE, "launch_size_sweep": csweep,
         "cert43_verify_batch_ms": ccert_ms, "cert43_launches": ccert_launches,
         "general_over_comb_ms_8192": ms_8k / c8k,
+        "attributes": res["kernel_attributes"]["comb"], "ptxas": res["ptxas"].get("comb", []),
+        "sass": res["sass_comb"],
     }
     print(f"[comb times] {res['comb_times']}", flush=True)
 
@@ -1778,10 +1794,13 @@ def run(args) -> dict:
         "name": "comb_verify",
         "route": "cuda",
         "source": "mochi_tpu_torch/csrc/comb.cu",
+        "design": f"a team of {ca['team']} lanes a signature, one a warp (csrc/comb_team.cuh), "
+                  "the last also decoding R",
         "replaces": "mochi_tpu/crypto/comb.py:512",
         "launches": cl["comb_launches"]["chain"],
         "max_abs_err": max(ccheck.values()),
         "ms": c8k,
+        "ms_65536": c64k,
         "plain_ms": cplain,
         "bound_ms": cbound(len(citems)),
         "bound_by": res["comb_times"]["bound_by"],

@@ -6,9 +6,12 @@ two accumulations, under either multiply.  Which kernel a launch runs
 follows the pair of switches (:func:`kernel_of`):
 
 * ``impl="chain"``, ``multiply="pad"``: ``csrc/comb.cu`` (arithmetic in
-  ``csrc/comb25519.cuh``), one signature per thread in radix 2^25.5: 64
-  windows of two Niels mixed additions from the signer's table and the
-  basepoint comb, R's decode, the projective compare;
+  ``csrc/comb25519.cuh``, the team's verify in ``csrc/comb_team.cuh``), one
+  signature per team of four lanes in radix 2^25.5, one lane in each of a
+  block's four warps: each lane sums its share of the 64 windows of two
+  Niels mixed additions from the signer's table and the basepoint comb (the
+  last lane decodes R first and takes fewer windows), then the team adds the
+  four partial sums and compares;
 * ``impl="chain"``, ``multiply="mxu"`` (``MOCHI_SKEW_IMPL=mxu``):
   ``csrc/comb_mxu.cu`` (arithmetic in ``csrc/comb17.cuh``), the same chain
   in the reference's 17 x 15-bit field with every multiply's column
@@ -204,28 +207,34 @@ def _lib(kernel: str = "chain"):
         launch.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * n_ptrs
                            + [ctypes.c_int, ctypes.c_void_p])
         launch.restype = ctypes.c_int
-        attrs.argtypes = [ctypes.c_int] * by_pass + [ctypes.POINTER(ctypes.c_int)] * 4
+        attrs.argtypes = [ctypes.c_int] * by_pass + [ctypes.POINTER(ctypes.c_int)] * len(_attr_names(kernel))
         attrs.restype = ctypes.c_int
         lib._mochi_typed = True
     return lib
 
 
-_ATTR_NAMES = ("registers", "local_bytes", "shared_bytes", "threads")
+def _attr_names(kernel: str) -> tuple:
+    """What ``kernel``'s attribute query reports, in its order: comb.cu's
+    also its lanes a signature and the dynamic shared bytes of a launch."""
+    names = ("registers", "local_bytes", "shared_bytes", "threads")
+    return names + ("team", "dynamic_shared_bytes") if kernel == "chain" else names
 
 
 def kernel_attributes(kernel: str = "chain") -> dict:
     """Registers per thread, local bytes per thread, static shared bytes and
     threads per block of ``kernel``'s compiled kernel (one of
-    :data:`KERNELS`; cudaFuncGetAttributes); for a tree, one such dict for
-    each pass (``prepare``, ``accumulate``)."""
+    :data:`KERNELS`; cudaFuncGetAttributes), for ``chain`` also the lanes a
+    signature (``team``) and the dynamic shared bytes of a launch; for a
+    tree, one such dict for each pass (``prepare``, ``accumulate``)."""
     fn = getattr(_lib(kernel), _LIBS[kernel][1] + "_attrs")
+    names = _attr_names(kernel)
 
     def query(*which):
-        vals = [ctypes.c_int(0) for _ in range(4)]
+        vals = [ctypes.c_int(0) for _ in names]
         rc = fn(*which, *[ctypes.byref(v) for v in vals])
         if rc:
             raise RuntimeError(f"cudaFuncGetAttributes failed with CUDA error {rc}")
-        return dict(zip(_ATTR_NAMES, (v.value for v in vals)))
+        return dict(zip(names, (v.value for v in vals)))
 
     if _LIBS[kernel][3]:
         return {"prepare": query(0), "accumulate": query(1)}

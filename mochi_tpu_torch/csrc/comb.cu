@@ -1,10 +1,10 @@
 // Known-signer (comb) Ed25519 verification on Hopper: one signature per
-// thread, no doublings.
+// team of four lanes, one in each warp of a block, no doublings.
 //
 // Replaces the reference package's comb.verify_comb_prepared, jitted as
 // crypto/comb.py::_verify_comb_jit (impl="chain").  The arithmetic lives in
-// comb25519.cuh on top of fe25519.cuh / ge25519.cuh, so the CPU tests
-// compile the same code with g++.
+// comb25519.cuh on top of fe25519.cuh / ge25519.cuh and the team's verify
+// in comb_team.cuh, so the CPU tests compile the same code with g++.
 //
 // What bounds it: integer multiply throughput.  Per signature: 128 mixed
 // additions of 7 multiplies (896), R's decode (ge_decode: 255 squarings and
@@ -19,24 +19,38 @@
 // operations.  Signer-row gathers are 64 x 120 bytes per signature from a
 // table that stays in the 50 MB L2.
 //
-// Design.  The registry's tables are converted once per (device,
-// generation) at upload to the kernel radix (comb25519.cuh's layout), so
-// each window is two 120-byte row loads and two ge_madd.  The basepoint comb
-// is 64 x 9 x 30 int32 = 69,120 bytes: over the 64 KB __constant__ bank,
-// and divergent digits would serialise there anyway.  It is read with
-// __ldg from global memory: in any one window a warp touches at most 9
-// distinct 120-byte entries, which stay in L1, so a per-block shared-memory
-// stage (61,440 bytes without the identity entries, which needs the >48 KB
-// dynamic opt-in) would buy little and cost a copy per block.  Signer rows
-// are gathered with __ldg too, the index clipped into the table.  One
-// signature per thread keeps every chain independent; a launch hides the
-// chain's latency only once each SM holds several warps.
+// What the design does about it (comb_team.cuh has the details).  The
+// one-thread kernel this replaces ran a signature's 1,173 operations as one
+// dependent chain (255 registers, 104 bytes of spills): any launch up to
+// 8,192 lanes took ~0.7 ms, on as few SMs as its 128-thread blocks filled,
+// one warp a scheduler.  Here a block is four warps for 32 signatures: lane
+// l of warps 0-2 sums 19 windows of both tables for signature l (38 mixed
+// additions), lane l of warp 3 decodes its R and then sums the top 7
+// windows, and the warps add the four partial sums by a tree of two levels
+// through the block's shared scratch (181 words a signature).  A role is a
+// whole warp, so no warp diverges, and each warp carries about a quarter
+// of the signature's multiplies.  The team issues the function's
+// multiplies, 3 team additions of 9 more and each lane's first mixed
+// addition onto the identity (108,425 multiply-adds a signature).
+//
+// What bounds the launch.  One warp of 32 signatures keeps its scheduler's
+// multiply pipe nearly busy, so a block's time is its busiest warp's work,
+// and a large launch runs in waves of as many blocks as the SMs hold:
+// ptxas's registers decide that (PERF.md has them and the variants
+// measured).  The tables are read as before: the basepoint comb (64 x 9 x
+// 30 int32 = 69,120 bytes, over the 64 KB __constant__ bank) and the signer
+// rows with __ldg from global memory through L1, the index clipped into
+// the table.  Teams past the batch verify its last signature again and
+// store nothing, so every barrier sees the whole block.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "comb25519.cuh"
+// One copy of the field multiply and squaring, called by value (fe25519.cuh).
+#define MOCHI_FE_CALLED
+#include "comb_team.cuh"
 
-#define MOCHI_COMB_THREADS 128
+#define MOCHI_COMB_SIGS 32  // signatures a block: one a lane of each warp
+#define MOCHI_COMB_THREADS (MOCHI_CT_TEAM * MOCHI_COMB_SIGS)
 
 __global__ void __launch_bounds__(MOCHI_COMB_THREADS)
     mochi_comb_verify_kernel(const int32_t* __restrict__ table, int64_t rows,
@@ -47,18 +61,16 @@ __global__ void __launch_bounds__(MOCHI_COMB_THREADS)
                              const uint8_t* __restrict__ h_bytes,
                              const int32_t* __restrict__ bcomb,
                              uint8_t* __restrict__ out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  __shared__ ct_area area[MOCHI_COMB_SIGS];
+  const int lane = threadIdx.x & 31;
+  const int sig = blockIdx.x * MOCHI_COMB_SIGS + lane;
   // Inputs are batch-leading: the limbs of signature i are contiguous.
-  int32_t yr[17];
-  uint8_t s[32], h[32];
-  for (int k = 0; k < 17; ++k) yr[k] = __ldg(&y_r[(size_t)i * 17 + k]);
-  for (int k = 0; k < 32; ++k) {
-    s[k] = __ldg(&s_bytes[(size_t)i * 32 + k]);
-    h[k] = __ldg(&h_bytes[(size_t)i * 32 + k]);
-  }
-  out[i] = (uint8_t)comb_verify_one(table, rows, __ldg(&key_idx[i]), yr,
-                                    __ldg(&sign_r[i]), s, h, bcomb);
+  const size_t i = sig < n ? sig : n - 1;
+  ct_block_lanes ln;
+  ln.r = threadIdx.x >> 5;
+  const int ok = ct_verify(ln, &area[lane], table, rows, __ldg(&key_idx[i]), y_r + i * 17,
+                           __ldg(&sign_r[i]), s_bytes + i * 32, h_bytes + i * 32, bcomb);
+  if (sig < n && ln.r == 0) out[sig] = (uint8_t)ok;
 }
 
 extern "C" {
@@ -70,7 +82,7 @@ int mochi_comb_verify(const void* table, long long rows, const void* key_idx,
                       const void* h_bytes, const void* bcomb, void* out, int n,
                       void* stream) {
   if (n > 0) {
-    const int blocks = (n + MOCHI_COMB_THREADS - 1) / MOCHI_COMB_THREADS;
+    const int blocks = (n + MOCHI_COMB_SIGS - 1) / MOCHI_COMB_SIGS;
     mochi_comb_verify_kernel<<<blocks, MOCHI_COMB_THREADS, 0,
                                (cudaStream_t)stream>>>(
         (const int32_t*)table, (int64_t)rows, (const int32_t*)key_idx,
@@ -81,9 +93,11 @@ int mochi_comb_verify(const void* table, long long rows, const void* key_idx,
 }
 
 // Registers per thread, local (spill + stack) bytes per thread, static
-// shared bytes and the threads per block the kernel launches with.
+// shared bytes, the threads per block the kernel launches with, the lanes a
+// signature and the dynamic shared bytes of a launch (none: the scratch is
+// static).
 int mochi_comb_verify_attrs(int* regs, int* local_bytes, int* shared_bytes,
-                            int* threads) {
+                            int* threads, int* team, int* dynamic_shared_bytes) {
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(&a, mochi_comb_verify_kernel);
   if (err != cudaSuccess) return (int)err;
@@ -91,6 +105,8 @@ int mochi_comb_verify_attrs(int* regs, int* local_bytes, int* shared_bytes,
   *local_bytes = (int)a.localSizeBytes;
   *shared_bytes = (int)a.sharedSizeBytes;
   *threads = MOCHI_COMB_THREADS;
+  *team = MOCHI_CT_TEAM;
+  *dynamic_shared_bytes = 0;
   return 0;
 }
 

@@ -1,5 +1,7 @@
-// Known-signer comb verify of one signature, for one thread.  Counterpart
-// of the reference package's comb.verify_comb_prepared (impl="chain").
+// The known-signer comb's tables and their gathers, shared by the comb
+// kernels (comb_team.cuh for comb.cu, comb_tree.cuh, comb17.cuh) and by
+// verify25519.cuh's [S]B.  Counterpart of the reference package's
+// comb.verify_comb_prepared (impl="chain"):
 //
 //   Q = sum_w  [s_w 16^w]B  +  [h_w 16^w](-A)        w = 0..63
 //
@@ -62,38 +64,4 @@ MOCHI_HD int64_t comb_row(int64_t rows, int key_idx, int w, int mag) {
   if (flat < 0) flat = 0;
   if (flat >= rows) flat = rows - 1;
   return flat;
-}
-
-// The whole comb verify of one signature: 1 valid, 0 not.  y_r: 17
-// contiguous limbs of 15 bits; table: `rows` entries; bcomb: the 576
-// entries of the basepoint comb.
-MOCHI_HD int comb_verify_one(const int32_t* table, int64_t rows, int key_idx,
-                             const int32_t* y_r, int sign_r,
-                             const uint8_t* s_bytes, const uint8_t* h_bytes,
-                             const int32_t* bcomb) {
-  int8_t s_dig[64], h_dig[64];
-  recode_signed4(s_dig, s_bytes);
-  recode_signed4(h_dig, h_bytes);
-  ge_p3 q;
-  ge_identity(&q);
-#if defined(__CUDA_ARCH__)
-#pragma unroll 1
-#endif
-  for (int w = 0; w < MOCHI_COMB_WINDOWS; ++w) {
-    const int dh = h_dig[w], ds = s_dig[w];
-    const int mh = dh < 0 ? -dh : dh, ms = ds < 0 ? -ds : ds;
-    ge_niels n;
-    comb_load_niels(&n, table + comb_row(rows, key_idx, w, mh) * MOCHI_COMB_ENTRY_INTS, dh < 0);
-    ge_madd(&q, &q, &n);
-    comb_load_niels(&n, bcomb + (w * MOCHI_COMB_ENTRIES + ms) * MOCHI_COMB_ENTRY_INTS, ds < 0);
-    ge_madd(&q, &q, &n);
-  }
-  ge_p3 r;
-  const int ok_r = ge_decode(&r, y_r, 1, sign_r);
-  fe t;
-  fe_mul(&t, &r.X, &q.Z);
-  const int eq_x = fe_eq(&q.X, &t);
-  fe_mul(&t, &r.Y, &q.Z);
-  const int eq_y = fe_eq(&q.Y, &t);
-  return ok_r & eq_x & eq_y;
 }

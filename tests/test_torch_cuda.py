@@ -156,6 +156,76 @@ def test_comb_kernel_equals_plain_version_and_expected_verdicts(card, comb_setup
     assert [w for j, w in enumerate(want) if j not in (5, 9)] == [o for j, o in enumerate(ok) if j not in (5, 9)]
 
 
+@pytest.fixture(scope="module")
+def comb_tiled(card, comb_setup):
+    """The comb corpus on the card with key indices past both ends of the
+    table on three lanes, tiled to 8,192 lanes: (table, 17 x 15 rows, lane
+    tensors, prechecks, expected verdicts, the clipped lanes' positions in
+    the corpus, the corpus's length)."""
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    reg, items, want = comb_setup
+    prepared = BV.prepare_packed(items)
+    kidx = np.asarray([reg.index_of(it.public_key) for it in items], dtype=np.int32)
+    clipped = {5: 10 ** 6, 9: -4, 40: len(reg)}
+    for j, k in clipped.items():
+        kidx[j] = k
+    reps = -(-8192 // len(items))
+    tiled = [torch.cat([t] * reps) for t in CC.from_prepared(kidx, prepared, card)]
+    return (reg.device_table(card, layout="radix25"), torch.from_numpy(reg.host_table()).to(card), tiled,
+            np.tile(prepared[6], reps), list(want) * reps, set(clipped), len(items))
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 31, 32, 33, 63, 65, 2752, 5632, 8192])
+def test_comb_team_kernel_equals_plain_chain_at_team_warp_and_block_edges(card, comb_tiled, n):
+    """comb.cu (a team of four lanes a signature, one in each of a block's
+    four warps, 32 signatures a block) at lane counts around a team, a warp
+    and a block, the service's and the cluster's launch sizes and
+    MAX_LAUNCH, with clipped key indices: one launch counted as ``chain``,
+    the plain chain's bitmap lane for lane, the expected verdicts on every
+    lane whose index is the signer's."""
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    table, table15, tiled, pre_ok, want, clipped, m = comb_tiled
+    part = [t[:n] for t in tiled]
+    before = dict(CC.launches)
+    got = CC.verify_comb_prepared(table, *part)
+    assert CC.launches == dict(before, chain=before["chain"] + 1)
+    assert torch.equal(got, comb.verify_comb_prepared(table15, *part))
+    ok = (got.cpu().numpy() & pre_ok[:n]).tolist()
+    kept = [j for j in range(n) if j % m not in clipped]
+    assert [ok[j] for j in kept] == [want[j] for j in kept]
+
+
+def test_comb_team_kernel_accepts_the_host_rejected_lanes_raw(card, comb_setup):
+    """The two lanes the host rejects while the device accepts them (the
+    host leaves h = 0, so the lane checks only [S]B == R): comb.cu's raw
+    bitmap says True on both, as the plain chain's, alone and together; its
+    attributes name a team of four lanes, 128 threads a block and static
+    scratch only."""
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    reg, _, _ = comb_setup
+    signer = cs.make_signers(np.random.default_rng(3), 1)[0]
+    items = cs.host_rejected_items(signer)
+    prepared = BV.prepare_packed(items)
+    assert prepared[6].tolist() == [False, False]
+    kidx = np.asarray([0, reg.index_of(signer.pub)], dtype=np.int32)
+    lanes = CC.from_prepared(kidx, prepared, card)
+    table = reg.device_table(card, layout="radix25")
+    table15 = torch.from_numpy(reg.host_table()).to(card)
+    for n in (1, 2):
+        part = [t[:n] for t in lanes]
+        got = CC.verify_comb_prepared(table, *part)
+        assert got.tolist() == [True] * n
+        assert torch.equal(got, comb.verify_comb_prepared(table15, *part))
+    attrs = CC.kernel_attributes()
+    assert attrs["team"] == 4 and attrs["threads"] == 128 and attrs["dynamic_shared_bytes"] == 0
+    assert attrs["shared_bytes"] >= 32 * 181 * 4
+
+
 def test_comb_wrapper_rejects_what_the_kernel_does_not_take(card, comb_setup):
     from mochi_tpu_torch.crypto import cuda_comb as CC
 

@@ -60,6 +60,7 @@ SHIM = r"""
 #include "ge25519.cuh"
 #include "comb25519.cuh"
 #include "comb_tree.cuh"
+#include "comb_team.cuh"
 #include "verify25519.cuh"
 
 extern "C" {
@@ -130,10 +131,27 @@ void t_comb_madd(int32_t* r, const int32_t* p, const int32_t* entry, int neg) {
   comb_load_niels(&n, entry, neg);
   ge_madd((ge_p3*)r, (const ge_p3*)p, &n);
 }
+// comb.cu's team (comb_team.cuh) as its serial twin: one thread plays
+// every role.  The whole verify:
 int t_comb_verify(const int32_t* table, long long rows, int key_idx,
                   const int32_t* y_r, int sign_r, const uint8_t* s,
                   const uint8_t* h, const int32_t* bcomb) {
-  return comb_verify_one(table, rows, key_idx, y_r, sign_r, s, h, bcomb);
+  ct_area a;
+  return ct_verify(ct_serial_lanes(), &a, table, rows, key_idx, y_r, sign_r, s, h, bcomb);
+}
+int t_ct_team() { return MOCHI_CT_TEAM; }
+int t_ct_first(int r) { return ct_first(r); }
+// Lane r's partial sum (X, Y, Z, T).
+void t_ct_partial(int32_t* q, int r, const int32_t* table, long long rows, int key_idx,
+                  const uint8_t* s, const uint8_t* h, const int32_t* bcomb) {
+  ct_partial((ge_p3*)q, r, table, rows, key_idx, s, h, bcomb);
+}
+// The team's sum of MOCHI_CT_TEAM partial points (40 int32 each).
+void t_ct_sum(int32_t* q, const int32_t* parts) {
+  ct_area a;
+  memcpy(a.part, parts, sizeof(a.part));
+  ct_sum(ct_serial_lanes(), &a);
+  memcpy(q, a.part[0], sizeof(a.part[0]));
 }
 void t_tree_leaf(int32_t* r, const int32_t* entry, int neg) {
   comb_tree_leaf((ge_p3*)r, entry, neg);
@@ -606,8 +624,9 @@ def test_comb_negated_niels_madd_fuzz_at_the_bounds(lib):
 
 
 def test_comb_verify_matches_the_plain_version_lane_for_lane(lib):
-    """The comb header's whole verify (table gather with the index clipped,
-    negated entries, R decode, compare) equals the plain PyTorch comb on
+    """The serial twin of ``comb.cu``'s team (``comb_team.cuh``: table
+    gather with the index clipped, negated entries, the partial sums, R's
+    decode, the team's sum, the compare) equals the plain PyTorch comb on
     every lane, including forged and malformed ones and key indices past
     either end of the table."""
     from mochi_tpu_torch.crypto import batch_verify as BV
@@ -650,6 +669,145 @@ def test_comb_verify_matches_the_plain_version_lane_for_lane(lib):
     want = [keys.verify(it.public_key, it.message, it.signature) for it in items]
     assert [h and ok for h, ok in zip(host, prep[6])][:5] == want[:5]
     assert any(host) and not all(host)
+
+
+def _digits(raw: bytes):
+    """The 64 signed digits of 32 little-endian bytes (recode_signed4)."""
+    out, c = [], 0
+    for k in range(64):
+        t = ((raw[k >> 1] >> (4 * (k & 1))) & 15) + c
+        c = int(t > 8)
+        out.append(t - 16 * c)
+    return out
+
+
+def _clip_row(rows, key_idx, w, mag):
+    return min(max(key_idx * 576 + w * 9 + mag, 0), rows - 1)
+
+
+def test_comb_team_partials_equal_python_ints(lib):
+    """Each lane of ``comb.cu``'s team (``ct_partial``) sums its windows of
+    both tables: on a real signer's table, the partial is [sum of its
+    windows' digits](-A) + [...]B on Python integers; on tables whose
+    limbs are at the canonical maximum (negated by the digit's sign, so
+    every table coordinate entering fe_mul reaches the edge of LOOSE's
+    canonical half), the partial is the mixed-addition formula iterated
+    on Python integers from the identity, with the row index clipped, and
+    every coordinate TIGHT."""
+    import chip_smoke as cs
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    team = lib.t_ct_team()
+    firsts = [lib.t_ct_first(r) for r in range(team + 1)]
+    assert firsts[0] == 0 and firsts[-1] == 64 and firsts == sorted(firsts)
+    lib.t_ct_partial.argtypes = [I32P, ctypes.c_int, I32P, ctypes.c_longlong, ctypes.c_int, U8P, U8P, I32P]
+    rng = random.Random(331)
+    signer = cs.make_signers(np.random.default_rng(332), 1)[0]
+    table = arr(CC.to_radix25(comb.signer_table(signer.pub)))
+    bcomb = _bcomb25()
+    bpt = (F.BX_INT, F.BY_INT)
+    for trial in range(3):
+        s_raw = bytes(rng.randrange(256) for _ in range(32)) if trial else bytes([255] * 32)
+        h_raw = bytes(rng.randrange(256) for _ in range(32))
+        ds, dh = _digits(s_raw), _digits(h_raw)
+        for r in range(team):
+            w0, w1 = lib.t_ct_first(r), lib.t_ct_first(r + 1)
+            k = sum((ds[w] - signer.a * dh[w]) << (4 * w) for w in range(w0, w1))
+            q = np.zeros(40, np.int32)
+            lib.t_ct_partial(ptr(q), r, ptr(table), table.shape[0], 0, (ctypes.c_uint8 * 32).from_buffer_copy(s_raw),
+                             (ctypes.c_uint8 * 32).from_buffer_copy(h_raw), ptr(bcomb))
+            assert _affine(q) == _mul(k % F.L_INT, bpt), (trial, r)
+            assert all(is_tight(q[10 * c : 10 * c + 10]) for c in range(4))
+    # tables at the canonical maximum: the formula on Python integers
+    rows = 2 * 576
+    for trial in range(4):
+        tab = np.array([[MAX_ENTRY if rng.random() < 0.5 else CV.int_to_limbs25(rng.randrange(P))
+                         for _ in range(3)] for _ in range(rows)], dtype=np.int32)
+        bc = np.array([[MAX_ENTRY if rng.random() < 0.5 else CV.int_to_limbs25(rng.randrange(P))
+                        for _ in range(3)] for _ in range(576)], dtype=np.int32)
+        key_idx = (0, 1, -3, 7)[trial]  # in the table, past either end
+        s_raw = bytes(rng.randrange(256) for _ in range(32))
+        h_raw = bytes(rng.randrange(256) for _ in range(32))
+        ds, dh = _digits(s_raw), _digits(h_raw)
+        for r in range(team):
+            want = [0, 1, 1, 0]
+            for w in range(lib.t_ct_first(r), lib.t_ct_first(r + 1)):
+                ent = tab[_clip_row(rows, key_idx, w, abs(dh[w]))]
+                want = _madd_ints(want, [value(c) for c in ent], dh[w] < 0)
+                want = _madd_ints(want, [value(c) for c in bc[w * 9 + abs(ds[w])]], ds[w] < 0)
+            q = np.zeros(40, np.int32)
+            lib.t_ct_partial(ptr(q), r, ptr(arr(tab)), rows, key_idx, (ctypes.c_uint8 * 32).from_buffer_copy(s_raw),
+                             (ctypes.c_uint8 * 32).from_buffer_copy(h_raw), ptr(arr(bc)))
+            assert [value(q[10 * c : 10 * c + 10]) % P for c in range(4)] == want, (trial, r)
+            assert all(is_tight(q[10 * c : 10 * c + 10]) for c in range(4))
+
+
+def test_comb_team_sum_fuzz_at_the_tight_maximum(lib):
+    """The team's sum of the lanes' partial points (``ct_sum``: a tree of
+    ge_to_cached + ge_add, level k adding partial r + 2^k into partial r),
+    with every limb of every partial at the TIGHT maximum (every sign
+    pattern) or random within TIGHT: the addition formula applied in the
+    same tree on Python integers, every output coordinate TIGHT."""
+    team = lib.t_ct_team()
+    rng = random.Random(341)
+    for trial in range(120):
+        parts = [[_tight_max(rng) if trial % 3 else rand_limbs(rng, TIGHT_EVEN, TIGHT_ODD) for _ in range(4)]
+                 for _ in range(team)]
+        ints = [[value(c) for c in pt] for pt in parts]
+        step = 1
+        while step < team:
+            for r in range(0, team - step, 2 * step):
+                X, Y, Z, T = ints[r + step]
+                ints[r] = _add_ints(ints[r], [Y - X, Y + X, 2 * F.D_INT * T, Z], False, False)
+            step *= 2
+        q = np.zeros(40, np.int32)
+        lib.t_ct_sum(ptr(q), ptr(arr([sum(pt, []) for pt in parts])))
+        assert [value(q[10 * c : 10 * c + 10]) % P for c in range(4)] == [v % P for v in ints[0]], trial
+        assert all(is_tight(q[10 * c : 10 * c + 10]) for c in range(4))
+
+
+def test_comb_team_twin_equals_the_plain_chain_on_the_comb_corpus(lib):
+    """The serial twin of ``comb.cu``'s team on ``chip_smoke.py``'s
+    registered-signer corpus (valid, forged, another signer's key,
+    adversarial R and S) with key indices past both ends of the table: the
+    raw bitmap equals the plain chain's lane for lane, and, ANDed with the
+    host prechecks, the expected verdicts and ``keys.verify`` on every lane
+    whose index is the signer's."""
+    import chip_smoke as cs
+    from mochi_tpu_torch.crypto import batch_verify as BV
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    signers = cs.make_signers(np.random.default_rng(351), 4)
+    items, want, kinds = cs.make_comb_corpus(352, 96, signers)
+    assert len(set(kinds)) >= 8
+    reg = comb.SignerRegistry("cpu")
+    reg.register_all([sg.pub for sg in signers])
+    kidx = np.asarray([reg.index_of(it.public_key) for it in items], dtype=np.int32)
+    clipped = {3: -1, 11: -(10 ** 6), 19: len(signers), 27: 10 ** 6}
+    for j, k in clipped.items():
+        kidx[j] = k
+    prep = BV.prepare_packed(items)
+    t15 = reg.device_table("cpu", layout="fe17")
+    plain = comb.verify_comb_prepared(t15, *CC.from_prepared(kidx, prep, "cpu")).tolist()
+    t25 = arr(CC.to_radix25(t15.numpy()))
+    bcomb = _bcomb25()
+    _, _, y_r, sign_r, s_b, h_b, pre_ok = prep
+    lib.t_comb_verify.argtypes = [I32P, ctypes.c_longlong, ctypes.c_int, I32P, ctypes.c_int, U8P, U8P, I32P]
+    host = [
+        bool(lib.t_comb_verify(ptr(t25), t25.shape[0], int(kidx[j]), ptr(arr(y_r[j])), int(sign_r[j]),
+                               np.ascontiguousarray(s_b[j]).ctypes.data_as(U8P),
+                               np.ascontiguousarray(h_b[j]).ctypes.data_as(U8P), ptr(bcomb)))
+        for j in range(len(items))
+    ]
+    assert host == plain
+    final = [h and bool(ok) for h, ok in zip(host, pre_ok)]
+    kept = [j for j in range(len(items)) if j not in clipped]
+    assert [final[j] for j in kept] == [want[j] for j in kept]
+    assert [final[j] for j in kept] == [keys.verify(items[j].public_key, items[j].message, items[j].signature)
+                                        for j in kept]
+    assert 0.3 < np.mean(want) < 0.95
 
 
 # -------------------------------------------------------------------- tree
