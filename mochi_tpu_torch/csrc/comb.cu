@@ -30,13 +30,16 @@
 // through the block's shared scratch (181 words a signature).  A role is a
 // whole warp, so no warp diverges, and each warp carries about a quarter
 // of the signature's multiplies.  The team issues the function's
-// multiplies, 3 team additions of 9 more and each lane's first mixed
-// addition onto the identity (108,425 multiply-adds a signature).
+// multiplies and 3 team additions of 9 more (108,425 multiply-adds a
+// signature).
 //
-// What bounds the launch.  One warp of 32 signatures keeps its scheduler's
-// multiply pipe nearly busy, so a block's time is its busiest warp's work,
-// and a large launch runs in waves of as many blocks as the SMs hold:
-// ptxas's registers decide that (PERF.md has them and the variants
+// What bounds the launch.  A small one runs at the decoding lane's time:
+// R's 274 dependent operations, then its 7 windows.  A large one runs in
+// waves of as many blocks as the SMs hold, which ptxas's registers decide.
+// The field multiply and squaring are compiled once and called by value
+// (MOCHI_FE_CALLED, fe25519.cuh): inlined at each of their call sites they
+// made the kernel 7x larger and held it at 255 registers, and it ran
+// slower at every launch size (PERF.md has these and the team sizes
 // measured).  The tables are read as before: the basepoint comb (64 x 9 x
 // 30 int32 = 69,120 bytes, over the 64 KB __constant__ bank) and the signer
 // rows with __ldg from global memory through L1, the index clipped into

@@ -32,12 +32,10 @@
 // role, and lane l of every warp works on the block's signature l.  A
 // role's code then runs whole warps and no warp diverges (diverged lanes of
 // one warp run in turn, so a decoder lane beside adder lanes in one warp
-// would cost the warp both).  One warp of 32 signatures keeps its
-// scheduler's integer multiply pipe nearly busy (PERF.md), so a block's
-// time is its busiest warp's work: the decode, the one chain that cannot
-// be split (274 dependent operations, ~185 multiplies' worth since most are
-// squarings), shares a warp with fewer windows instead of running beside
-// whole shares.  Nothing is computed twice.
+// would cost the warp both).  The decode is the one chain that cannot be
+// split (274 dependent operations) and sets the floor of a small launch;
+// its lane takes fewer windows so that it ends about when the others do.
+// Nothing is computed twice.
 //
 // Bounds (fe25519.cuh): every point coordinate is TIGHT (an fe_mul output
 // or a constant); a table coordinate entering fe_mul is canonical or
