@@ -29,7 +29,7 @@
 // windows, and the warps add the four partial sums by a tree of two levels
 // through the block's shared scratch (181 words a signature).  A role is a
 // whole warp, so no warp diverges, and each warp carries about a quarter
-// of the signature's multiplies.  The team issues the function's
+// of the signature's multiplies.  The team runs the function's
 // multiplies and 3 team additions of 9 more (108,425 multiply-adds a
 // signature).
 //
