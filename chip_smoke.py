@@ -12,10 +12,10 @@ Phases (any failure exits non-zero and prints no result line):
    ``verify_mxu.cu``, ``comb.cu``, ``comb_mxu.cu``, ``comb_tree.cu``,
    ``comb_tree_mxu.cu`` and ``tally.cu``, one nvcc each, started together;
    report ptxas's registers, spills and shared bytes and each kernel's
-   attributes (both passes of each tree; for ``verify.cu`` and ``comb.cu``
-   also the team size, threads a block and dynamic shared bytes, and from
-   each one's ``cuobjdump -sass`` listing the instructions, IMAD and local
-   stores and loads).
+   attributes (both passes of each tree; for ``verify.cu``, ``comb.cu`` and
+   ``verify_mxu.cu`` also the team size, threads a block and dynamic shared
+   bytes, and from each one's ``cuobjdump -sass`` listing the instructions,
+   IMAD, tensor-core MMAs and local stores and loads).
 3. Kernel vs plain — an 8192-item corpus made from ``--seed``: valid
    signatures from 64 signers, forgeries, and adversarial encodings
    (low-order and mixed-order points, non-points, x = 0 with the sign bit,
@@ -32,16 +32,19 @@ Phases (any failure exits non-zero and prints no result line):
    item, and the bound (integer multiply-adds over the card's IMAD rate)
    beside the multiply-adds the kernel's team issues.
 3m. The mxu kernel (``MOCHI_SKEW_IMPL=mxu``, ``verify_mxu.cu``, every
-   field multiply's column reduction on the integer tensor cores) on phase
-   3's corpus and on a partial last block: its bitmap must equal the plain
-   version under the same switch on the card, ``verify.cu``'s bitmap lane
-   for lane and the expected verdicts, and phase 3's 256 sampled lanes must
-   equal ``keys.verify``.  Its multiply alone (``fe_mul_mxu``) on 65,536
-   random pairs, some with every limb at the limb maximum, must equal the
-   plain ``_mul_mxu`` limb for limb.
-4m. Its times — CUDA events, median over repeats: the kernel at 8192 and
-   65536 lanes, the plain version at 8192, the multiply at 65,536 pairs,
-   each beside its bound.
+   field multiply's column reduction on the integer tensor cores, a team of
+   four lanes a signature) on phase 3's corpus and on a partial last block:
+   its bitmap must equal the plain version under the same switch on the
+   card, ``verify.cu``'s bitmap lane for lane and the expected verdicts, and
+   phase 3's 256 sampled lanes must equal ``keys.verify``.  Its multiply
+   alone (``fe_mul_mxu``) on 65,536 random pairs, some with every limb at
+   the limb maximum, must equal the plain ``_mul_mxu`` limb for limb.
+4m. Its times — CUDA events, median over repeats: the kernel at 2,752,
+   8192 and 65536 lanes, the plain version at 8192, the multiply at 65,536
+   pairs, each beside its bound, and one launch of each lane count of phase
+   4's sweep (1 to 262,144): at each count up to 8192 the bitmap must equal
+   the plain version's, at each up to 65536 ``verify.cu``'s (phase 4's
+   launches on the same lanes) and the expected verdicts.
 5. Service — the main path: ``VerifierService(CudaBatchVerifier())`` on
    loopback with a shared secret, driven by 64 concurrent ``RemoteVerifier``
    clients (one per replica of an n=64, f=21 cluster), each sending
@@ -671,10 +674,12 @@ _SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_
 
 def sass_counts(sass: str) -> dict:
     """Static counts of a ``cuobjdump -sass`` listing: its instructions, the
-    integer multiply-adds among them (IMAD of every width) and the local
-    stores and loads (STL, LDL of every width: spills and stack arrays)."""
+    integer multiply-adds among them (IMAD of every width), the tensor-core
+    MMAs (IMMA, HMMA) and the local stores and loads (STL, LDL of every
+    width: spills and stack arrays)."""
     ops = _SASS_OP.findall(sass)
     return {"instructions": len(ops), "imad": sum(op.startswith("IMAD") for op in ops),
+            "mma": sum(op.startswith(("IMMA", "HMMA")) for op in ops),
             "local_stores": ops.count("STL"), "local_loads": ops.count("LDL")}
 
 
@@ -1206,18 +1211,20 @@ def run(args) -> dict:
             if "Compiling entry" in ln or "registers" in ln or "spill" in ln:
                 res["ptxas"].setdefault(name, []).append(ln.strip())
                 print(f"[build] ptxas {name}: {ln.strip()}", flush=True)
-    sass = subprocess.run([str(Path(kernels.nvcc_path()).parent / "cuobjdump"), "-sass",
-                           str(kernels.library_path("verify"))], capture_output=True, text=True, timeout=120, check=True)
-    res["sass_verify"] = sass_counts(sass.stdout)
-    print(f"[build] sass verify: {res['sass_verify']}", flush=True)
+    ma = res["kernel_attributes"]["verify_mxu"]["verify"]
+    print(f"[build] verify_mxu.cu: a team of {ma['team']} lanes a signature, {ma['threads']} threads a block, "
+          f"{ma['shared_bytes']} static and {ma['dynamic_shared_bytes']} dynamic shared bytes, "
+          f"{ma['registers']} registers, {ma['local_bytes']} local bytes", flush=True)
     ca = res["kernel_attributes"]["comb"]
     print(f"[build] comb.cu: a team of {ca['team']} lanes a signature, {ca['threads']} threads a block, "
           f"{ca['shared_bytes']} static and {ca['dynamic_shared_bytes']} dynamic shared bytes, "
           f"{ca['registers']} registers, {ca['local_bytes']} local bytes", flush=True)
-    sass = subprocess.run([str(Path(kernels.nvcc_path()).parent / "cuobjdump"), "-sass",
-                           str(kernels.library_path("comb"))], capture_output=True, text=True, timeout=120, check=True)
-    res["sass_comb"] = sass_counts(sass.stdout)
-    print(f"[build] sass comb: {res['sass_comb']}", flush=True)
+    for name in ("verify", "verify_mxu", "comb"):
+        sass = subprocess.run([str(Path(kernels.nvcc_path()).parent / "cuobjdump"), "-sass",
+                               str(kernels.library_path(name))], capture_output=True, text=True, timeout=120,
+                              check=True)
+        res[f"sass_{name}"] = sass_counts(sass.stdout)
+        print(f"[build] sass {name}: {res[f'sass_{name}']}", flush=True)
 
     # 3. kernel vs plain on the card
     rng = np.random.default_rng(args.seed)
@@ -1274,12 +1281,14 @@ def run(args) -> dict:
     # launch size: one launch of n lanes, n from 1 to 4 x the large launch;
     # up to the large launch each also against the plain version (phase 3)
     tiled = [torch.cat([t] * 4) for t in big_t]
-    sweep = {}
+    sweep, pad_bits = {}, {}  # pad_bits: verify.cu's bitmap of the first n lanes, for phase 4m
     for n in SWEEP:
         if n <= tiled[0].shape[0]:
             part = [t[:n] for t in tiled]
-            if n <= len(flat) and n not in checked:
-                checked[n] = check_kernel_vs_plain([t[:n] for t in big_t], big[6][:n], flat_want[:n])
+            if n <= len(flat):
+                if n not in checked:
+                    checked[n] = check_kernel_vs_plain([t[:n] for t in big_t], big[6][:n], flat_want[:n])
+                pad_bits[n] = CV.verify_prepared_packed(*[t[:n] for t in big_t]).cpu().numpy()
             ms = _ms_median(lambda: CV.verify_prepared_packed(*part), 1, 5)
             sweep[n] = {"ms": ms, "sigs_per_s": n / (ms / 1e3)}
     print(f"[kernel vs plain] equal at lane counts {sorted(checked)}", flush=True)
@@ -1354,6 +1363,29 @@ def run(args) -> dict:
         mxu_64k = _ms_median(lambda: CV.verify_prepared_packed(*big_t), 1, REPEATS // 4)
         mxu_plain = _ms_median(lambda: curve.verify_prepared_packed(*tens), 1, 3)
         mul_ms = _ms_median(lambda: CV.fe_mul_mxu(mul_at, mul_bt), 3, REPEATS)
+        mxu_wave = _ms_median(lambda: CV.verify_prepared_packed(*[t[:wave] for t in big_t]), 2, REPEATS)
+        # the launch-size sweep: each count up to the corpus against the plain
+        # version, each up to BIG against verify.cu's bitmap and the verdicts
+        msweep, mvs_pad_sweep = {}, {}
+        for n in SWEEP:
+            if n <= len(flat):
+                if n <= len(items) and n not in mcheck:
+                    mcheck[n] = check_kernel_vs_plain([t[:n] for t in big_t], big[6][:n], flat_want[:n])
+                mbits = CV.verify_prepared_packed(*[t[:n] for t in big_t]).cpu().numpy()
+                mvs_pad_sweep[n] = int(np.sum(mbits != pad_bits[n])) + int(np.sum(
+                    np.logical_and(mbits, big[6][:n]) != np.asarray(flat_want[:n], dtype=bool)))
+            part = [t[:n] for t in tiled]
+            ms = _ms_median(lambda: CV.verify_prepared_packed(*part), 1, 5)
+            msweep[n] = {"ms": ms, "sigs_per_s": n / (ms / 1e3)}
+        print(f"[mxu sweep] equal to the plain version at {sorted(mcheck)}, lanes differing from verify.cu or "
+              f"the verdicts {mvs_pad_sweep}", flush=True)
+        if any(mvs_pad_sweep.values()):
+            raise AssertionError(f"mxu kernel disagrees with verify.cu or the verdicts: {mvs_pad_sweep}")
+        muls = CV.MULS_PER_SIGNATURE
+        layout_est = {  # the layout's own work at 8192, an estimate, not a bound
+            "imad": 1e3 * len(items) * muls * CV.PRODUCTS_PER_MUL / rate,
+            "tensor_int8": 1e3 * len(items) * muls * 2 * CV.MMA_MACS_PER_MUL / INT8_OPS_PER_S,
+        }
         mul_bounds = {
             "bytes": 1e3 * BIG * CV.BYTES_PER_MUL / HBM_BYTES_PER_S,
             "imad": 1e3 * BIG * CV.PRODUCTS_PER_MUL / rate,
@@ -1366,7 +1398,11 @@ def run(args) -> dict:
             "over_verify_cu_ms_8192": mxu_8k / ms_8k,
             "mul_ms_65536": mul_ms, "mul_bounds_ms": mul_bounds,
             "mul_bound_by": max(mul_bounds, key=mul_bounds.get),
+            "kernel_ms_2752": mxu_wave, "launch_size_sweep": msweep,
+            "sweep_lanes_differing_from_verify_cu_or_verdicts": mvs_pad_sweep,
+            "layout_estimate_ms_8192": layout_est,
             "attributes": res["kernel_attributes"]["verify_mxu"], "ptxas": res["ptxas"].get("verify_mxu", []),
+            "sass": res["sass_verify_mxu"],
         }
         print(f"[mxu times] {res['mxu_times']}", flush=True)
         # 5m. the service under the switch: every item on the mxu kernel
@@ -1778,10 +1814,14 @@ def run(args) -> dict:
         "name": "ed25519_verify_mxu",
         "route": "cuda",
         "source": "mochi_tpu_torch/csrc/verify_mxu.cu",
+        "design": "a team of 4 lanes a signature, 8 a warp; each lane forms a quarter of a multiply's limb "
+                  "products straight into the m16n8k32 A fragments (csrc/fe17_team.cuh), two independent "
+                  "multiplies a call",
         "replaces": "mochi_tpu/crypto/field.py:330",
         "launches": svc_m["verify_mxu_launches"],
         "max_abs_err": max([*mcheck.values(), mul_err]),
         "ms": mxu_8k,
+        "ms_2752": mxu_wave,
         "ms_65536": mxu_64k,
         "plain_ms": mxu_plain,
         "bound_ms": bound(len(items)),

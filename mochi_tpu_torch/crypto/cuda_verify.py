@@ -11,7 +11,13 @@ reference's multiply reads it while it traces):
   in radix 2^25.5, [S]B from the basepoint comb;
 * ``mxu``: ``csrc/verify_mxu.cu`` (``csrc/fe17.cuh`` under the same curve
   code), the reference's 17 x 15-bit field with every multiply's column
-  reduction an integer tensor-core product, 32 signatures a warp.
+  reduction an integer tensor-core product: a team of four lanes a
+  signature, 8 signatures a warp, each lane forming a quarter of a
+  multiply's limb products straight into the MMA's A fragments
+  (``csrc/fe17_team.cuh``).  That layout's 289 products and splits a
+  multiply (against the kernel radix's 100) and its chain of ~3,430
+  dependent warp-wide multiplies a signature bound it, not the tensor
+  cores.
 
 Both decode A and R, run the 64-window double-scalar multiply and the
 projective compare; each source note says what bounds its kernel and what
@@ -59,6 +65,8 @@ launch_logs = dict.fromkeys(SKEWS)
 # 1,534 squarings of 55.  The data-dependent sqrt(-1) multiply of a decode
 # (at most two per signature) is left out, so a bound built on it errs low.
 IMADS_PER_SIGNATURE = 1897 * 100 + 1534 * 55
+# Field multiplies a signature under ``mxu``, where a squaring is a multiply.
+MULS_PER_SIGNATURE = 1897 + 1534
 # The multiply-adds verify.cu's team of four lanes issues a signature
 # (verify25519.cuh): each lane decodes (A on two lanes, R on two: 4 x (19
 # multiplies + 255 squarings)); the comb's 64 mixed additions of 7 and each
@@ -74,9 +82,10 @@ IMADS_ISSUED_PER_SIGNATURE = (
 # Bytes a multiply of fe_mul_mxu moves: two (17,) int32 operands in, one out.
 BYTES_PER_MUL = 3 * 17 * 4
 # Limb products a multiply forms (17 x 17) and the integer multiply-adds its
-# tensor-core reduction issues: 196 m16n8k32 MMAs a warp of 32 (fe17.cuh).
+# tensor-core reduction issues: 57 m16n8k32 MMAs a warp of 8 signatures
+# (fe17_team.cuh), half of them on the idle rows g + 8.
 PRODUCTS_PER_MUL = 17 * 17
-MMA_MACS_PER_MUL = 196 * 16 * 8 * 32 // 32
+MMA_MACS_PER_MUL = 57 * 16 * 8 * 32 // 8
 
 
 def skew() -> str:
@@ -126,7 +135,7 @@ def _lib(skew_: str = "pad"):
             lib.mochi_ed25519_verify_mxu.restype = ctypes.c_int
             lib.mochi_fe17_mul_mxu.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
             lib.mochi_fe17_mul_mxu.restype = ctypes.c_int
-            lib.mochi_ed25519_verify_mxu_attrs.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
+            lib.mochi_ed25519_verify_mxu_attrs.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 6
             lib.mochi_ed25519_verify_mxu_attrs.restype = ctypes.c_int
             lib._mochi_typed = True
         return lib
@@ -142,13 +151,13 @@ def _lib(skew_: str = "pad"):
 
 def kernel_attributes(skew_: str = "pad") -> dict:
     """Registers per thread, local bytes per thread, static shared bytes and
-    threads per block of ``skew_``'s compiled kernel (cudaFuncGetAttributes);
-    for ``pad`` also the lanes a signature (``team``) and the dynamic shared
-    bytes of a launch; for ``mxu`` one such dict for the verify kernel and
-    one for the batch multiply (``verify``, ``mul``)."""
-    keys = ("registers", "local_bytes", "shared_bytes", "threads")
+    threads per block of ``skew_``'s compiled kernel (cudaFuncGetAttributes),
+    the lanes a signature (``team``) and the dynamic shared bytes of a
+    launch; for ``mxu`` one such dict for the verify kernel and one for the
+    batch multiply (``verify``, ``mul``)."""
+    keys = ("registers", "local_bytes", "shared_bytes", "threads", "team", "dynamic_shared_bytes")
 
-    def query(fn, *which, keys=keys):
+    def query(fn, *which):
         vals = [ctypes.c_int(0) for _ in keys]
         rc = fn(*which, *[ctypes.byref(v) for v in vals])
         if rc:
@@ -158,7 +167,7 @@ def kernel_attributes(skew_: str = "pad") -> dict:
     if skew_ == "mxu":
         fn = _lib("mxu").mochi_ed25519_verify_mxu_attrs
         return {"verify": query(fn, 0), "mul": query(fn, 1)}
-    return query(_lib().mochi_ed25519_verify_attrs, keys=keys + ("team", "dynamic_shared_bytes"))
+    return query(_lib().mochi_ed25519_verify_attrs)
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:

@@ -464,6 +464,7 @@ __device__ __forceinline__ void fe17_steps(fe17_mxu_ctx& c) {
   if constexpr (ST + 1 < MOCHI_MXU_STEPS) fe17_steps<ST + 1>(c);
 }
 
+#if !defined(MOCHI_FE17_TEAM)
 // The warp's multiply: lane l's f * g of its own signature.  All 32 lanes
 // call it together, on blocks of 32 * MOCHI_MXU_WARPS threads.  Operands
 // and result pass by value, so no pointer into the caller's frame crosses
@@ -497,8 +498,27 @@ __device__ __noinline__ fe17 fe17_mul_warp(const fe17 f, const fe17 g) {
   fe17_finish(&h, sm.out + c.lane, MOCHI_MXU_OUT);
   return h;
 }
+#endif  // MOCHI_FE17_TEAM
 
 #endif  // __CUDACC__
+
+#if defined(MOCHI_FE17_TEAM)
+// A kernel that defines MOCHI_FE17_TEAM (verify_mxu.cu) multiplies with
+// fe17_team.cuh's team multiply instead: a team of four lanes a signature,
+// eight signatures a warp, one multiply a call or two (fe_mul2).  It
+// includes that header after this one, which also holds the host twins.
+struct fe17_pair {
+  fe17 a, b;
+};
+#if defined(__CUDACC__)
+__device__ __noinline__ fe17 fe17_mul_team(const fe17 f, const fe17 g);
+__device__ __noinline__ fe17_pair fe17_mul2_team(const fe17 f1, const fe17 g1, const fe17 f2,
+                                                 const fe17 g2);
+#endif
+static inline void fe17_mul_team_host(fe17* h, const fe17* f, const fe17* g);
+static inline void fe17_mul2_team_host(fe17* h1, const fe17* f1, const fe17* g1, fe17* h2,
+                                       const fe17* f2, const fe17* g2);
+#endif
 
 // h = f * g.  Inputs <= LOOSE, output <= LOOSE.
 #if defined(__CUDACC__)
@@ -507,12 +527,35 @@ __host__ __device__ inline
 static inline
 #endif
 void fe_mul(fe17* h, const fe17* f, const fe17* g) {
-#if defined(__CUDA_ARCH__)
+#if defined(__CUDA_ARCH__) && defined(MOCHI_FE17_TEAM)
+  *h = fe17_mul_team(*f, *g);
+#elif defined(__CUDA_ARCH__)
   *h = fe17_mul_warp(*f, *g);
+#elif defined(MOCHI_FE17_TEAM)
+  fe17_mul_team_host(h, f, g);
 #else
   fe17_mul_serial(h, f, g);
 #endif
 }
+
+#if defined(MOCHI_FE17_TEAM)
+// h1 = f1 * g1 and h2 = f2 * g2, independent multiplies of one signature
+// in one team call (the outputs may alias any input).
+#if defined(__CUDACC__)
+__host__ __device__ inline
+#else
+static inline
+#endif
+void fe_mul2(fe17* h1, const fe17* f1, const fe17* g1, fe17* h2, const fe17* f2, const fe17* g2) {
+#if defined(__CUDA_ARCH__)
+  const fe17_pair r = fe17_mul2_team(*f1, *g1, *f2, *g2);
+  *h1 = r.a;
+  *h2 = r.b;
+#else
+  fe17_mul2_team_host(h1, f1, g1, h2, f2, g2);
+#endif
+}
+#endif
 
 // h = f^2 as f * f, as the reference squares under MOCHI_SKEW_IMPL=mxu.
 MOCHI_HD void fe_sq(fe17* h, const fe17* f) { fe_mul(h, f, f); }
@@ -524,6 +567,48 @@ MOCHI_HD void fe_sq_n(fe17* h, const fe17* f, int n) {
 #endif
   for (int i = 1; i < n; ++i) fe_sq(h, h);
 }
+
+#if defined(MOCHI_FE17_TEAM)
+// Two decodes' chains side by side, a fe_mul2 call a step.
+MOCHI_HD void fe_sq2(fe17* h1, const fe17* f1, fe17* h2, const fe17* f2) {
+  fe_mul2(h1, f1, f1, h2, f2, f2);
+}
+
+MOCHI_HD void fe_sq_n2(fe17* h1, const fe17* f1, fe17* h2, const fe17* f2, int n) {
+  fe_sq2(h1, f1, h2, f2);
+#if defined(__CUDA_ARCH__)
+#pragma unroll 1
+#endif
+  for (int i = 1; i < n; ++i) fe_sq2(h1, h1, h2, h2);
+}
+
+// out[k] = z[k]^(2^252 - 3) for k = 0, 1: fe_pow22523's chain on both.
+MOCHI_HD void fe_pow22523_2(fe17* out, const fe17* z) {
+  fe17 z2[2], z9[2], z11[2], t[2], z_5_0[2], z_10_0[2], z_20_0[2], z_50_0[2], z_100_0[2];
+  fe_sq2(&z2[0], &z[0], &z2[1], &z[1]);
+  fe_sq_n2(&t[0], &z2[0], &t[1], &z2[1], 2);
+  fe_mul2(&z9[0], &z[0], &t[0], &z9[1], &z[1], &t[1]);
+  fe_mul2(&z11[0], &z2[0], &z9[0], &z11[1], &z2[1], &z9[1]);
+  fe_sq2(&t[0], &z11[0], &t[1], &z11[1]);
+  fe_mul2(&z_5_0[0], &z9[0], &t[0], &z_5_0[1], &z9[1], &t[1]);
+  fe_sq_n2(&t[0], &z_5_0[0], &t[1], &z_5_0[1], 5);
+  fe_mul2(&z_10_0[0], &t[0], &z_5_0[0], &z_10_0[1], &t[1], &z_5_0[1]);
+  fe_sq_n2(&t[0], &z_10_0[0], &t[1], &z_10_0[1], 10);
+  fe_mul2(&z_20_0[0], &t[0], &z_10_0[0], &z_20_0[1], &t[1], &z_10_0[1]);
+  fe_sq_n2(&t[0], &z_20_0[0], &t[1], &z_20_0[1], 20);
+  fe_mul2(&t[0], &t[0], &z_20_0[0], &t[1], &t[1], &z_20_0[1]);
+  fe_sq_n2(&t[0], &t[0], &t[1], &t[1], 10);
+  fe_mul2(&z_50_0[0], &t[0], &z_10_0[0], &z_50_0[1], &t[1], &z_10_0[1]);
+  fe_sq_n2(&t[0], &z_50_0[0], &t[1], &z_50_0[1], 50);
+  fe_mul2(&z_100_0[0], &t[0], &z_50_0[0], &z_100_0[1], &t[1], &z_50_0[1]);
+  fe_sq_n2(&t[0], &z_100_0[0], &t[1], &z_100_0[1], 100);
+  fe_mul2(&t[0], &t[0], &z_100_0[0], &t[1], &t[1], &z_100_0[1]);
+  fe_sq_n2(&t[0], &t[0], &t[1], &t[1], 50);
+  fe_mul2(&t[0], &t[0], &z_50_0[0], &t[1], &t[1], &z_50_0[1]);
+  fe_sq_n2(&t[0], &t[0], &t[1], &t[1], 2);
+  fe_mul2(&out[0], &t[0], &z[0], &out[1], &t[1], &z[1]);
+}
+#endif
 
 // The decode's parity flip without a branch.
 MOCHI_HD void fe_neg_if(fe17* x, int cond) {

@@ -1,9 +1,11 @@
 // Ed25519 group operations and the cofactorless verify of one signature,
 // for one thread.  Counterpart of the reference package's curve.verify_core
 // (the body of its Pallas kernel, crypto/pallas_verify.py::_kernel).  The
-// one-thread verify below is verify_mxu.cu's, over fe17; verify.cu's
-// verify is verify25519.cuh's, a team of four lanes over these formulas'
-// kernel-radix pieces (decode, mixed addition, recode).
+// verify below is verify_mxu.cu's, over fe17: each of a team's four lanes
+// runs all of it alike, and the team shares every field multiply
+// (fe17_team.cuh); verify.cu's verify is verify25519.cuh's, a team of four
+// lanes over these formulas' kernel-radix pieces (decode, mixed addition,
+// recode).
 //
 // Points are extended twisted-Edwards coordinates (X:Y:Z:T), x = X/Z,
 // y = Y/Z, T = XY/Z, with the complete a = -1 addition law (add-2008-hwcd-3,
@@ -116,6 +118,63 @@ MOCHI_HD void ge_to_cached(ge_cached_t<FE>* r, const ge_p3_t<FE>* p) {
   fe_mul(&r->T2d, &p->T, &d2);
 }
 
+// Under fe17_team.cuh's team multiply (MOCHI_FE17_TEAM: verify_mxu.cu and
+// its host twin) ge_add, ge_madd and ge_dbl hand their independent
+// multiplies to fe_mul2 two at a time: the same formulas and results, in 4
+// calls where there were 7 or 8.  Every other kernel compiles the forms
+// below them, one multiply a call.
+#if defined(MOCHI_FE17_TEAM) && !defined(MOCHI_MXU_UNPAIRED)
+template <class FE>
+MOCHI_HD void ge_add(ge_p3_t<FE>* r, const ge_p3_t<FE>* p, const ge_cached_t<FE>* q) {
+  FE a, b, c, d, e, f, g, h, t, u;
+  fe_sub(&t, &p->Y, &p->X);
+  fe_add(&u, &p->Y, &p->X);
+  fe_mul2(&a, &t, &q->YminusX, &b, &u, &q->YplusX);
+  fe_mul2(&c, &p->T, &q->T2d, &t, &p->Z, &q->Z);
+  fe_add(&d, &t, &t);  // 2 terms
+  fe_sub(&e, &b, &a);  // 2 terms
+  fe_sub(&f, &d, &c);  // 3 terms
+  fe_add(&g, &d, &c);  // 3 terms
+  fe_add(&h, &b, &a);  // 2 terms
+  fe_mul2(&r->X, &e, &f, &r->Y, &g, &h);
+  fe_mul2(&r->Z, &f, &g, &r->T, &e, &h);
+}
+
+template <class FE>
+MOCHI_HD void ge_madd(ge_p3_t<FE>* r, const ge_p3_t<FE>* p, const ge_niels_t<FE>* q) {
+  FE a, b, c, d, e, f, g, h, t, u;
+  fe_sub(&t, &p->Y, &p->X);
+  fe_add(&u, &p->Y, &p->X);
+  fe_mul2(&a, &t, &q->ymx, &b, &u, &q->ypx);
+  fe_mul(&c, &q->xy2d, &p->T);
+  fe_add(&d, &p->Z, &p->Z);  // 2 terms
+  fe_sub(&e, &b, &a);        // 2 terms
+  fe_sub(&f, &d, &c);        // 3 terms
+  fe_add(&g, &d, &c);        // 3 terms
+  fe_add(&h, &b, &a);        // 2 terms
+  fe_mul2(&r->X, &e, &f, &r->Y, &g, &h);
+  fe_mul2(&r->Z, &f, &g, &r->T, &e, &h);
+}
+
+template <class FE>
+MOCHI_HD void ge_dbl(ge_p3_t<FE>* r, const ge_p3_t<FE>* p, int need_t) {
+  FE a, b, c, e, f, g, h, t, u;
+  fe_add(&u, &p->X, &p->Y);
+  fe_mul2(&a, &p->X, &p->X, &b, &p->Y, &p->Y);
+  fe_mul2(&t, &p->Z, &p->Z, &e, &u, &u);
+  fe_add(&c, &t, &t);  // 2 terms
+  fe_add(&h, &a, &b);  // 2 terms
+  fe_sub(&e, &h, &e);  // 3 terms
+  fe_sub(&g, &a, &b);  // 2 terms
+  fe_add(&t, &c, &g);  // 4 terms: carry back to TIGHT
+  fe_carry(&f, &t);
+  fe_mul2(&r->X, &e, &f, &r->Y, &g, &h);
+  if (need_t)
+    fe_mul2(&r->Z, &f, &g, &r->T, &e, &h);
+  else
+    fe_mul(&r->Z, &f, &g);
+}
+#else
 // r = p + q (add-2008-hwcd-3, 8 multiplies).  r may alias p.
 template <class FE>
 MOCHI_HD void ge_add(ge_p3_t<FE>* r, const ge_p3_t<FE>* p, const ge_cached_t<FE>* q) {
@@ -179,6 +238,7 @@ MOCHI_HD void ge_dbl(ge_p3_t<FE>* r, const ge_p3_t<FE>* p, int need_t) {
   fe_mul(&r->Z, &f, &g);
   if (need_t) fe_mul(&r->T, &e, &h);
 }
+#endif  // MOCHI_FE17_TEAM
 
 // RFC 8032 section 5.1.3 decode of (y, sign) with y given as 17 15-bit
 // limbs.  Returns 1 for a point, 0 for a non-point (no square root, or
@@ -221,6 +281,57 @@ MOCHI_HD int ge_decode(ge_p3_t<FE>* r, const int32_t* y15, int stride, int sign)
   fe_mul(&r->T, &x, &y);
   return ok;
 }
+
+#if defined(MOCHI_FE17_TEAM) && !defined(MOCHI_MXU_UNPAIRED)
+// ge_decode of two encodings at once (A's and R's), every multiply of the
+// two chains paired through fe_mul2: 274 team calls instead of 548.
+template <class FE>
+MOCHI_HD void ge_decode2(ge_p3_t<FE>* r, int* ok, const int32_t* y15_0, const int32_t* y15_1,
+                         int stride, const int* sign) {
+  FE y[2], yy[2], u[2], v[2], v3[2], v7[2], t[2], x[2], vxx[2], one, dc, s;
+  fe_from_limbs15(&t[0], y15_0, stride);
+  fe_from_limbs15(&t[1], y15_1, stride);
+  fe_1(&one);
+  fe_const_d(&dc);
+  fe_const_sqrtm1(&s);
+  for (int k = 0; k < 2; ++k) fe_carry(&y[k], &t[k]);
+  fe_mul2(&yy[0], &y[0], &y[0], &yy[1], &y[1], &y[1]);
+  for (int k = 0; k < 2; ++k) fe_sub(&u[k], &yy[k], &one);           // y^2 - 1
+  fe_mul2(&t[0], &yy[0], &dc, &t[1], &yy[1], &dc);
+  for (int k = 0; k < 2; ++k) fe_add(&v[k], &t[k], &one);            // d y^2 + 1
+  fe_mul2(&t[0], &v[0], &v[0], &t[1], &v[1], &v[1]);
+  fe_mul2(&v3[0], &t[0], &v[0], &v3[1], &t[1], &v[1]);               // v^3
+  fe_mul2(&t[0], &v3[0], &v3[0], &t[1], &v3[1], &v3[1]);
+  fe_mul2(&v7[0], &t[0], &v[0], &v7[1], &t[1], &v[1]);               // v^7
+  fe_mul2(&t[0], &u[0], &v7[0], &t[1], &u[1], &v7[1]);
+  fe_pow22523_2(t, t);                                                // (u v^7)^((p-5)/8)
+  fe_mul2(&x[0], &u[0], &v3[0], &x[1], &u[1], &v3[1]);
+  fe_mul2(&x[0], &x[0], &t[0], &x[1], &x[1], &t[1]);                 // candidate root
+  fe_mul2(&t[0], &x[0], &x[0], &t[1], &x[1], &x[1]);
+  fe_mul2(&vxx[0], &v[0], &t[0], &vxx[1], &v[1], &t[1]);
+  int root_neg[2];
+  for (int k = 0; k < 2; ++k) {
+    ok[k] = fe_eq(&vxx[k], &u[k]);
+    fe_add(&t[k], &vxx[k], &u[k]);
+    root_neg[k] = fe_is_zero(&t[k]);                                  // v x^2 == -u
+    ok[k] |= root_neg[k];
+  }
+  fe_mul2(&t[0], &x[0], &s, &t[1], &x[1], &s);                       // the sqrt(-1) fix-up
+  for (int k = 0; k < 2; ++k) {
+    fe_select(&x[k], &t[k], &x[k], root_neg[k]);
+    FE xc;
+    fe_canonical(&xc, &x[k]);
+    int32_t any = 0;
+    for (int i = 0; i < (int)(sizeof(xc.v) / sizeof(xc.v[0])); ++i) any |= xc.v[i];
+    ok[k] &= !(any == 0 && sign[k] == 1);
+    fe_neg_if(&x[k], (xc.v[0] & 1) != sign[k]);
+    fe_copy(&r[k].X, &x[k]);
+    fe_copy(&r[k].Y, &y[k]);
+    fe_1(&r[k].Z);
+  }
+  fe_mul2(&r[0].T, &x[0], &y[0], &r[1].T, &x[1], &y[1]);
+}
+#endif
 
 // 32 little-endian scalar bytes -> 64 signed digits in [-8, 8], exactly the
 // reference's recode: t = nibble + carry, t > 8 -> t - 16 with carry 1; the
@@ -295,13 +406,14 @@ MOCHI_HD void ge_window(ge_p3_t<FE>* q, int dh, int ds,
 }
 
 // Q = [S]B + [h]P with P already negated by the caller (P = -A).
-// The [0..8]P table lives in the thread's local memory (9 x 160 bytes);
+// The [0..8]P table is built in ptab (9 entries the caller provides: the
+// thread's local memory, or, in verify_mxu.cu, its team's shared memory,
+// where the four lanes write the same values and each reads what it wrote);
 // btab points at the [0..8]B Niels table (shared memory in the kernel).
 template <class FE>
 MOCHI_HD void ge_double_scalar_mul(ge_p3_t<FE>* q, const int8_t* s_dig,
                                    const int8_t* h_dig, const ge_p3_t<FE>* p,
-                                   const ge_niels_t<FE>* btab) {
-  ge_cached_t<FE> ptab[9];
+                                   const ge_niels_t<FE>* btab, ge_cached_t<FE>* ptab) {
   ge_small_multiples(ptab, p);
   ge_identity(q);
 #if defined(__CUDA_ARCH__)
@@ -311,26 +423,41 @@ MOCHI_HD void ge_double_scalar_mul(ge_p3_t<FE>* q, const int8_t* s_dig,
 }
 
 // The whole cofactorless verify of one signature: 1 valid, 0 not.
-// y_a / y_r: 17 limbs of 15 bits, `stride` elements apart.
+// y_a / y_r: 17 limbs of 15 bits, `stride` elements apart; ptab: scratch
+// for the [0..8](-A) table (ge_double_scalar_mul).
 template <class FE>
 MOCHI_HD int ed25519_verify_one(const int32_t* y_a, int sign_a,
                                 const int32_t* y_r, int sign_r,
                                 const uint8_t* s_bytes,
                                 const uint8_t* h_bytes, int stride,
-                                const ge_niels_t<FE>* btab) {
+                                const ge_niels_t<FE>* btab, ge_cached_t<FE>* ptab) {
   ge_p3_t<FE> a, r, q;
+#if defined(MOCHI_FE17_TEAM) && !defined(MOCHI_MXU_UNPAIRED)
+  ge_p3_t<FE> ar[2];
+  int oks[2];
+  const int signs[2] = {sign_a, sign_r};
+  ge_decode2(ar, oks, y_a, y_r, stride, signs);
+  a = ar[0];
+  r = ar[1];
+  const int ok_a = oks[0], ok_r = oks[1];
+#else
   const int ok_a = ge_decode(&a, y_a, stride, sign_a);
   const int ok_r = ge_decode(&r, y_r, stride, sign_r);
+#endif
   fe_neg(&a.X, &a.X);  // -A = (-X, Y, Z, -T)
   fe_neg(&a.T, &a.T);
   int8_t s_dig[64], h_dig[64];
   recode_signed4(s_dig, s_bytes);
   recode_signed4(h_dig, h_bytes);
-  ge_double_scalar_mul(&q, s_dig, h_dig, &a, btab);
-  FE t;
+  ge_double_scalar_mul(&q, s_dig, h_dig, &a, btab, ptab);
+  FE t, u;
+#if defined(MOCHI_FE17_TEAM) && !defined(MOCHI_MXU_UNPAIRED)
+  fe_mul2(&t, &r.X, &q.Z, &u, &r.Y, &q.Z);
+#else
   fe_mul(&t, &r.X, &q.Z);
+  fe_mul(&u, &r.Y, &q.Z);
+#endif
   const int eq_x = fe_eq(&q.X, &t);
-  fe_mul(&t, &r.Y, &q.Z);
-  const int eq_y = fe_eq(&q.Y, &t);
+  const int eq_y = fe_eq(&q.Y, &u);
   return ok_a & ok_r & eq_x & eq_y;
 }

@@ -119,9 +119,10 @@ def test_sass_counts_name_every_width_and_predicate():
         /*0040*/              @!P2 STL [R1+0x10], R2 ;                    /* 0x0000100201002387 */
         /*0050*/                   LDL.LU R3, [R1+0x10] ;                 /* 0x0000100001037983 */
         /*0060*/                   LDS R9, [R10] ;                        /* 0x000000000a097984 */
-        /*0070*/                   EXIT ;                                 /* 0x000000000000794d */
+        /*0070*/                   IMMA.16832.U8.U8 R12, R16.ROW, R20.COL, R12 ; /* 0x000000141010723c */
+        /*0080*/                   EXIT ;                                 /* 0x000000000000794d */
     """
-    assert cs.sass_counts(sass) == {"instructions": 8, "imad": 2, "local_stores": 2, "local_loads": 1}
+    assert cs.sass_counts(sass) == {"instructions": 9, "imad": 2, "mma": 1, "local_stores": 2, "local_loads": 1}
 
 
 def test_fails_alone_outside_the_checkout(tmp_path):

@@ -617,6 +617,47 @@ def test_mxu_kernel_equals_its_plain_version_verify_cu_and_the_verdicts(card, co
     assert attrs["verify"]["threads"] % 32 == 0 and attrs["mul"]["registers"] > 0
 
 
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 15, 16, 17, 63, 64, 65, 2752])
+def test_mxu_team_kernel_equals_plain_version_at_team_warp_and_block_edges(card, tiled, monkeypatch, n):
+    """verify_mxu.cu (a team of four lanes a signature, 8 signatures a warp,
+    16 a block of 64 threads) at lane counts around a warp and a block and
+    the service's 2,752: one launch, the plain version's bitmap under
+    ``mxu`` and verify.cu's lane for lane, the expected verdicts."""
+    from mochi_tpu_torch.crypto import field as F
+
+    tens, pre_ok, want = tiled
+    part = [t[:n] for t in tens]
+    pad = CV.verify_prepared_packed(*part)
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    before = dict(CV.launches)
+    got = CV.verify_prepared_packed(*part)
+    assert CV.launches == dict(before, mxu=before["mxu"] + 1)
+    assert torch.equal(got, curve.verify_prepared_packed(*part)) and torch.equal(got, pad)
+    assert (got.cpu().numpy() & pre_ok[:n]).tolist() == want[:n]
+
+
+def test_mxu_team_kernel_accepts_the_host_rejected_lanes_raw(card, monkeypatch):
+    """The two lanes the host rejects while the device accepts them
+    (ROADMAP Queue C): the mxu kernel's raw bitmap says True on both, as
+    the plain version's under ``mxu``, alone and together; the kernel runs
+    teams of four lanes, 64 threads a block, a 2,448-byte table a team in
+    dynamic shared memory."""
+    from mochi_tpu_torch.crypto import field as F
+
+    signer = cs.make_signers(np.random.default_rng(3), 1)[0]
+    prepared = BV.prepare_packed(cs.host_rejected_items(signer))
+    assert prepared[6].tolist() == [False, False]
+    tens = CV.from_reference_prepared(prepared, card)
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    for n in (1, 2):
+        got = CV.verify_prepared_packed(*(t[:n] for t in tens))
+        assert got.tolist() == [True] * n
+        assert torch.equal(got, curve.verify_prepared_packed(*(t[:n] for t in tens)))
+    attrs = CV.kernel_attributes("mxu")
+    assert attrs["verify"]["team"] == 4 and attrs["verify"]["threads"] == 64
+    assert attrs["verify"]["dynamic_shared_bytes"] == 16 * 9 * 4 * 17 * 4
+
+
 def test_mxu_wrappers_reject_what_the_kernels_do_not_take(card, corpus, monkeypatch):
     from mochi_tpu_torch.crypto import field as F
 

@@ -178,15 +178,78 @@ int t_tree_verify(const int32_t* table, long long rows, int key_idx,
 
 SHIM17 = r"""
 #include "fe17.cuh"
+#include "fe17_team.cuh"
 #include "ge25519.cuh"
 #include "comb17.cuh"
 #include "comb_tree17.cuh"
+
+// the words every lane of the played warp forms, step by step (team code)
+template <int ST>
+void team_words(uint32_t* out, const fe17_team_regs<32, 1>& c) {
+  for (int l = 0; l < 32; ++l) {
+    out[(2 * ST) * 32 + l] = fe17_team_word<2 * ST>(c, 0, l);
+    out[(2 * ST + 1) * 32 + l] = fe17_team_word<2 * ST + 1>(c, 0, l);
+  }
+  if constexpr (ST + 1 < MOCHI_MXU_STEPS) team_words<ST + 1>(out, c);
+}
 
 extern "C" {
 // n multiplies, (n, 17) each
 void t17_mul(int32_t* h, const int32_t* f, const int32_t* g, int n) {
   for (int i = 0; i < n; ++i)
     fe_mul((fe17*)(h + 17 * i), (const fe17*)(f + 17 * i), (const fe17*)(g + 17 * i));
+}
+// the same through the team multiply's twin, eight items a played warp
+// (lanes 4p .. 4p+3 item w + p; past n, the last item); h gets lane 4p's
+// product.  With `pair`, each call also multiplies item n - 1 - i in rows
+// g + 8 (fe_mul2's form), into h2.  Returns the count of lanes whose
+// product differs from their team's lane 0.
+int t17_mul_team(int32_t* h, int32_t* h2, const int32_t* f, const int32_t* g, int n, int pair) {
+  int differ = 0;
+  for (int w = 0; w < n; w += 8) {
+    fe17 fs[2][32], gs[2][32], hs[2][32];
+    for (int l = 0; l < 32; ++l) {
+      const int i = w + l / 4 < n ? w + l / 4 : n - 1;
+      fs[0][l] = *(const fe17*)(f + 17 * i), gs[0][l] = *(const fe17*)(g + 17 * i);
+      fs[1][l] = *(const fe17*)(f + 17 * (n - 1 - i)), gs[1][l] = *(const fe17*)(g + 17 * (n - 1 - i));
+    }
+    fe17* const hp[2] = {hs[0], hs[1]};
+    const fe17* const fp[2] = {fs[0], fs[1]};
+    const fe17* const gp[2] = {gs[0], gs[1]};
+    if (pair)
+      fe17_team_muls<2>(fe17_serial_lanes(), hp, fp, gp);
+    else
+      fe17_team_mul(fe17_serial_lanes(), hs[0], fs[0], gs[0]);
+    for (int p = 0; p < 1 + pair; ++p)
+      for (int l = 0; l < 32; ++l) {
+        for (int k = 0; k < 17; ++k) differ += hs[p][l].v[k] != hs[p][l & ~3].v[k];
+        const int i = w + l / 4;
+        if ((l & 3) == 0 && i < n) *(fe17*)((p ? h2 + 17 * (n - 1 - i) : h + 17 * i)) = hs[p][l];
+      }
+  }
+  return differ;
+}
+// one MMA on the played warp's fragments: d (32, 4), a (32, 4), b (32, 2)
+void t17_mma(int32_t* d, const uint32_t* a, const uint32_t* b) {
+  uint32_t a0[32], a1[32], a2[32], a3[32], b0[32], b1[32];
+  for (int l = 0; l < 32; ++l) {
+    a0[l] = a[4 * l], a1[l] = a[4 * l + 1], a2[l] = a[4 * l + 2], a3[l] = a[4 * l + 3];
+    b0[l] = b[2 * l], b1[l] = b[2 * l + 1];
+  }
+  fe17_serial_lanes().mma((int32_t(*)[4])d, a0, a1, a2, a3, b0, b1);
+}
+// the A word of every lane at every half-step, (86, 32), every team on f, g
+void t17_team_words(uint32_t* out, const int32_t* f, const int32_t* g) {
+  fe17 fs[32], gs[32];
+  for (int l = 0; l < 32; ++l) fs[l] = *(const fe17*)f, gs[l] = *(const fe17*)g;
+  fe17_team_regs<32, 1> c;
+  fe17_team_operands(fe17_serial_lanes(), c, 0, fs, gs);
+  team_words<0>(out, c);
+}
+// each (step, n-tile)'s liveness, (43, 9)
+void t17_team_live(int32_t* live) {
+  for (int st = 0; st < MOCHI_MXU_STEPS; ++st)
+    for (int j = 0; j < MOCHI_TEAM17_NTILES; ++j) live[MOCHI_TEAM17_NTILES * st + j] = fe17_ntile_live(st, j);
 }
 void t17_carry2(int32_t* h, const int32_t* cols) { fe17_carry2((fe17*)h, cols); }
 int t17_carry_chain(int32_t* out, const int32_t* cols) { return fe17_carry_chain(out, cols); }
@@ -214,7 +277,8 @@ void t17_schedule(int32_t* slots, int32_t* live) {
 }
 int t17_verify(const int32_t* y_a, int sign_a, const int32_t* y_r, int sign_r,
                const uint8_t* s, const uint8_t* h, const int32_t* btab) {
-  return ed25519_verify_one(y_a, sign_a, y_r, sign_r, s, h, 1, (const ge_niels_t<fe17>*)btab);
+  ge_cached_t<fe17> ptab[9];
+  return ed25519_verify_one(y_a, sign_a, y_r, sign_r, s, h, 1, (const ge_niels_t<fe17>*)btab, ptab);
 }
 void t17_comb_madd(int32_t* r, const int32_t* p, const int32_t* entry, int neg) {
   ge_niels_t<fe17> n;
@@ -240,6 +304,24 @@ int t17_tree_verify(const int32_t* table, long long rows, int key_idx,
                     const int32_t* y_r, int sign_r, const uint8_t* s,
                     const uint8_t* h, const int32_t* bcomb) {
   return comb_tree17_verify_one(table, rows, key_idx, y_r, sign_r, s, h, bcomb);
+}
+}
+"""
+
+# verify_mxu.cu's arithmetic: the whole verify with every multiply through
+# the team multiply's twin and the [0..8](-A) table in caller scratch, as
+# the kernel's team keeps it in shared memory
+SHIM17T = r"""
+#define MOCHI_FE17_TEAM
+#include "fe17.cuh"
+#include "fe17_team.cuh"
+#include "ge25519.cuh"
+
+extern "C" {
+int t17t_verify(const int32_t* y_a, int sign_a, const int32_t* y_r, int sign_r,
+                const uint8_t* s, const uint8_t* h, const int32_t* btab, int32_t* scratch) {
+  return ed25519_verify_one(y_a, sign_a, y_r, sign_r, s, h, 1, (const ge_niels_t<fe17>*)btab,
+                            (ge_cached_t<fe17>*)scratch);
 }
 }
 """
@@ -276,6 +358,11 @@ def lib(tmp_path_factory):
 @pytest.fixture(scope="module")
 def lib17(tmp_path_factory):
     return _build(tmp_path_factory, "kernel_host17", SHIM17)
+
+
+@pytest.fixture(scope="module")
+def lib17t(tmp_path_factory):
+    return _build(tmp_path_factory, "kernel_host17t", SHIM17T)
 
 
 # ------------------------------------------------------------------ helpers
@@ -942,21 +1029,38 @@ def test_tree_verify_matches_the_plain_tree_lane_for_lane(lib):
 # ---------------------------------------------------- the mxu field (fe17)
 
 
-def _mul17(lib17, a, b):
-    """(17, n) operands through the serial twin -> (17, n) int64."""
+def _mul17(lib17, a, b, twin="serial"):
+    """(17, n) operands through the serial twin of the warp's multiply
+    (``serial``) or of the team multiply, one multiply a call (``team``) or
+    two (``team2``: both results must agree), whose four lanes of a
+    signature must all hold the product -> (17, n) int64."""
     a_r, b_r = arr(a.T), arr(b.T)
-    out = np.zeros_like(a_r)
-    lib17.t17_mul(ptr(out), ptr(a_r), ptr(b_r), a_r.shape[0])
+    out, out2 = np.zeros_like(a_r), np.zeros_like(a_r)
+    if twin == "serial":
+        lib17.t17_mul(ptr(out), ptr(a_r), ptr(b_r), a_r.shape[0])
+    else:
+        pair = int(twin == "team2")
+        assert lib17.t17_mul_team(ptr(out), ptr(out2), ptr(a_r), ptr(b_r), a_r.shape[0], pair) == 0
+        if pair:
+            np.testing.assert_array_equal(out2, out)
     return out.T.astype(np.int64)
 
 
-@pytest.mark.parametrize("case", ["random", "loose", "zeros"])
-def test_fe17_serial_mxu_multiply_equals_the_plain_one(lib17, case):
-    """The kernel's multiply in its serial form (the same product bytes, 0/1
-    entries and live tiles as the MMAs) is limb-equal to the plain
-    ``_mul_mxu`` and to the schoolbook, including every limb at LOOSE."""
+@pytest.mark.parametrize(
+    "twin,case",
+    [(t, c) for t in ("serial", "team", "team2") for c in ("random", "loose", "zeros")],
+    ids=["random", "loose", "zeros", "team-random", "team-loose", "team-zeros",
+         "team2-random", "team2-loose", "team2-zeros"],
+)
+def test_fe17_serial_mxu_multiply_equals_the_plain_one(lib17, twin, case):
+    """The kernels' multiplies in their serial forms (the same product
+    bytes, 0/1 entries and live tiles as the MMAs; for the team multiply the
+    same lane shifts, fragments and shuffles, one thread playing the warp,
+    one multiply a call or two sharing the MMAs) are limb-equal to the plain
+    ``_mul_mxu`` and to the schoolbook, including every limb at LOOSE.
+    n = 203 leaves the team's last warp partial."""
     rng = np.random.default_rng({"random": 1, "loose": 2, "zeros": 3}[case])
-    n = 200
+    n = 200 if twin == "serial" else 203
     a = rng.integers(0, F.LOOSE + 1, (F.NLIMBS, n))
     b = rng.integers(0, F.LOOSE + 1, (F.NLIMBS, n))
     if case == "loose":
@@ -966,7 +1070,7 @@ def test_fe17_serial_mxu_multiply_equals_the_plain_one(lib17, case):
         a[:, ::2] = 0
         b[:, 1::3] = 0
         b[:, 0] = 1
-    got = _mul17(lib17, a, b)
+    got = _mul17(lib17, a, b, twin)
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)
     np.testing.assert_array_equal(got, F._mul_mxu(ta, tb).numpy())
     np.testing.assert_array_equal(got, F.mul(ta, tb).numpy())
@@ -994,6 +1098,80 @@ def test_fe17_schedule_covers_every_product_once(lib17):
                     assert live[st, m], (st, q, m)
     assert sorted(seen) == [(i, j) for i in range(17) for j in range(17)]
     assert int(live.sum()) == 49
+
+
+def test_fe17_team_schedule_puts_every_product_in_one_lane_slot(lib17):
+    """The team multiply's products as its lanes form them (operands shifted
+    by the lane, then the words of every half-step): every one of the 289
+    limb products sits in exactly one (lane t, step, half-step) slot, under
+    its half-step's column, lanes t = 0..3 form 85, 76, 68 and 60 of them,
+    every team forms the same, and exactly 57 of the 43 x 9 (step, n-tile)
+    pairs are live: those whose rows a step's columns reach."""
+    one = np.ones(F.NLIMBS, np.int32)
+    ramp = np.arange(1, F.NLIMBS + 1, dtype=np.int32)
+    words = {}
+    for name, f, g in (("i", ramp, one), ("j", one, ramp)):
+        w = np.zeros((86, 32), np.uint32)
+        lib17.t17_team_words(w.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)), ptr(f), ptr(g))
+        words[name] = (w & 0x7FFF) | ((w >> 16) << 15)  # the product back from its word
+        assert (words[name] == np.tile(words[name][:, :4], 8)).all()  # every team alike
+    slots = np.zeros((43 * 8, 2), np.int32)
+    live = np.zeros((43, 5), np.int32)
+    lib17.t17_schedule(ptr(slots), ptr(live))
+    seen, per_lane = [], [0] * 4
+    for h in range(86):
+        col = slots[8 * (h // 2) + 4 * (h % 2), 1]
+        for t in range(4):
+            pi, pj = int(words["i"][h, t]), int(words["j"][h, t])
+            assert (pi == 0) == (pj == 0), (h, t)
+            if pi:
+                i, j = pi - 1, pj - 1
+                assert i + j == col, (h, t, i, j, col)
+                seen.append((i, j))
+                per_lane[t] += 1
+    assert sorted(seen) == [(i, j) for i in range(17) for j in range(17)]
+    assert per_lane == [85, 76, 68, 60]
+    tiles = np.zeros((43, 9), np.int32)
+    lib17.t17_team_live(ptr(tiles))
+    for st in range(43):
+        cols = [slots[8 * st + 4 * q, 1] for q in range(2)]
+        for j in range(9):
+            reach = any(c <= 32 and 2 * c + 3 >= 8 * j and 2 * c <= 8 * j + 7 for c in cols)
+            assert bool(tiles[st, j]) == reach, (st, j)
+    assert int(tiles.sum()) == 57
+
+
+def test_fe17_team_mma_emulation_equals_a_numpy_u8_product(lib17):
+    """The twin's MMA (the 32 lanes' fragments put together by PTX's
+    m16n8k32 .u8 mapping: A rows g and g + 8, bytes 4t.. and 16 + 4t..; B
+    column g; D rows g and g + 8, columns 2t and 2t + 1) equals C + A B
+    computed by numpy on random u8 matrices, bytes at 255 included."""
+    rng = np.random.default_rng(97)
+    for trial in range(8):
+        A = rng.integers(0, 256, (16, 32), dtype=np.uint8)
+        B = rng.integers(0, 256, (32, 8), dtype=np.uint8)
+        if trial == 0:
+            A[:] = 255
+            B[:] = 255
+        C = rng.integers(-(1 << 20), 1 << 20, (16, 8)).astype(np.int32)
+        a = np.zeros((32, 4), np.uint32)
+        b = np.zeros((32, 2), np.uint32)
+        d = np.zeros((32, 4), np.int32)
+        word = lambda v: int(v[0]) | int(v[1]) << 8 | int(v[2]) << 16 | int(v[3]) << 24  # noqa: E731
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            a[lane] = [word(A[g, 4 * t:4 * t + 4]), word(A[g + 8, 4 * t:4 * t + 4]),
+                       word(A[g, 16 + 4 * t:20 + 4 * t]), word(A[g + 8, 16 + 4 * t:20 + 4 * t])]
+            b[lane] = [word(B[4 * t:4 * t + 4, g]), word(B[16 + 4 * t:20 + 4 * t, g])]
+            d[lane] = [C[g, 2 * t], C[g, 2 * t + 1], C[g + 8, 2 * t], C[g + 8, 2 * t + 1]]
+        u32 = ctypes.POINTER(ctypes.c_uint32)
+        lib17.t17_mma(ptr(d), a.ctypes.data_as(u32), b.ctypes.data_as(u32))
+        want = C.astype(np.int64) + A.astype(np.int64) @ B.astype(np.int64)
+        got = np.zeros((16, 8), np.int64)
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            got[g, 2 * t], got[g, 2 * t + 1], got[g + 8, 2 * t], got[g + 8, 2 * t + 1] = d[lane]
+        np.testing.assert_array_equal(got, want)
 
 
 def test_fe17_carries_canonical_and_small_ops_match(lib17):
@@ -1057,6 +1235,29 @@ def test_fe17_verify_equals_the_plain_bitmap_and_keys_verify(lib17):
     want = [keys.verify(it.public_key, it.message, it.signature) for it in items]
     assert [h and bool(ok) for h, ok in zip(host, pre_ok)] == want
     assert any(want) and not all(want)
+
+
+def test_fe17_team_verify_equals_the_serial_twin_and_the_plain_bitmap(lib17, lib17t):
+    """``verify_mxu.cu``'s arithmetic: the whole verify over ``fe17`` with
+    every multiply through the team multiply's twin and the [0..8](-A)
+    table in caller scratch (the team's shared memory on the card) gives, on
+    valid, forged and low-order items, the serial twin's verdict
+    (``t17_verify``) and the plain verify's bitmap lane for lane."""
+    from mochi_tpu_torch.crypto import batch_verify as BV
+    from mochi_tpu_torch.verifier.spi import VerifyItem
+
+    items = [VerifyItem(*t) for t in _items(random.Random(83))]
+    y_a, sign_a, y_r, sign_r, s_b, h_b, pre_ok = BV.prepare_packed(items)
+    btab = arr(CV.basepoint_table17())
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    scratch = np.zeros(9 * 4 * F.NLIMBS, np.int32)
+    args = [(ptr(arr(y_a[j])), int(sign_a[j]), ptr(arr(y_r[j])), int(sign_r[j]),
+             s_b[j].ctypes.data_as(u8), h_b[j].ctypes.data_as(u8), ptr(btab)) for j in range(len(items))]
+    team = [bool(lib17t.t17t_verify(*a, ptr(scratch))) for a in args]
+    assert team == [bool(lib17.t17_verify(*a)) for a in args]
+    plain = C.verify_prepared_packed(*CV.from_reference_prepared(BV.prepare_packed(items), "cpu"))
+    assert team == plain.tolist()
+    assert any(team) and not all(team)
 
 
 def test_fe17_comb_negated_niels_madd_fuzz_at_the_limb_maximum(lib17):
