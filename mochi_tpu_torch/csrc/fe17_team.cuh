@@ -43,11 +43,12 @@
 //
 // The finish.  Lane t holds columns t, t + 4, ..., t + 32.  Limb k = 4m + t
 // of the fold needs column k + 17, which lane t + 1 (mod 4) holds: one
-// shuffle a limb-slot (5).  Then every lane gathers the 17 folded limbs
-// from the team (17 shuffles) and runs carry2 itself, so every team lane
+// shuffle a limb-slot (5).  carry2's two passes run on the lanes' own limbs,
+// each limb's carry from the lane below (5 shuffles a pass), and then every
+// lane gathers the 17 limbs from the team (17 shuffles), so every team lane
 // returns the whole product, as the curve code expects of a field element.
 // Column bounds are fe17.cuh's (a plane row sums at most 34 bytes, a column
-// < 2^21, a folded limb < 2^26).
+// < 2^21, a folded limb < 2^26); the passes are fe17_carry_pass's.
 //
 // The twin.  The multiply is written once over a lane policy LN, as
 // verify25519.cuh and comb_team.cuh are: lane-private values are arrays of
@@ -320,17 +321,38 @@ MOCHI_HD void fe17_team_muls(const LN& ln, fe17* const* h, const fe17* const* f,
       ln.shfl(got, send, src);
       for (int l = 0; l < N; ++l) fold[l][m] = col[l][m] + 19 * got[l];
     }
-    // every lane gathers the 17 limbs (limb k from lane k % 4), then carries
-    int32_t limb[N][17];
+    // carry2, spread over the team: in each pass limb 4m + t keeps its low
+    // 15 bits and takes the carry of limb 4m + t - 1 from lane t - 1 (mod
+    // 4), slot m (slot m - 1 from lane 3 when t = 0); limb 0 takes 19 times
+    // the carry of limb 16, lane 0's own slot 4.  Slots past limb 16 (slot 4
+    // of lanes 1-3) never feed a limb.
+    for (int pass = 0; pass < 2; ++pass) {
+      int32_t next[N][5];
+      for (int m = 0; m < 5; ++m) {
+        for (int l = 0; l < N; ++l) {
+          const int t = ln.lane(l) & 3;
+          send[l] = t == 3 ? (m > 0 ? fold[l][m - 1] : 0) : fold[l][m];
+          src[l] = (t + 3) & 3;
+        }
+        ln.shfl(got, send, src);
+        for (int l = 0; l < N; ++l) {
+          const int t = ln.lane(l) & 3;
+          next[l][m] = (fold[l][m] & MOCHI_FE17_MASK) + (got[l] >> 15) +
+                       (m == 0 && t == 0 ? 19 * (fold[l][4] >> 15) : 0);
+        }
+      }
+      for (int l = 0; l < N; ++l)
+        for (int m = 0; m < 5; ++m) fold[l][m] = next[l][m];
+    }
+    // every lane gathers the 17 limbs (limb k from lane k % 4)
     for (int k = 0; k < 17; ++k) {
       for (int l = 0; l < N; ++l) {
         send[l] = fold[l][k >> 2];
         src[l] = k & 3;
       }
       ln.shfl(got, send, src);
-      for (int l = 0; l < N; ++l) limb[l][k] = got[l];
+      for (int l = 0; l < N; ++l) h[p][l].v[k] = got[l];
     }
-    for (int l = 0; l < N; ++l) fe17_carry2(&h[p][l], limb[l]);
   }
 }
 

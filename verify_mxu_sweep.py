@@ -3,7 +3,7 @@
 
 Run from the root of a checkout:
 
-    python3 verify_mxu_sweep.py [--parent DIR] [--variants a,b,...] [--out F]
+    python3 verify_mxu_sweep.py [--parent [NAME=]DIR ...] [--variants a,b,...] [--out F]
 
 Builds ``verify_mxu.cu`` once per variant (nvcc with extra ``-D`` flags, all
 started together, into ``build/sweep/``), prints each build's ptxas lines
@@ -17,8 +17,9 @@ and ``cuobjdump -sass`` counts, then, for every variant:
 * times one launch at each lane count (CUDA events, median of 5 after a
   warm-up), in two rounds that visit the variants in opposite orders.
 
-``--parent DIR`` adds the kernel of an older checkout unpacked at DIR
-(``git archive``) as the variant ``parent``.  Exits non-zero if any build
+``--parent [NAME=]DIR`` (repeatable) adds the kernel of an older checkout
+unpacked at DIR (``git archive``) as the variant NAME (``parent`` by
+default).  Exits non-zero if any build
 fails or any variant disagrees.
 """
 
@@ -61,7 +62,7 @@ def build(name: str, flags, csrc: Path, out_dir: Path):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--parent", default=None)
+    ap.add_argument("--parent", action="append", default=[])
     ap.add_argument("--variants", default=",".join(VARIANTS))
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -82,8 +83,10 @@ def main(argv=None) -> int:
     root = Path(__file__).resolve().parent
     out_dir = root / "build" / "sweep"
     jobs = {name: build(name, VARIANTS[name], kernels.CSRC, out_dir) for name in args.variants.split(",")}
-    if args.parent:
-        jobs["parent"] = build("parent", [], Path(args.parent).resolve() / "mochi_tpu_torch" / "csrc", out_dir)
+    for spec in args.parent:
+        name, _, tree = spec.rpartition("=")
+        name = name or "parent"
+        jobs[name] = build(name, [], Path(tree).resolve() / "mochi_tpu_torch" / "csrc", out_dir)
     kernels.build_all()  # verify.cu, the reference bitmaps
     libs, failed = {}, []
     cuobjdump = str(Path(kernels.nvcc_path()).parent / "cuobjdump")
