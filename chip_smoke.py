@@ -1381,10 +1381,10 @@ def run(args) -> dict:
               f"the verdicts {mvs_pad_sweep}", flush=True)
         if any(mvs_pad_sweep.values()):
             raise AssertionError(f"mxu kernel disagrees with verify.cu or the verdicts: {mvs_pad_sweep}")
-        muls = CV.MULS_PER_SIGNATURE
         layout_est = {  # the layout's own work at 8192, an estimate, not a bound
-            "imad": 1e3 * len(items) * muls * CV.PRODUCTS_PER_MUL / rate,
-            "tensor_int8": 1e3 * len(items) * muls * 2 * CV.MMA_MACS_PER_MUL / INT8_OPS_PER_S,
+            "products_and_splits": 1e3 * len(items) * CV.MULS_PER_SIGNATURE * CV.PRODUCTS_PER_MUL
+            * CV.OPS_PER_PRODUCT / rate,
+            "tensor_int8": 1e3 * len(items) * CV.MXU_CALLS_PER_SIGNATURE * 2 * CV.MMA_MACS_PER_MUL / INT8_OPS_PER_S,
         }
         mul_bounds = {
             "bytes": 1e3 * BIG * CV.BYTES_PER_MUL / HBM_BYTES_PER_S,

@@ -81,11 +81,20 @@ IMADS_ISSUED_PER_SIGNATURE = (
 
 # Bytes a multiply of fe_mul_mxu moves: two (17,) int32 operands in, one out.
 BYTES_PER_MUL = 3 * 17 * 4
-# Limb products a multiply forms (17 x 17) and the integer multiply-adds its
-# tensor-core reduction issues: 57 m16n8k32 MMAs a warp of 8 signatures
-# (fe17_team.cuh), half of them on the idle rows g + 8.
+# Limb products a multiply forms (17 x 17), the integer operations that
+# form and split one (a multiply-add and two bit operations), and the
+# multiply-adds one signature's share of a team call's tensor-core
+# reduction issues: 57 m16n8k32 MMAs a warp of 8 signatures
+# (fe17_team.cuh).  The batch multiply makes one multiply a call.
 PRODUCTS_PER_MUL = 17 * 17
+OPS_PER_PRODUCT = 3
 MMA_MACS_PER_MUL = 57 * 16 * 8 * 32 // 8
+# Team calls a signature makes in verify_mxu.cu (hand count of ge25519.cuh
+# under MOCHI_FE17_TEAM, counted on its g++ build): 1,308 carrying two
+# multiplies (the table's and the ladder's additions and doublings) and 817
+# carrying one (both decodes, each sqrt(-1) fix-up included, the lone
+# multiplies of the ladder and the table, the compare).
+MXU_CALLS_PER_SIGNATURE = 1308 + 817
 
 
 def skew() -> str:

@@ -41,13 +41,16 @@
 // skipped at compile time (49 of the 215 pairs are live: 196 MMAs a
 // multiply); each finished row tile goes to shared memory and every lane
 // reads back its own 68 rows, recombines the planes, folds by 19 and runs
-// carry2.  Every lane of the warp must call it together.  Only u8 operands
-// with s32 accumulators are used: no f16, bf16, TF32 or f32 product, whose
-// mantissas would truncate the sums (the reference pins precision=HIGHEST
-// against the same trap on the TPU).  The host form is the serial twin:
-// the same product words, the same live tiles and the same 0/1 entries,
-// summed in loops for one signature; the CPU tests hold it limb for limb
-// against the plain PyTorch _mul_mxu.
+// carry2.  Every lane of the warp must call it together.  The comb kernels
+// multiply so; verify_mxu.cu defines MOCHI_FE17_TEAM and multiplies with
+// fe17_team.cuh's team form instead (four lanes a signature, each forming
+// its products straight into the MMA's A fragments).  Only u8 operands
+// with s32 accumulators are used, in either form: no f16, bf16, TF32 or
+// f32 product, whose mantissas would truncate the sums (the reference pins
+// precision=HIGHEST against the same trap on the TPU).  The host form is
+// the serial twin: the same product words, the same live tiles and the
+// same 0/1 entries, summed in loops for one signature; the CPU tests hold
+// it limb for limb against the plain PyTorch _mul_mxu.
 #pragma once
 
 #include <stdint.h>
@@ -567,48 +570,6 @@ MOCHI_HD void fe_sq_n(fe17* h, const fe17* f, int n) {
 #endif
   for (int i = 1; i < n; ++i) fe_sq(h, h);
 }
-
-#if defined(MOCHI_FE17_TEAM)
-// Two decodes' chains side by side, a fe_mul2 call a step.
-MOCHI_HD void fe_sq2(fe17* h1, const fe17* f1, fe17* h2, const fe17* f2) {
-  fe_mul2(h1, f1, f1, h2, f2, f2);
-}
-
-MOCHI_HD void fe_sq_n2(fe17* h1, const fe17* f1, fe17* h2, const fe17* f2, int n) {
-  fe_sq2(h1, f1, h2, f2);
-#if defined(__CUDA_ARCH__)
-#pragma unroll 1
-#endif
-  for (int i = 1; i < n; ++i) fe_sq2(h1, h1, h2, h2);
-}
-
-// out[k] = z[k]^(2^252 - 3) for k = 0, 1: fe_pow22523's chain on both.
-MOCHI_HD void fe_pow22523_2(fe17* out, const fe17* z) {
-  fe17 z2[2], z9[2], z11[2], t[2], z_5_0[2], z_10_0[2], z_20_0[2], z_50_0[2], z_100_0[2];
-  fe_sq2(&z2[0], &z[0], &z2[1], &z[1]);
-  fe_sq_n2(&t[0], &z2[0], &t[1], &z2[1], 2);
-  fe_mul2(&z9[0], &z[0], &t[0], &z9[1], &z[1], &t[1]);
-  fe_mul2(&z11[0], &z2[0], &z9[0], &z11[1], &z2[1], &z9[1]);
-  fe_sq2(&t[0], &z11[0], &t[1], &z11[1]);
-  fe_mul2(&z_5_0[0], &z9[0], &t[0], &z_5_0[1], &z9[1], &t[1]);
-  fe_sq_n2(&t[0], &z_5_0[0], &t[1], &z_5_0[1], 5);
-  fe_mul2(&z_10_0[0], &t[0], &z_5_0[0], &z_10_0[1], &t[1], &z_5_0[1]);
-  fe_sq_n2(&t[0], &z_10_0[0], &t[1], &z_10_0[1], 10);
-  fe_mul2(&z_20_0[0], &t[0], &z_10_0[0], &z_20_0[1], &t[1], &z_10_0[1]);
-  fe_sq_n2(&t[0], &z_20_0[0], &t[1], &z_20_0[1], 20);
-  fe_mul2(&t[0], &t[0], &z_20_0[0], &t[1], &t[1], &z_20_0[1]);
-  fe_sq_n2(&t[0], &t[0], &t[1], &t[1], 10);
-  fe_mul2(&z_50_0[0], &t[0], &z_10_0[0], &z_50_0[1], &t[1], &z_10_0[1]);
-  fe_sq_n2(&t[0], &z_50_0[0], &t[1], &z_50_0[1], 50);
-  fe_mul2(&z_100_0[0], &t[0], &z_50_0[0], &z_100_0[1], &t[1], &z_50_0[1]);
-  fe_sq_n2(&t[0], &z_100_0[0], &t[1], &z_100_0[1], 100);
-  fe_mul2(&t[0], &t[0], &z_100_0[0], &t[1], &t[1], &z_100_0[1]);
-  fe_sq_n2(&t[0], &t[0], &t[1], &t[1], 50);
-  fe_mul2(&t[0], &t[0], &z_50_0[0], &t[1], &t[1], &z_50_0[1]);
-  fe_sq_n2(&t[0], &t[0], &t[1], &t[1], 2);
-  fe_mul2(&out[0], &t[0], &z[0], &out[1], &t[1], &z[1]);
-}
-#endif
 
 // The decode's parity flip without a branch.
 MOCHI_HD void fe_neg_if(fe17* x, int cond) {

@@ -32,6 +32,13 @@
 // only those are issued, chosen at compile time: 57 MMAs a multiply a warp
 // of 8, against fe17_mul_warp's 196 a warp of 32.
 //
+// Two multiplies a call.  Rows g + 8 of A are free, so fe17_mul2_team (the
+// curve code's fe_mul2) puts a second, independent multiply of the same
+// signature there (a1, a3) and reads its columns from D's d2, d3: the same
+// 57 MMAs serve both, and the two chains of products, folds and shuffles
+// overlap in one call.  A signature's verify makes 1,308 such calls and
+// 817 of one multiply (ge25519.cuh under MOCHI_FE17_TEAM).
+//
 // Each lane's products.  Lane t needs f[i] g[s - i] with i = i0 + t for a
 // half-step whose slot 0 takes a-limb i0, column s.  A register array
 // cannot be indexed by the lane's t without going to local memory, so each
@@ -154,16 +161,6 @@ struct fe17_warp_lanes {
         : "r"(a0[0]), "r"(a1[0]), "r"(a2[0]), "r"(a3[0]), "r"(b0[0]), "r"(b1[0]));
 #endif
   }
-#if defined(MOCHI_MXU_M8)
-  // variant: D (8 x 8) += A (8 x 16) B (16 x 8), one half-step an MMA
-  MOCHI_T17_MEMBER void mma8(int32_t* d, uint32_t a, uint32_t b) const {
-#if defined(__CUDA_ARCH__)
-    asm("mma.sync.aligned.m8n8k16.row.col.s32.u8.u8.s32 {%0,%1}, {%2}, {%3}, {%0,%1};\n"
-        : "+r"(d[0]), "+r"(d[1])
-        : "r"(a), "r"(b));
-#endif
-  }
-#endif
   MOCHI_T17_MEMBER void shfl(int32_t* out, const int32_t* in, const int* src) const {
 #if defined(__CUDA_ARCH__)
     out[0] = __shfl_sync(0xffffffffu, in[0], src[0], 4);
@@ -232,26 +229,6 @@ MOCHI_HD void fe17_team_steps(const LN& ln, fe17_team_regs<LN::N, P>& c) {
   if constexpr (ST + 1 < MOCHI_MXU_STEPS) fe17_team_steps<ST + 1>(ln, c);
 }
 
-#if defined(MOCHI_MXU_M8)
-// variant (card only): each half-step H against the n-tiles its column
-// reaches, one m8n8k16 MMA a multiply each (105 a multiply)
-template <int H, int J, class LN, int P>
-MOCHI_HD void fe17_team_half_tiles(const LN& ln, fe17_team_regs<LN::N, P>& c, const uint32_t* a) {
-  constexpr int s = fe17_half_col(H);
-  if constexpr (s <= 32 && 2 * s + 3 >= 8 * J && 2 * s <= 8 * J + 7)
-    for (int p = 0; p < P; ++p) ln.mma8(&c.acc[J][0][2 * p], a[p], fe17_team_b<s, J>(c, 0));
-  if constexpr (J + 1 < MOCHI_TEAM17_NTILES) fe17_team_half_tiles<H, J + 1>(ln, c, a);
-}
-
-template <int H, class LN, int P>
-MOCHI_HD void fe17_team_halves(const LN& ln, fe17_team_regs<LN::N, P>& c) {
-  uint32_t a[P];
-  for (int p = 0; p < P; ++p) a[p] = fe17_team_word<H>(c, p, 0);
-  fe17_team_half_tiles<H, 0>(ln, c, a);
-  if constexpr (H + 1 < 2 * MOCHI_MXU_STEPS - 1) fe17_team_halves<H + 1>(ln, c);
-}
-#endif
-
 // Each lane's shifted operands of multiply p.
 template <class LN, int P>
 MOCHI_HD void fe17_team_operands(const LN& ln, fe17_team_regs<LN::N, P>& c, int p, const fe17* f,
@@ -292,14 +269,7 @@ MOCHI_HD void fe17_team_muls(const LN& ln, fe17* const* h, const fe17* const* f,
   fe17_team_regs<N, P> c;
   for (int p = 0; p < P; ++p) fe17_team_operands(ln, c, p, f[p], g[p]);
   fe17_team_clear(ln, c);
-#if defined(MOCHI_MXU_M8)
-  if constexpr (LN::N == 1)
-    fe17_team_halves<0>(ln, c);
-  else
-    fe17_team_steps<0>(ln, c);
-#else
   fe17_team_steps<0>(ln, c);
-#endif
   for (int p = 0; p < P; ++p) {
     // lane t's columns 4j + t: both byte planes of n-tile j, recombined
     int32_t col[N][MOCHI_TEAM17_NTILES + 1];

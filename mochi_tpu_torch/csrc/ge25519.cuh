@@ -122,8 +122,8 @@ MOCHI_HD void ge_to_cached(ge_cached_t<FE>* r, const ge_p3_t<FE>* p) {
 // its host twin) ge_add, ge_madd and ge_dbl hand their independent
 // multiplies to fe_mul2 two at a time: the same formulas and results, in 4
 // calls where there were 7 or 8.  Every other kernel compiles the forms
-// below them, one multiply a call.
-#if defined(MOCHI_FE17_TEAM) && !defined(MOCHI_MXU_UNPAIRED)
+// below them, one multiply a call, and keeps its code as it was.
+#if defined(MOCHI_FE17_TEAM)
 template <class FE>
 MOCHI_HD void ge_add(ge_p3_t<FE>* r, const ge_p3_t<FE>* p, const ge_cached_t<FE>* q) {
   FE a, b, c, d, e, f, g, h, t, u;
@@ -282,57 +282,6 @@ MOCHI_HD int ge_decode(ge_p3_t<FE>* r, const int32_t* y15, int stride, int sign)
   return ok;
 }
 
-#if defined(MOCHI_FE17_TEAM) && !defined(MOCHI_MXU_UNPAIRED)
-// ge_decode of two encodings at once (A's and R's), every multiply of the
-// two chains paired through fe_mul2: 274 team calls instead of 548.
-template <class FE>
-MOCHI_HD void ge_decode2(ge_p3_t<FE>* r, int* ok, const int32_t* y15_0, const int32_t* y15_1,
-                         int stride, const int* sign) {
-  FE y[2], yy[2], u[2], v[2], v3[2], v7[2], t[2], x[2], vxx[2], one, dc, s;
-  fe_from_limbs15(&t[0], y15_0, stride);
-  fe_from_limbs15(&t[1], y15_1, stride);
-  fe_1(&one);
-  fe_const_d(&dc);
-  fe_const_sqrtm1(&s);
-  for (int k = 0; k < 2; ++k) fe_carry(&y[k], &t[k]);
-  fe_mul2(&yy[0], &y[0], &y[0], &yy[1], &y[1], &y[1]);
-  for (int k = 0; k < 2; ++k) fe_sub(&u[k], &yy[k], &one);           // y^2 - 1
-  fe_mul2(&t[0], &yy[0], &dc, &t[1], &yy[1], &dc);
-  for (int k = 0; k < 2; ++k) fe_add(&v[k], &t[k], &one);            // d y^2 + 1
-  fe_mul2(&t[0], &v[0], &v[0], &t[1], &v[1], &v[1]);
-  fe_mul2(&v3[0], &t[0], &v[0], &v3[1], &t[1], &v[1]);               // v^3
-  fe_mul2(&t[0], &v3[0], &v3[0], &t[1], &v3[1], &v3[1]);
-  fe_mul2(&v7[0], &t[0], &v[0], &v7[1], &t[1], &v[1]);               // v^7
-  fe_mul2(&t[0], &u[0], &v7[0], &t[1], &u[1], &v7[1]);
-  fe_pow22523_2(t, t);                                                // (u v^7)^((p-5)/8)
-  fe_mul2(&x[0], &u[0], &v3[0], &x[1], &u[1], &v3[1]);
-  fe_mul2(&x[0], &x[0], &t[0], &x[1], &x[1], &t[1]);                 // candidate root
-  fe_mul2(&t[0], &x[0], &x[0], &t[1], &x[1], &x[1]);
-  fe_mul2(&vxx[0], &v[0], &t[0], &vxx[1], &v[1], &t[1]);
-  int root_neg[2];
-  for (int k = 0; k < 2; ++k) {
-    ok[k] = fe_eq(&vxx[k], &u[k]);
-    fe_add(&t[k], &vxx[k], &u[k]);
-    root_neg[k] = fe_is_zero(&t[k]);                                  // v x^2 == -u
-    ok[k] |= root_neg[k];
-  }
-  fe_mul2(&t[0], &x[0], &s, &t[1], &x[1], &s);                       // the sqrt(-1) fix-up
-  for (int k = 0; k < 2; ++k) {
-    fe_select(&x[k], &t[k], &x[k], root_neg[k]);
-    FE xc;
-    fe_canonical(&xc, &x[k]);
-    int32_t any = 0;
-    for (int i = 0; i < (int)(sizeof(xc.v) / sizeof(xc.v[0])); ++i) any |= xc.v[i];
-    ok[k] &= !(any == 0 && sign[k] == 1);
-    fe_neg_if(&x[k], (xc.v[0] & 1) != sign[k]);
-    fe_copy(&r[k].X, &x[k]);
-    fe_copy(&r[k].Y, &y[k]);
-    fe_1(&r[k].Z);
-  }
-  fe_mul2(&r[0].T, &x[0], &y[0], &r[1].T, &x[1], &y[1]);
-}
-#endif
-
 // 32 little-endian scalar bytes -> 64 signed digits in [-8, 8], exactly the
 // reference's recode: t = nibble + carry, t > 8 -> t - 16 with carry 1; the
 // carry out of the last window is dropped.
@@ -432,32 +381,18 @@ MOCHI_HD int ed25519_verify_one(const int32_t* y_a, int sign_a,
                                 const uint8_t* h_bytes, int stride,
                                 const ge_niels_t<FE>* btab, ge_cached_t<FE>* ptab) {
   ge_p3_t<FE> a, r, q;
-#if defined(MOCHI_FE17_TEAM) && !defined(MOCHI_MXU_UNPAIRED)
-  ge_p3_t<FE> ar[2];
-  int oks[2];
-  const int signs[2] = {sign_a, sign_r};
-  ge_decode2(ar, oks, y_a, y_r, stride, signs);
-  a = ar[0];
-  r = ar[1];
-  const int ok_a = oks[0], ok_r = oks[1];
-#else
   const int ok_a = ge_decode(&a, y_a, stride, sign_a);
   const int ok_r = ge_decode(&r, y_r, stride, sign_r);
-#endif
   fe_neg(&a.X, &a.X);  // -A = (-X, Y, Z, -T)
   fe_neg(&a.T, &a.T);
   int8_t s_dig[64], h_dig[64];
   recode_signed4(s_dig, s_bytes);
   recode_signed4(h_dig, h_bytes);
   ge_double_scalar_mul(&q, s_dig, h_dig, &a, btab, ptab);
-  FE t, u;
-#if defined(MOCHI_FE17_TEAM) && !defined(MOCHI_MXU_UNPAIRED)
-  fe_mul2(&t, &r.X, &q.Z, &u, &r.Y, &q.Z);
-#else
+  FE t;
   fe_mul(&t, &r.X, &q.Z);
-  fe_mul(&u, &r.Y, &q.Z);
-#endif
   const int eq_x = fe_eq(&q.X, &t);
-  const int eq_y = fe_eq(&q.Y, &u);
+  fe_mul(&t, &r.Y, &q.Z);
+  const int eq_y = fe_eq(&q.Y, &t);
   return ok_a & ok_r & eq_x & eq_y;
 }

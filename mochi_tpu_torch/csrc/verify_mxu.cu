@@ -14,24 +14,29 @@
 // verify.cu's (274,070 integer multiply-adds a signature over the IMAD
 // rate: 0.134 ms at 8192 signatures on a 1980 MHz H100).  This layout pays
 // more than that bound counts: 289 limb products and their byte splits a
-// multiply against the 10-limb radix's 100, on a dependent chain of ~3,430
-// multiplies a signature, each a warp-wide tensor-core reduction (57
-// m16n8k32 MMAs a warp of 8 signatures).  The tensor-core work is small
-// (29,184 multiply-adds a signature-multiply, ~0.83 ms at 8192 signatures
-// at the int8 peak, half of it on the idle rows g + 8); a small launch runs
-// at the latency of that chain, a large one at the issue rate of the
-// products, splits and curve code, which every lane of a team repeats.
+// multiply against the 10-limb radix's 100, on a dependent chain of 3,433
+// multiplies a signature, each a warp-wide tensor-core reduction.  The
+// tensor-core work is small (57 m16n8k32 MMAs a call for 8 signatures,
+// ~0.45 ms at 8192 signatures at the int8 peak).  A launch of up to ~4,000
+// signatures runs at the latency of that chain, one warp a scheduler; a
+// large one at the issue rate of the products, splits, shuffles and curve
+// code, which every lane of a team repeats (PERF.md has both measured).
 //
-// What the design does about it.  Earlier one lane held one signature and
-// a multiply staged every lane's product words in shared memory, reloaded
-// them with ldmatrix, ran 196 MMAs, stored the accumulators and read them
-// back: ~1,550 instructions a lane with 13 warp barriers, 32 signatures a
-// warp.  Here four lanes share a signature and each forms a quarter of its
-// products straight into the A fragments (fe17_team.cuh): 57 MMAs, the
-// columns land in the lanes that fold them, 22 team shuffles, no shared
-// memory and no barrier on the multiply's path.  A launch of n signatures
-// runs n / 8 warps, 4x as many, so a small launch fills 4x the schedulers.
-// Each team's [0..8](-A) table (2,448 bytes) lives in the block's shared
+// What the design does about it.  fe17.cuh's warp-wide multiply (one
+// signature a lane, 32 a warp, as the comb kernels run it) stages every
+// lane's product words in shared memory, reloads them with ldmatrix, runs
+// 196 MMAs and reads the accumulators back: ~1,550 instructions a lane and
+// 13 warp barriers a multiply.  Here four lanes share a signature and each
+// forms a quarter of its products straight into the A fragments
+// (fe17_team.cuh): 57 MMAs, the columns land in the lanes that fold and
+// carry them, 32 team shuffles, no shared memory and no barrier on the
+// multiply's path.  The A rows g + 8 carry a second, independent multiply
+// of the same signature: the additions and doublings hand their multiplies
+// over in pairs (ge25519.cuh, fe_mul2), 2,125 calls a signature instead of
+// 3,433, so two chains overlap in each; the decodes' chains stay one
+// multiply a call.  A launch of n signatures runs n / 8 warps, so a small
+// launch fills 4x the schedulers one signature a lane would.  Each team's
+// [0..8](-A) table (2,448 bytes) lives in the block's dynamic shared
 // memory, written by the four lanes alike, instead of four copies in local
 // memory.  Every lane of a warp must reach every multiply (mma.sync and the
 // shuffles are warp-wide), so teams past the batch verify its last
@@ -47,23 +52,12 @@
 #include "fe17_team.cuh"
 #include "ge25519.cuh"
 
-#ifndef MOCHI_MXU_TEAM_WARPS
-#define MOCHI_MXU_TEAM_WARPS 2  // warps a block
-#endif
-#define MOCHI_MXU_TEAM_THREADS (32 * MOCHI_MXU_TEAM_WARPS)
+#define MOCHI_MXU_TEAM_THREADS 64                            // 2 warps a block
 #define MOCHI_MXU_TEAM_SIGS (MOCHI_MXU_TEAM_THREADS / 4)  // signatures a block
 // Dynamic shared bytes of a launch: the teams' [0..8](-A) tables.
-#if defined(MOCHI_MXU_PTAB_LOCAL)
-#define MOCHI_MXU_PTAB_BYTES 0
-#else
 #define MOCHI_MXU_PTAB_BYTES (MOCHI_MXU_TEAM_SIGS * 9 * (int)sizeof(ge_cached_t<fe17>))
-#endif
 
-#ifndef MOCHI_MXU_MIN_BLOCKS
-#define MOCHI_MXU_MIN_BLOCKS 1
-#endif
-
-__global__ void __launch_bounds__(MOCHI_MXU_TEAM_THREADS, MOCHI_MXU_MIN_BLOCKS)
+__global__ void __launch_bounds__(MOCHI_MXU_TEAM_THREADS)
     mochi_ed25519_verify_mxu_kernel(const int32_t* __restrict__ y_a,
                                     const int32_t* __restrict__ sign_a,
                                     const int32_t* __restrict__ y_r,
@@ -92,13 +86,8 @@ __global__ void __launch_bounds__(MOCHI_MXU_TEAM_THREADS, MOCHI_MXU_MIN_BLOCKS)
     s[k] = __ldg(&s_bytes[(size_t)src * 32 + k]);
     h[k] = __ldg(&h_bytes[(size_t)src * 32 + k]);
   }
-#if defined(MOCHI_MXU_PTAB_LOCAL)
-  ge_cached_t<fe17> ptab[9];
-#else
-  ge_cached_t<fe17>* ptab = ptabs + 9 * team;
-#endif
   const int ok = ed25519_verify_one(ya, __ldg(&sign_a[src]), yr, __ldg(&sign_r[src]), s, h, 1,
-                                    static_cast<const ge_niels_t<fe17>*>(btab), ptab);
+                                    static_cast<const ge_niels_t<fe17>*>(btab), ptabs + 9 * team);
   if (i < n && (threadIdx.x & 3) == 0) out[i] = (uint8_t)ok;
 }
 
@@ -132,9 +121,6 @@ int mochi_ed25519_verify_mxu(const void* y_a, const void* sign_a, const void* y_
                              const void* h_bytes, const void* b_tab, void* out,
                              int n, void* stream) {
   if (n > 0) {
-    if (MOCHI_MXU_PTAB_BYTES > 48 * 1024)
-      cudaFuncSetAttribute(mochi_ed25519_verify_mxu_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, MOCHI_MXU_PTAB_BYTES);
     const int blocks = (n + MOCHI_MXU_TEAM_SIGS - 1) / MOCHI_MXU_TEAM_SIGS;
     mochi_ed25519_verify_mxu_kernel<<<blocks, MOCHI_MXU_TEAM_THREADS, MOCHI_MXU_PTAB_BYTES,
                                       (cudaStream_t)stream>>>(

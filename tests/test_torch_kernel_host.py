@@ -23,7 +23,14 @@ Python integers at the limb maximum, its whole verify against the plain
 chain under ``mxu``, and the comb tree over it (``comb_tree17.cuh``, the
 arithmetic of ``comb_tree_mxu.cu``): its leaf at the limb maximum, its sum,
 its prepare record and its whole verify against Python integers, the plain
-tree under ``mxu`` and the chain over ``fe17``.  ``verify.cu``'s team of four
+tree under ``mxu`` and the chain over ``fe17``.  The team multiply of
+``verify_mxu.cu`` (``fe17_team.cuh``) builds with its serial twin, one
+thread playing the warp's 32 lanes through PTX's m16n8k32 u8 fragment
+mapping: one multiply a call and two are held limb for limb against the
+plain ``_mul_mxu``, its product slots and live tiles are counted, its
+fragment emulation is held against numpy, and the whole verify through it
+(paired curve formulas, the table in caller scratch) against the serial
+twin and the plain bitmap.  ``verify.cu``'s team of four
 lanes (``verify25519.cuh``) builds with its serial twin, one thread playing
 the four lanes: its basepoint comb, its [S]B (the dropped carry too), both
 team steps at the TIGHT maximum, one ladder window, and its whole verify
