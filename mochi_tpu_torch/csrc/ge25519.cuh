@@ -122,7 +122,7 @@ MOCHI_HD void ge_to_cached(ge_cached_t<FE>* r, const ge_p3_t<FE>* p) {
 // its host twin) ge_add, ge_madd and ge_dbl hand their independent
 // multiplies to fe_mul2 two at a time: the same formulas and results, in 4
 // calls where there were 7 or 8.  Every other kernel compiles the forms
-// below them, one multiply a call, and keeps its code as it was.
+// below them, one multiply a call.
 #if defined(MOCHI_FE17_TEAM)
 template <class FE>
 MOCHI_HD void ge_add(ge_p3_t<FE>* r, const ge_p3_t<FE>* p, const ge_cached_t<FE>* q) {

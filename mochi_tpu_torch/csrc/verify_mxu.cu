@@ -17,7 +17,7 @@
 // multiply against the 10-limb radix's 100, on a dependent chain of 3,433
 // multiplies a signature, each a warp-wide tensor-core reduction.  The
 // tensor-core work is small (57 m16n8k32 MMAs a call for 8 signatures,
-// ~0.45 ms at 8192 signatures at the int8 peak).  A launch of up to ~4,000
+// ~0.51 ms at 8192 signatures at the int8 peak).  A launch of up to ~4,000
 // signatures runs at the latency of that chain, one warp a scheduler; a
 // large one at the issue rate of the products, splits, shuffles and curve
 // code, which every lane of a team repeats (PERF.md has both measured).
