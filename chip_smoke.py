@@ -12,10 +12,10 @@ Phases (any failure exits non-zero and prints no result line):
    ``verify_mxu.cu``, ``comb.cu``, ``comb_mxu.cu``, ``comb_tree.cu``,
    ``comb_tree_mxu.cu`` and ``tally.cu``, one nvcc each, started together;
    report ptxas's registers, spills and shared bytes and each kernel's
-   attributes (both passes of each tree; for ``verify.cu``, ``comb.cu`` and
-   ``verify_mxu.cu`` also the team size, threads a block and dynamic shared
-   bytes, and from each one's ``cuobjdump -sass`` listing the instructions,
-   IMAD, tensor-core MMAs and local stores and loads).
+   attributes (both passes of each tree; for ``verify.cu``, ``comb.cu``,
+   ``verify_mxu.cu`` and ``comb_mxu.cu`` also the team size, threads a block
+   and dynamic shared bytes, and from each one's ``cuobjdump -sass`` listing
+   the instructions, IMAD, tensor-core MMAs and local stores and loads).
 3. Kernel vs plain — an 8192-item corpus made from ``--seed``: valid
    signatures from 64 signers, forgeries, and adversarial encodings
    (low-order and mixed-order points, non-points, x = 0 with the sign bit,
@@ -80,7 +80,8 @@ Phases (any failure exits non-zero and prints no result line):
    tree's under its switch).
 6m. The comb chain under ``MOCHI_SKEW_IMPL=mxu`` (``comb_mxu.cu``, the
    chain in the 17 x 15-bit field with every multiply's column reduction on
-   the integer tensor cores, reading the registry's rows as they are) on
+   the integer tensor cores, a team of four lanes a signature, reading the
+   registry's rows as they are) on
    phase 6's corpus at 8192 lanes, a partial last block and the service's
    2,752: its bitmap must equal the plain chain under the same switch on
    the card, ``comb.cu``'s bitmap lane for lane and the expected verdicts,
@@ -89,7 +90,11 @@ Phases (any failure exits non-zero and prints no result line):
 7m. Its times — CUDA events, median over repeats: the kernel at 2,752,
    8192 and 65536 lanes and the plain chain under ``mxu`` at 8192, beside
    the function's bound (the chain's, as phase 7's) and the int8
-   tensor-core reckoning of its multiplies.
+   tensor-core reckoning of its team calls (an estimate, not a bound), and
+   one launch of each lane count of phase 7's sweep (1 to 262,144): at each
+   count up to 8192 the bitmap must equal the plain chain's under ``mxu``,
+   at every count ``comb.cu``'s (on the same lanes) and the expected
+   verdicts.
 6tm. The comb tree under ``MOCHI_SKEW_IMPL=mxu`` (``comb_tree_mxu.cu``, the
    tree's two passes in the 17 x 15-bit field with every multiply on the
    integer tensor cores, reading the registry's rows as they are) on phase
@@ -872,6 +877,21 @@ def cluster_mxu_problems(cl: dict, launched: bool = True, kernel: str = "chain_m
     return problems
 
 
+def sweep_vs(launch, ref_bits, pre_ok, want, counts, time_ms) -> tuple:
+    """A launch-size sweep held against a reference: at each of ``counts``
+    lanes, ``launch(n)``'s bitmap against ``ref_bits[:n]`` (another kernel's
+    on the same lanes) and, ANDed with ``pre_ok``, against ``want``; then
+    ``time_ms(n)``.  Returns ({n: {"ms", "sigs_per_s"}}, {n: lanes
+    differing from the reference plus wrong verdicts})."""
+    sweep, differing = {}, {}
+    for n in counts:
+        bits = np.asarray(launch(n).cpu().numpy(), dtype=bool)
+        differing[n] = int(np.sum(bits != ref_bits[:n])) + int(np.sum(np.logical_and(bits, pre_ok[:n]) != want[:n]))
+        ms = time_ms(n)
+        sweep[n] = {"ms": ms, "sigs_per_s": n / (ms / 1e3)}
+    return sweep, differing
+
+
 def check_comb_vs_plain(table, table15, lanes, pre_ok, want, impl: str = "chain") -> int:
     """The comb kernel of ``impl`` (``chain`` or ``tree``) under the
     multiply switch in effect, reading ``table`` (in its kernel's layout),
@@ -1215,11 +1235,12 @@ def run(args) -> dict:
     print(f"[build] verify_mxu.cu: a team of {ma['team']} lanes a signature, {ma['threads']} threads a block, "
           f"{ma['shared_bytes']} static and {ma['dynamic_shared_bytes']} dynamic shared bytes, "
           f"{ma['registers']} registers, {ma['local_bytes']} local bytes", flush=True)
-    ca = res["kernel_attributes"]["comb"]
-    print(f"[build] comb.cu: a team of {ca['team']} lanes a signature, {ca['threads']} threads a block, "
-          f"{ca['shared_bytes']} static and {ca['dynamic_shared_bytes']} dynamic shared bytes, "
-          f"{ca['registers']} registers, {ca['local_bytes']} local bytes", flush=True)
-    for name in ("verify", "verify_mxu", "comb"):
+    for name in ("comb", "comb_mxu"):
+        ca = res["kernel_attributes"][name]
+        print(f"[build] {name}.cu: a team of {ca['team']} lanes a signature, {ca['threads']} threads a block, "
+              f"{ca['shared_bytes']} static and {ca['dynamic_shared_bytes']} dynamic shared bytes, "
+              f"{ca['registers']} registers, {ca['local_bytes']} local bytes", flush=True)
+    for name in ("verify", "verify_mxu", "comb", "comb_mxu"):
         sass = subprocess.run([str(Path(kernels.nvcc_path()).parent / "cuobjdump"), "-sass",
                                str(kernels.library_path(name))], capture_output=True, text=True, timeout=120,
                               check=True)
@@ -1556,6 +1577,7 @@ def run(args) -> dict:
     skew0 = F.SKEW_IMPL  # MOCHI_SKEW_IMPL, restored after each mxu leg
     table17 = reg.device_table(dev, layout="fe17")
     table17_mismatch = int((table17.cpu() != torch.from_numpy(reg.host_table())).sum())
+    pad_tiled = CC.verify_comb_prepared(table25, *ctiled, multiply="pad").cpu().numpy()  # comb.cu's, for 7m's sweep
     try:
         F.SKEW_IMPL = "mxu"
         mcgot = CC.verify_comb_prepared(table17, *lanes).cpu().numpy()
@@ -1583,19 +1605,36 @@ def run(args) -> dict:
         mc8k = _ms_median(lambda: CC.verify_comb_prepared(table17, *lanes), 2, REPEATS)
         mc64k = _ms_median(lambda: CC.verify_comb_prepared(table17, *big_lanes), 1, REPEATS // 4)
         mcplain = _ms_median(lambda: comb.verify_comb_prepared(table17, *lanes), 1, 3)
+        # the launch-size sweep: each count up to the corpus against the
+        # plain chain, each against comb.cu's bitmap and the verdicts
+        for n in SWEEP:
+            if n <= len(citems) and n not in mccheck:
+                mccheck[n] = _check_comb_at(n, table17, table17, lanes, big_lanes, cprep[6], cwant)
+        reps = ctiled[0].shape[0] // len(citems)
+        mcsweep, mc_vs_sweep = sweep_vs(
+            lambda n: CC.verify_comb_prepared(table17, *[t[:n] for t in ctiled]), pad_tiled,
+            np.tile(cprep[6], reps), np.tile(np.asarray(cwant, dtype=bool), reps), SWEEP,
+            lambda n: _ms_median(lambda: CC.verify_comb_prepared(table17, *[t[:n] for t in ctiled]), 1, 5))
+        print(f"[comb mxu sweep] equal to the plain chain at {sorted(mccheck)}, lanes differing from comb.cu or "
+              f"the verdicts {mc_vs_sweep}", flush=True)
+        if any(mc_vs_sweep.values()):
+            raise AssertionError(f"comb mxu kernel disagrees with comb.cu or the verdicts: {mc_vs_sweep}")
     finally:
         F.SKEW_IMPL = skew0
-    # the int8 tensor-core reckoning of the kernel's own multiplies: each
+    # the int8 tensor-core reckoning of the kernel's own team calls: each
     # multiply-add two operations at the card's dense int8 rate
-    mc_tensor = lambda n: 1e3 * n * CC.MULS_PER_SIGNATURE_MXU * 2 * CC.MMA_MACS_PER_MUL / INT8_OPS_PER_S  # noqa: E731
+    mc_tensor = lambda n: 1e3 * n * CC.MXU_CALLS_PER_SIGNATURE * 2 * CC.MMA_MACS_PER_CALL / INT8_OPS_PER_S  # noqa: E731
     res["comb_mxu_times"] = {
         "kernel_ms_2752": mc_wave, "kernel_ms_8192": mc8k, "kernel_ms_65536": mc64k, "plain_ms_8192": mcplain,
         "bound_ms_8192": cbound(len(citems)), "bound_ms_65536": cbound(BIG), "bound_by": cbound_by,
         "sigs_per_s_8192": len(citems) / (mc8k / 1e3), "sigs_per_s_65536": BIG / (mc64k / 1e3),
-        "muls_per_signature": CC.MULS_PER_SIGNATURE_MXU, "mma_macs_per_mul": CC.MMA_MACS_PER_MUL,
+        "muls_per_signature": CC.MULS_PER_SIGNATURE_MXU, "calls_per_signature": CC.MXU_CALLS_PER_SIGNATURE,
+        "mma_macs_per_call": CC.MMA_MACS_PER_CALL,
         "tensor_int8_ms_8192": mc_tensor(len(citems)), "tensor_int8_ms_65536": mc_tensor(BIG),
+        "launch_size_sweep": mcsweep, "sweep_lanes_differing_from_comb_cu_or_verdicts": mc_vs_sweep,
         "over_comb_cu_ms_8192": mc8k / c8k, "comb_cu_ms_8192": c8k,
         "attributes": res["kernel_attributes"]["comb_mxu"], "ptxas": res["ptxas"].get("comb_mxu", []),
+        "sass": res["sass_comb_mxu"],
     }
     print(f"[comb mxu times] {res['comb_mxu_times']}", flush=True)
 
@@ -1633,13 +1672,13 @@ def run(args) -> dict:
     finally:
         F.SKEW_IMPL = skew0
     # the int8 reckoning of the kernel's own multiplies, as phase 7m's
-    tm_tensor = lambda n: (1e3 * n * CC.MULS_PER_SIGNATURE_TREE_MXU * 2 * CC.MMA_MACS_PER_MUL  # noqa: E731
+    tm_tensor = lambda n: (1e3 * n * CC.MULS_PER_SIGNATURE_TREE_MXU * 2 * CC.MMA_MACS_PER_WARP_MUL  # noqa: E731
                            / INT8_OPS_PER_S)
     res["comb_tree_mxu_times"] = {
         "kernel_ms_2752": tm_wave, "kernel_ms_8192": tm8k, "kernel_ms_65536": tm64k, "plain_ms_8192": tmplain,
         "bound_ms_8192": cbound(len(citems)), "bound_ms_65536": cbound(BIG), "bound_by": cbound_by,
         "sigs_per_s_8192": len(citems) / (tm8k / 1e3), "sigs_per_s_65536": BIG / (tm64k / 1e3),
-        "muls_per_signature": CC.MULS_PER_SIGNATURE_TREE_MXU, "mma_macs_per_mul": CC.MMA_MACS_PER_MUL,
+        "muls_per_signature": CC.MULS_PER_SIGNATURE_TREE_MXU, "mma_macs_per_mul": CC.MMA_MACS_PER_WARP_MUL,
         "tensor_int8_estimate_ms_8192": tm_tensor(len(citems)), "tensor_int8_estimate_ms_65536": tm_tensor(BIG),
         "profiler_ms_per_pass": tmsplit,
         "comb_mxu_cu_over_tree_ms_2752": mc_wave / tm_wave, "comb_mxu_cu_over_tree_ms_8192": mc8k / tm8k,

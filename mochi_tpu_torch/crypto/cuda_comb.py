@@ -15,8 +15,10 @@ follows the pair of switches (:func:`kernel_of`):
 * ``impl="chain"``, ``multiply="mxu"`` (``MOCHI_SKEW_IMPL=mxu``):
   ``csrc/comb_mxu.cu`` (arithmetic in ``csrc/comb17.cuh``), the same chain
   in the reference's 17 x 15-bit field with every multiply's column
-  reduction on the integer tensor cores (``csrc/fe17.cuh``), 32 signatures
-  a warp;
+  reduction on the integer tensor cores, one signature per team of four
+  lanes, 8 a warp, each lane forming a quarter of a multiply's products
+  straight into the MMA's operands (``csrc/fe17_team.cuh``), two
+  multiplies a call where the chain has two independent ones;
 * ``impl="tree"``, ``multiply="pad"``: ``csrc/comb_tree.cu`` (arithmetic
   in ``csrc/comb_tree.cuh``), a prepare pass (R's decode and the digit
   recoding, one thread per signature) and an accumulate pass (the 128
@@ -93,20 +95,26 @@ TREE_RECORD_INTS = 53
 TREE17_RECORD_INTS = 67
 _RECORD_INTS = {"tree": TREE_RECORD_INTS, "tree_mxu": TREE17_RECORD_INTS}
 
-# Multiplies and squarings one signature of the chain under mxu issues
-# (comb_mxu.cu: 128 mixed additions of 7, the decode's 275, its sqrt(-1)
-# multiply included, since over fe17 it is a select that always multiplies,
-# and the compare's 2), and the
-# integer multiply-adds each one's tensor-core reduction issues (196
-# m16n8k32 MMAs a warp of 32, fe17.cuh).
+# Multiplies and squarings one signature of the chain under mxu makes
+# (128 mixed additions of 7, the decode's 275, its sqrt(-1) multiply
+# included, since over fe17 it is a select that always multiplies, and the
+# compare's 2), and the team calls comb_mxu.cu makes for them (comb17.cuh
+# under MOCHI_FE17_TEAM): each mixed addition 3 calls of two multiplies and
+# 1 of one, the compare 1 of two, the decode 275 of one: 385 + 403.
 MULS_PER_SIGNATURE_MXU = 128 * 7 + 275 + 2
-MMA_MACS_PER_MUL = 196 * 16 * 8 * 32 // 32
+MXU_CALLS_PER_SIGNATURE = 128 * 4 + 275 + 1
+# Integer multiply-adds one signature's share of a team call's tensor-core
+# reduction issues: 57 m16n8k32 MMAs a warp of 8 signatures
+# (fe17_team.cuh), one multiply a call or two.
+MMA_MACS_PER_CALL = 57 * 16 * 8 * 32 // 8
 # The same count for the tree under mxu (comb_tree_mxu.cu), in multiplies
 # of one lane's operands: the prepare pass's decode (275, one signature a
 # lane) and the accumulate pass's 76 warp-wide multiplies (a lane's two
 # windows of 10, their sum and 5 levels of 9, the compare's 2), each
-# serving the 32 lanes of one signature.
+# serving the 32 lanes of one signature, and the multiply-adds each one's
+# warp-wide reduction issues (196 m16n8k32 MMAs a warp of 32, fe17.cuh).
 MULS_PER_SIGNATURE_TREE_MXU = 275 + 32 * (2 * (3 + 7) + 9 + 5 * 9 + 2)
+MMA_MACS_PER_WARP_MUL = 196 * 16 * 8 * 32 // 32
 
 # Bytes per signature in and out: key_idx, y_r, sign_r, s, h, the verdict.
 BYTES_PER_SIGNATURE = 4 + 17 * 4 + 4 + 32 + 32 + 1
@@ -215,16 +223,18 @@ def _lib(kernel: str = "chain"):
 
 def _attr_names(kernel: str) -> tuple:
     """What ``kernel``'s attribute query reports, in its order: comb.cu's
-    also its lanes a signature and the dynamic shared bytes of a launch."""
+    and comb_mxu.cu's also their lanes a signature and the dynamic shared
+    bytes of a launch."""
     names = ("registers", "local_bytes", "shared_bytes", "threads")
-    return names + ("team", "dynamic_shared_bytes") if kernel == "chain" else names
+    return names + ("team", "dynamic_shared_bytes") if kernel in ("chain", "chain_mxu") else names
 
 
 def kernel_attributes(kernel: str = "chain") -> dict:
     """Registers per thread, local bytes per thread, static shared bytes and
     threads per block of ``kernel``'s compiled kernel (one of
-    :data:`KERNELS`; cudaFuncGetAttributes), for ``chain`` also the lanes a
-    signature (``team``) and the dynamic shared bytes of a launch; for a
+    :data:`KERNELS`; cudaFuncGetAttributes), for ``chain`` and
+    ``chain_mxu`` also the lanes a signature (``team``) and the dynamic
+    shared bytes of a launch; for a
     tree, one such dict for each pass (``prepare``, ``accumulate``)."""
     fn = getattr(_lib(kernel), _LIBS[kernel][1] + "_attrs")
     names = _attr_names(kernel)

@@ -14,6 +14,15 @@
 // an address (loads need no convergence) and a negative digit's negation is
 // ge_niels_signed's branchless select.
 //
+// Two forms.  comb_mxu.cu defines MOCHI_FE17_TEAM: every multiply is
+// fe17_team.cuh's team multiply (four lanes a signature, each running all
+// of this code alike), ge_madd hands its multiplies over in pairs
+// (ge25519.cuh), and the compare's two go to one fe_mul2, so a signature
+// makes 128 x 4 + 275 + 1 = 788 team calls (R's decode stays one multiply
+// a call).  comb_tree17.cuh (comb_tree_mxu.cu) includes this header without
+// the define and gets the warp-wide form, one multiply a call: 1,173 a
+// signature.
+//
 // Bounds.  Table limbs are canonical, in [0, 2^15).  A negated 2dxy is
 // fe_neg's 2p - x after one carry pass, limbs in [0, LOOSE]; fe_mul takes
 // limbs in [0, LOOSE], so both kinds of entry are in range, and every
@@ -66,9 +75,16 @@ MOCHI_HD int comb17_verify_one(const int32_t* table, int64_t rows, int key_idx,
   ge_p3_t<fe17> r;
   const int ok_r = ge_decode(&r, y_r, 1, sign_r);
   fe17 t;
+#if defined(MOCHI_FE17_TEAM)
+  fe17 u;
+  fe_mul2(&t, &r.X, &q.Z, &u, &r.Y, &q.Z);
+  const int eq_x = fe_eq(&q.X, &t);
+  const int eq_y = fe_eq(&q.Y, &u);
+#else
   fe_mul(&t, &r.X, &q.Z);
   const int eq_x = fe_eq(&q.X, &t);
   fe_mul(&t, &r.Y, &q.Z);
   const int eq_y = fe_eq(&q.Y, &t);
+#endif
   return ok_r & eq_x & eq_y;
 }

@@ -169,6 +169,59 @@ def test_table_radix_check_counts_a_wrong_entry(signers):
     assert cs.check_table_radix(t25, t15) == 1
 
 
+def test_comb_mxu_sweep_rehearsal_on_cpu(signers, monkeypatch):
+    """Phase 7m's launch-size sweep at a small size: the chain under
+    ``mxu`` (on the CPU its plain version, every multiply through
+    ``_mul_mxu``) over the comb corpus tiled past its length, held at each
+    count against the chain under ``pad`` on the same lanes (``comb.cu``'s
+    stand-in) and the expected verdicts: no lane differs, every count is
+    timed; a bitmap with one lane flipped is flagged at every count that
+    reaches the lane and at no other."""
+    import time
+
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+    from mochi_tpu_torch.crypto import field as F
+
+    items, want, _ = cs.make_comb_corpus(8, 10, signers)
+    reg = comb.SignerRegistry("cpu")
+    reg.register_all([s.pub for s in signers])
+    prep = BV.prepare_packed(items)
+    kidx = np.asarray([reg.index_of(i.public_key) for i in items], dtype=np.int32)
+    tiled = [torch.cat([t] * 2) for t in CC.from_prepared(kidx, prep, "cpu")]
+    table = reg.device_table("cpu", layout="fe17")
+    ref = CC.verify_comb_prepared(table, *tiled, multiply="pad").numpy()
+    pre_ok, want2 = np.tile(prep[6], 2), np.tile(np.asarray(want, dtype=bool), 2)
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    used = []
+    real = F._mul_mxu
+    monkeypatch.setattr(F, "_mul_mxu", lambda a, b: used.append(1) or real(a, b))
+
+    def launch(n):
+        return CC.verify_comb_prepared(table, *[t[:n] for t in tiled])
+
+    def host_ms(n):
+        t0 = time.perf_counter()
+        launch(n)
+        return 1e3 * (time.perf_counter() - t0)
+
+    counts = (1, 8, 20)
+    before = dict(CC.launches)
+    sweep, differing = cs.sweep_vs(launch, ref, pre_ok, want2, counts, host_ms)
+    assert used and differing == {1: 0, 8: 0, 20: 0}
+    assert sorted(sweep) == list(counts) and all(v["ms"] > 0 and v["sigs_per_s"] > 0 for v in sweep.values())
+    assert CC.launches == before  # the plain version launches nothing
+
+    def flipped(n):
+        bits = launch(n).clone()
+        if n > 12:
+            bits[12] = ~bits[12]
+        return bits
+
+    _, differing = cs.sweep_vs(flipped, ref, pre_ok, want2, counts, lambda n: 1.0)
+    assert differing[1] == differing[8] == 0 and differing[20] >= 1
+
+
 def test_tree_service_phase_rehearsal_on_cpu(signers, monkeypatch):
     """Phase 8t at a small size: the service with signers under the tree
     switch sends every item down the comb path's tree (its plain version on

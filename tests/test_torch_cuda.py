@@ -390,7 +390,9 @@ def test_comb_mxu_kernel_equals_plain_chain_under_mxu_and_comb_cu(card, comb_set
     """The chain under ``mxu`` (``comb_mxu.cu``) on the registry's 17 x 15
     rows against the plain chain under ``mxu`` and ``comb.cu``'s bitmap:
     600 lanes, a partial last block, one lane past a warp and one lane,
-    indices past both ends of the table, and the expected verdicts."""
+    indices past both ends of the table, and the expected verdicts; the
+    kernel runs teams of four lanes, 64 threads a block, no dynamic shared
+    memory."""
     from mochi_tpu_torch.crypto import comb
     from mochi_tpu_torch.crypto import cuda_comb as CC
     from mochi_tpu_torch.crypto import field as F
@@ -416,6 +418,57 @@ def test_comb_mxu_kernel_equals_plain_chain_under_mxu_and_comb_cu(card, comb_set
     assert [w for j, w in enumerate(want) if j not in (5, 9)] == [o for j, o in enumerate(ok) if j not in (5, 9)]
     attrs = CC.kernel_attributes("chain_mxu")
     assert attrs["threads"] == 64 and attrs["registers"] > 0
+    assert attrs["team"] == 4 and attrs["dynamic_shared_bytes"] == 0 and attrs["local_bytes"] >= 0
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 15, 16, 17, 63, 64, 65, 2752])
+def test_comb_mxu_team_kernel_equals_plain_chain_at_team_warp_and_block_edges(card, comb_tiled, monkeypatch, n):
+    """comb_mxu.cu (a team of four lanes a signature, 8 signatures a warp,
+    16 a block of 64 threads) at lane counts around a warp and a block and
+    the service's 2,752, with clipped key indices: one launch counted as
+    ``chain_mxu``, the plain chain's bitmap under ``mxu`` and comb.cu's lane
+    for lane, the expected verdicts on every lane whose index is the
+    signer's."""
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+    from mochi_tpu_torch.crypto import field as F
+
+    table, table15, tiled, pre_ok, want, clipped, m = comb_tiled
+    part = [t[:n] for t in tiled]
+    pad = CC.verify_comb_prepared(table, *part, multiply="pad")
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    before = dict(CC.launches)
+    got = CC.verify_comb_prepared(table15, *part)
+    assert CC.launches == dict(before, chain_mxu=before["chain_mxu"] + 1)
+    assert torch.equal(got, comb.verify_comb_prepared(table15, *part)) and torch.equal(got, pad)
+    ok = (got.cpu().numpy() & pre_ok[:n]).tolist()
+    kept = [j for j in range(n) if j % m not in clipped]
+    assert [ok[j] for j in kept] == [want[j] for j in kept]
+
+
+def test_comb_mxu_team_kernel_accepts_the_host_rejected_lanes_raw(card, comb_setup, monkeypatch):
+    """The two lanes the host rejects while the device accepts them
+    (ROADMAP Queue C): comb_mxu.cu's raw bitmap says True on both, as the
+    plain chain's under ``mxu``, alone and together."""
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+    from mochi_tpu_torch.crypto import field as F
+
+    reg, _, _ = comb_setup
+    signer = cs.make_signers(np.random.default_rng(3), 1)[0]
+    prepared = BV.prepare_packed(cs.host_rejected_items(signer))
+    assert prepared[6].tolist() == [False, False]
+    kidx = np.asarray([0, reg.index_of(signer.pub)], dtype=np.int32)
+    lanes = CC.from_prepared(kidx, prepared, card)
+    table17 = reg.device_table(card, layout="fe17")
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    before = CC.launches["chain_mxu"]
+    for n in (1, 2):
+        part = [t[:n] for t in lanes]
+        got = CC.verify_comb_prepared(table17, *part)
+        assert got.tolist() == [True] * n
+        assert torch.equal(got, comb.verify_comb_prepared(table17, *part))
+    assert CC.launches["chain_mxu"] == before + 2
 
 
 def test_comb_wrappers_refuse_the_other_layout(card, comb_setup):

@@ -315,20 +315,32 @@ int t17_tree_verify(const int32_t* table, long long rows, int key_idx,
 }
 """
 
-# verify_mxu.cu's arithmetic: the whole verify with every multiply through
-# the team multiply's twin and the [0..8](-A) table in caller scratch, as
-# the kernel's team keeps it in shared memory
+# verify_mxu.cu's and comb_mxu.cu's arithmetic: the whole verify with
+# every multiply through the team multiply's twin and the [0..8](-A) table
+# in caller scratch, as the kernel's team keeps it in shared memory; the
+# comb chain (comb17.cuh) and its mixed addition in their team forms
 SHIM17T = r"""
 #define MOCHI_FE17_TEAM
 #include "fe17.cuh"
 #include "fe17_team.cuh"
 #include "ge25519.cuh"
+#include "comb17.cuh"
 
 extern "C" {
 int t17t_verify(const int32_t* y_a, int sign_a, const int32_t* y_r, int sign_r,
                 const uint8_t* s, const uint8_t* h, const int32_t* btab, int32_t* scratch) {
   return ed25519_verify_one(y_a, sign_a, y_r, sign_r, s, h, 1, (const ge_niels_t<fe17>*)btab,
                             (ge_cached_t<fe17>*)scratch);
+}
+void t17t_comb_madd(int32_t* r, const int32_t* p, const int32_t* entry, int neg) {
+  ge_niels_t<fe17> n;
+  comb17_load_niels(&n, entry, neg);
+  ge_madd((ge_p3_t<fe17>*)r, (const ge_p3_t<fe17>*)p, &n);
+}
+int t17t_comb_verify(const int32_t* table, long long rows, int key_idx,
+                     const int32_t* y_r, int sign_r, const uint8_t* s,
+                     const uint8_t* h, const int32_t* bcomb) {
+  return comb17_verify_one(table, rows, key_idx, y_r, sign_r, s, h, bcomb);
 }
 }
 """
@@ -1267,12 +1279,12 @@ def test_fe17_team_verify_equals_the_serial_twin_and_the_plain_bitmap(lib17, lib
     assert any(team) and not all(team)
 
 
-def test_fe17_comb_negated_niels_madd_fuzz_at_the_limb_maximum(lib17):
-    """The chain's mixed addition over ``fe17`` (``comb17_load_niels``, then
-    ``ge_madd<fe17>``): with the point's limbs at LOOSE or random in [0,
-    LOOSE], and the entry's at the canonical maximum 2^15 - 1 or random,
-    negated or not (``fe_neg``'s 2p - x), the result is the formula mod p
-    with every limb in [0, LOOSE]."""
+def _fuzz_comb17_madd(madd):
+    """``madd`` (a shim's ``comb17_load_niels`` + ``ge_madd<fe17>``) with
+    the point's limbs at LOOSE or random in [0, LOOSE], and the entry's at
+    the canonical maximum 2^15 - 1 or random, negated or not (``fe_neg``'s
+    2p - x): the result is the formula mod p with every limb in [0,
+    LOOSE]."""
     rng = random.Random(151)
     max_entry = [(1 << 15) - 1] * F.NLIMBS
     for trial in range(120):
@@ -1286,11 +1298,26 @@ def test_fe17_comb_negated_niels_madd_fuzz_at_the_limb_maximum(lib17):
             ent = [list(F.int_to_limbs(rng.randrange(P))) for _ in range(3)]
         neg = trial % 4 >= 2
         out = np.zeros(4 * F.NLIMBS, np.int32)
-        lib17.t17_comb_madd(ptr(out), ptr(arr(sum(pt, []))), ptr(arr(sum(ent, []))), int(neg))
+        madd(ptr(out), ptr(arr(sum(pt, []))), ptr(arr(sum(ent, []))), int(neg))
         want = _madd_ints([F.limbs_to_int(c) for c in pt], [F.limbs_to_int(c) for c in ent], neg)
         got = [F.limbs_to_int(out[F.NLIMBS * k : F.NLIMBS * (k + 1)]) % P for k in range(4)]
         assert got == want, trial
         assert out.min() >= 0 and out.max() <= F.LOOSE, trial
+
+
+def test_fe17_comb_negated_niels_madd_fuzz_at_the_limb_maximum(lib17):
+    """The chain's mixed addition over ``fe17`` (``comb17_load_niels``, then
+    ``ge_madd<fe17>``, one multiply a call) at the limb maximum, negated
+    entries too, against the formula on Python integers."""
+    _fuzz_comb17_madd(lib17.t17_comb_madd)
+
+
+def test_fe17_team_comb_negated_niels_madd_fuzz_at_the_limb_maximum(lib17t):
+    """The same mixed addition in ``comb_mxu.cu``'s team form: its paired
+    multiplies (``fe_mul2``) and the lone one through the team multiply's
+    twin, at the limb maximum, negated entries too, against the formula on
+    Python integers."""
+    _fuzz_comb17_madd(lib17t.t17t_comb_madd)
 
 
 def test_fe17_comb_verify_equals_the_plain_chain_under_mxu_lane_for_lane(lib17, monkeypatch):
@@ -1344,6 +1371,57 @@ def test_fe17_comb_verify_equals_the_plain_chain_under_mxu_lane_for_lane(lib17, 
     want = [keys.verify(it.public_key, it.message, it.signature) for it in items]
     assert [h and ok for h, ok in zip(host, prep[6])][:4] == want[:4]
     assert any(host) and not all(host)
+
+
+def test_fe17_team_comb_verify_equals_the_serial_twin_the_plain_chain_and_keys_verify(lib17, lib17t, monkeypatch):
+    """``comb_mxu.cu``'s arithmetic: the comb chain over ``fe17`` with every
+    multiply through the team multiply's twin, the mixed additions and the
+    compare paired (``fe_mul2``), on ``chip_smoke.py``'s registered-signer
+    corpus (valid, forged, another signer's key, adversarial R and S) with
+    key indices past both ends of the table: the raw bitmap equals the
+    serial twin's (``t17_comb_verify``) and the plain chain's under ``mxu``
+    lane for lane, and, ANDed with the host prechecks, the expected
+    verdicts and ``keys.verify`` on every lane whose index is the
+    signer's."""
+    import chip_smoke as cs
+    from mochi_tpu_torch.crypto import batch_verify as BV
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    signers = cs.make_signers(np.random.default_rng(353), 4)
+    items, want, kinds = cs.make_comb_corpus(354, 64, signers)
+    assert len(set(kinds)) >= 8
+    reg = comb.SignerRegistry("cpu")
+    reg.register_all([sg.pub for sg in signers])
+    kidx = np.asarray([reg.index_of(it.public_key) for it in items], dtype=np.int32)
+    clipped = {3: -1, 11: -(10 ** 6), 19: len(signers), 27: 10 ** 6}
+    for j, k in clipped.items():
+        kidx[j] = k
+    prep = BV.prepare_packed(items)
+    t15 = reg.device_table("cpu", layout="fe17")
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    used = []
+    real = F._mul_mxu
+    monkeypatch.setattr(F, "_mul_mxu", lambda a, b: used.append(1) or real(a, b))
+    plain = comb.verify_comb_prepared(t15, *CC.from_prepared(kidx, prep, "cpu")).tolist()
+    assert used
+    table = arr(t15.numpy())
+    bcomb = arr(comb._b_comb().reshape(-1, comb.ROW_WIDTH))
+    _, _, y_r, sign_r, s_b, h_b, pre_ok = prep
+    argtypes = [I32P, ctypes.c_longlong, ctypes.c_int, I32P, ctypes.c_int, U8P, U8P, I32P]
+    lib17.t17_comb_verify.argtypes = lib17t.t17t_comb_verify.argtypes = argtypes
+    args = [(ptr(table), table.shape[0], int(kidx[j]), ptr(arr(y_r[j])), int(sign_r[j]),
+             np.ascontiguousarray(s_b[j]).ctypes.data_as(U8P), np.ascontiguousarray(h_b[j]).ctypes.data_as(U8P),
+             ptr(bcomb)) for j in range(len(items))]
+    team = [bool(lib17t.t17t_comb_verify(*a)) for a in args]
+    assert team == [bool(lib17.t17_comb_verify(*a)) for a in args]
+    assert team == plain
+    final = [t and bool(ok) for t, ok in zip(team, pre_ok)]
+    kept = [j for j in range(len(items)) if j not in clipped]
+    assert [final[j] for j in kept] == [want[j] for j in kept]
+    assert [final[j] for j in kept] == [keys.verify(items[j].public_key, items[j].message, items[j].signature)
+                                        for j in kept]
+    assert 0.3 < np.mean(want) < 0.95
 
 
 # ------------------------------------------------ the comb tree over fe17
