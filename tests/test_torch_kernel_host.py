@@ -24,13 +24,17 @@ chain under ``mxu``, and the comb tree over it (``comb_tree17.cuh``, the
 arithmetic of ``comb_tree_mxu.cu``): its leaf at the limb maximum, its sum,
 its prepare record and its whole verify against Python integers, the plain
 tree under ``mxu`` and the chain over ``fe17``.  The team multiply of
-``verify_mxu.cu`` (``fe17_team.cuh``) builds with its serial twin, one
-thread playing the warp's 32 lanes through PTX's m16n8k32 u8 fragment
-mapping: one multiply a call and two are held limb for limb against the
-plain ``_mul_mxu``, its product slots and live tiles are counted, its
-fragment emulation is held against numpy, and the whole verify through it
-(paired curve formulas, the table in caller scratch) against the serial
-twin and the plain bitmap.  ``verify.cu``'s team of four
+``verify_mxu.cu`` and ``comb_mxu.cu`` (``fe17_team.cuh``) builds with its
+serial twin, one thread playing the warp's 32 lanes through PTX's
+m16n8k32 u8 fragment mapping: one multiply a call and two are held limb
+for limb against the plain ``_mul_mxu``, its product slots and live tiles
+are counted, its fragment emulation is held against numpy, the whole
+verify through it (paired curve formulas, the table in caller scratch)
+against the serial twin and the plain bitmap, and the comb chain through
+it (paired mixed additions and compare): its mixed addition at the limb
+maximum against Python integers, its whole verify on the comb corpus
+against the serial twin, the plain chain under ``mxu`` and
+``keys.verify``.  ``verify.cu``'s team of four
 lanes (``verify25519.cuh``) builds with its serial twin, one thread playing
 the four lanes: its basepoint comb, its [S]B (the dropped carry too), both
 team steps at the TIGHT maximum, one ladder window, and its whole verify
