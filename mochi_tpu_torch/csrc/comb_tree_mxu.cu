@@ -23,10 +23,9 @@
 // sum), then 5 levels take the partner's point by __shfl_down_sync at
 // offsets 16 ... 1 (4 x 17 int32 a point), and the sum lands on lane 0.
 // Every lane calls fe17_mul_warp on its own operands, so the warp-wide
-// multiply serves 32 tree nodes of one signature as it once served 32
-// signatures in comb_mxu.cu; a lane's dependent chain is 76 multiplies
-// (74 for its windows and the levels, 2 for the compare) instead of the
-// chain's 1,173.
+// multiply serves 32 tree nodes of one signature; a lane's dependent chain
+// is 76 multiplies (74 for its windows and the levels, 2 for the compare)
+// instead of the chain's 1,173.
 //
 // Convergence.  mma.sync is warp-wide and a diverged warp traps in the
 // multiply: the accumulate pass leaves only as a whole warp (sig >= n),
