@@ -234,8 +234,8 @@ def kernel_attributes(kernel: str = "chain") -> dict:
     threads per block of ``kernel``'s compiled kernel (one of
     :data:`KERNELS`; cudaFuncGetAttributes), for ``chain`` and
     ``chain_mxu`` also the lanes a signature (``team``) and the dynamic
-    shared bytes of a launch; for a
-    tree, one such dict for each pass (``prepare``, ``accumulate``)."""
+    shared bytes of a launch; for a tree, one such dict for each pass
+    (``prepare``, ``accumulate``)."""
     fn = getattr(_lib(kernel), _LIBS[kernel][1] + "_attrs")
     names = _attr_names(kernel)
 

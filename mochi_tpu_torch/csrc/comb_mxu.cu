@@ -21,31 +21,31 @@
 // of 7, R's decode of 275, the compare's 2), each of 289 limb products and
 // their byte splits, each a warp-wide tensor-core reduction.  So a launch
 // runs at the latency of that chain, and a large one at the issue rate of
-// the products, splits, shuffles and curve code.
+// the products, splits, shuffles and curve code, which every lane of a team
+// repeats (PERF.md has both measured).
 //
-// What the design does about it.  fe17.cuh's warp-wide multiply (one
-// signature a lane, 32 a warp, as comb_tree_mxu.cu still runs it) stages
-// every lane's product words in shared memory, reloads them with ldmatrix,
-// runs 196 MMAs and reads the accumulators back: ~1,550 instructions a lane
-// and 13 warp barriers a multiply, ~4 us each on the chain.  Here four
-// lanes share a signature and each forms a quarter of its products straight
-// into the A fragments (fe17_team.cuh): 57 MMAs a call, no shared memory
-// and no barrier on the multiply's path.  The A rows g + 8 carry a second,
-// independent multiply of the same signature: ge_madd hands its multiplies
-// over in pairs and the compare its two (comb17.cuh, ge25519.cuh), 788
-// calls a signature instead of 1,173 multiplies; R's decode stays one
-// multiply a call.  A launch of n signatures runs n / 8 warps, so a small
-// launch fills 4x the schedulers one signature a lane would.  The chain
-// needs no per-signature table: the signer's rows and the basepoint comb
-// are read with __ldg, the four lanes of a team loading the same addresses
-// (one request).  Every lane of a warp must reach every multiply (mma.sync
-// and the shuffles are warp-wide), so teams past the batch verify its last
-// signature and only their store is masked, a warp with no signature in the
-// batch leaves before any multiply, and nothing branches on a lane's data
-// around a multiply (comb_row's clip and ge_niels_signed's negation are
-// selects).  Interleaving part of R's decode into the 128 lone multiplies
-// of the mixed additions (rows g + 8 are free there) and wgmma are later
-// work.
+// What the design does about it.  fe17.cuh's warp-wide multiply (one signature
+// a lane, 32 a warp, as comb_tree_mxu.cu still runs it) stages every lane's
+// product words in shared memory, reloads them with ldmatrix, runs 196 MMAs
+// and reads the accumulators back: ~1,550 instructions a lane and 13 warp
+// barriers a multiply.  Here four lanes share a signature and each forms a
+// quarter of its products straight into the A fragments (fe17_team.cuh): 57
+// MMAs a call, no shared memory and no barrier on the multiply's path.  The A
+// rows g + 8 carry a second, independent multiply of the same signature:
+// ge_madd hands its multiplies over in pairs and the compare its two
+// (comb17.cuh, ge25519.cuh), 788 calls a signature instead of 1,173
+// multiplies; R's decode stays one multiply a call.  A launch of n signatures
+// runs n / 8 warps, so a small launch fills 4x the schedulers one signature a
+// lane would.  The chain needs no per-signature table: the signer's rows and
+// the basepoint comb are read with __ldg, the four lanes of a team loading
+// the same addresses (one request).  Every lane of a warp must reach every
+// multiply (mma.sync and the shuffles are warp-wide), so teams past the batch
+// verify its last signature and only their store is masked, a warp with no
+// signature in the batch leaves before any multiply, and nothing branches on
+// a lane's data around a multiply (comb_row's clip and ge_niels_signed's
+// negation are selects).  Interleaving part of R's decode into the 128 lone
+// multiplies of the mixed additions (rows g + 8 are free there) and wgmma are
+// later work.
 #define MOCHI_FE17_TEAM
 #include <cuda_runtime.h>
 #include <stdint.h>

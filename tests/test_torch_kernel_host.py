@@ -877,6 +877,38 @@ def test_comb_team_sum_fuzz_at_the_tight_maximum(lib):
         assert all(is_tight(q[10 * c : 10 * c + 10]) for c in range(4))
 
 
+def _comb_corpus(seed, n):
+    """``chip_smoke.py``'s registered-signer corpus of ``n`` items over 4
+    signers (valid, forged, another signer's key, adversarial R and S),
+    with key indices past both ends of the table on four lanes: (items,
+    expected verdicts, key indices, the clipped lanes, the prepared
+    arrays, the registry's (rows, 51) table)."""
+    import chip_smoke as cs
+    from mochi_tpu_torch.crypto import batch_verify as BV
+    from mochi_tpu_torch.crypto import comb
+
+    signers = cs.make_signers(np.random.default_rng(seed), 4)
+    items, want, kinds = cs.make_comb_corpus(seed + 1, n, signers)
+    assert len(set(kinds)) >= 8 and 0.3 < np.mean(want) < 0.95
+    reg = comb.SignerRegistry("cpu")
+    reg.register_all([sg.pub for sg in signers])
+    kidx = np.asarray([reg.index_of(it.public_key) for it in items], dtype=np.int32)
+    clipped = {3: -1, 11: -(10 ** 6), 19: len(signers), 27: 10 ** 6}
+    for j, k in clipped.items():
+        kidx[j] = k
+    return items, want, kidx, set(clipped), BV.prepare_packed(items), reg.device_table("cpu", layout="fe17")
+
+
+def _check_comb_corpus_verdicts(bits, items, want, clipped, pre_ok):
+    """``bits`` ANDed with the host prechecks: the expected verdicts and
+    ``keys.verify`` on every lane whose key index is the signer's."""
+    final = [b and bool(ok) for b, ok in zip(bits, pre_ok)]
+    kept = [j for j in range(len(items)) if j not in clipped]
+    assert [final[j] for j in kept] == [want[j] for j in kept]
+    assert [final[j] for j in kept] == [keys.verify(items[j].public_key, items[j].message, items[j].signature)
+                                        for j in kept]
+
+
 def test_comb_team_twin_equals_the_plain_chain_on_the_comb_corpus(lib):
     """The serial twin of ``comb.cu``'s team on ``chip_smoke.py``'s
     registered-signer corpus (valid, forged, another signer's key,
@@ -884,22 +916,10 @@ def test_comb_team_twin_equals_the_plain_chain_on_the_comb_corpus(lib):
     raw bitmap equals the plain chain's lane for lane, and, ANDed with the
     host prechecks, the expected verdicts and ``keys.verify`` on every lane
     whose index is the signer's."""
-    import chip_smoke as cs
-    from mochi_tpu_torch.crypto import batch_verify as BV
     from mochi_tpu_torch.crypto import comb
     from mochi_tpu_torch.crypto import cuda_comb as CC
 
-    signers = cs.make_signers(np.random.default_rng(351), 4)
-    items, want, kinds = cs.make_comb_corpus(352, 96, signers)
-    assert len(set(kinds)) >= 8
-    reg = comb.SignerRegistry("cpu")
-    reg.register_all([sg.pub for sg in signers])
-    kidx = np.asarray([reg.index_of(it.public_key) for it in items], dtype=np.int32)
-    clipped = {3: -1, 11: -(10 ** 6), 19: len(signers), 27: 10 ** 6}
-    for j, k in clipped.items():
-        kidx[j] = k
-    prep = BV.prepare_packed(items)
-    t15 = reg.device_table("cpu", layout="fe17")
+    items, want, kidx, clipped, prep, t15 = _comb_corpus(351, 96)
     plain = comb.verify_comb_prepared(t15, *CC.from_prepared(kidx, prep, "cpu")).tolist()
     t25 = arr(CC.to_radix25(t15.numpy()))
     bcomb = _bcomb25()
@@ -912,12 +932,7 @@ def test_comb_team_twin_equals_the_plain_chain_on_the_comb_corpus(lib):
         for j in range(len(items))
     ]
     assert host == plain
-    final = [h and bool(ok) for h, ok in zip(host, pre_ok)]
-    kept = [j for j in range(len(items)) if j not in clipped]
-    assert [final[j] for j in kept] == [want[j] for j in kept]
-    assert [final[j] for j in kept] == [keys.verify(items[j].public_key, items[j].message, items[j].signature)
-                                        for j in kept]
-    assert 0.3 < np.mean(want) < 0.95
+    _check_comb_corpus_verdicts(host, items, want, clipped, pre_ok)
 
 
 # -------------------------------------------------------------------- tree
@@ -1387,22 +1402,10 @@ def test_fe17_team_comb_verify_equals_the_serial_twin_the_plain_chain_and_keys_v
     lane for lane, and, ANDed with the host prechecks, the expected
     verdicts and ``keys.verify`` on every lane whose index is the
     signer's."""
-    import chip_smoke as cs
-    from mochi_tpu_torch.crypto import batch_verify as BV
     from mochi_tpu_torch.crypto import comb
     from mochi_tpu_torch.crypto import cuda_comb as CC
 
-    signers = cs.make_signers(np.random.default_rng(353), 4)
-    items, want, kinds = cs.make_comb_corpus(354, 64, signers)
-    assert len(set(kinds)) >= 8
-    reg = comb.SignerRegistry("cpu")
-    reg.register_all([sg.pub for sg in signers])
-    kidx = np.asarray([reg.index_of(it.public_key) for it in items], dtype=np.int32)
-    clipped = {3: -1, 11: -(10 ** 6), 19: len(signers), 27: 10 ** 6}
-    for j, k in clipped.items():
-        kidx[j] = k
-    prep = BV.prepare_packed(items)
-    t15 = reg.device_table("cpu", layout="fe17")
+    items, want, kidx, clipped, prep, t15 = _comb_corpus(353, 64)
     monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
     used = []
     real = F._mul_mxu
@@ -1420,12 +1423,7 @@ def test_fe17_team_comb_verify_equals_the_serial_twin_the_plain_chain_and_keys_v
     team = [bool(lib17t.t17t_comb_verify(*a)) for a in args]
     assert team == [bool(lib17.t17_comb_verify(*a)) for a in args]
     assert team == plain
-    final = [t and bool(ok) for t, ok in zip(team, pre_ok)]
-    kept = [j for j in range(len(items)) if j not in clipped]
-    assert [final[j] for j in kept] == [want[j] for j in kept]
-    assert [final[j] for j in kept] == [keys.verify(items[j].public_key, items[j].message, items[j].signature)
-                                        for j in kept]
-    assert 0.3 < np.mean(want) < 0.95
+    _check_comb_corpus_verdicts(team, items, want, clipped, pre_ok)
 
 
 # ------------------------------------------------ the comb tree over fe17
