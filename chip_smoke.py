@@ -13,9 +13,10 @@ Phases (any failure exits non-zero and prints no result line):
    ``comb_tree_mxu.cu`` and ``tally.cu``, one nvcc each, started together;
    report ptxas's registers, spills and shared bytes and each kernel's
    attributes (both passes of each tree; for ``verify.cu``, ``comb.cu``,
-   ``verify_mxu.cu`` and ``comb_mxu.cu`` also the team size, threads a block
-   and dynamic shared bytes, and from each one's ``cuobjdump -sass`` listing
-   the instructions, IMAD, tensor-core MMAs and local stores and loads).
+   ``verify_mxu.cu``, ``comb_mxu.cu`` and both passes of ``comb_tree_mxu.cu``
+   also the lanes a signature, threads a block and dynamic shared bytes,
+   and from each of those five libraries' ``cuobjdump -sass`` listing the
+   instructions, IMAD, tensor-core MMAs and local stores and loads).
 3. Kernel vs plain — an 8192-item corpus made from ``--seed``: valid
    signatures from 64 signers, forgeries, and adversarial encodings
    (low-order and mixed-order points, non-points, x = 0 with the sign bit,
@@ -97,7 +98,9 @@ Phases (any failure exits non-zero and prints no result line):
    verdicts.
 6tm. The comb tree under ``MOCHI_SKEW_IMPL=mxu`` (``comb_tree_mxu.cu``, the
    tree's two passes in the 17 x 15-bit field with every multiply on the
-   integer tensor cores, reading the registry's rows as they are) on phase
+   integer tensor cores, a team of four lanes a signature in the prepare
+   pass and the eight teams of a warp splitting one signature's 128 window
+   points in the accumulate pass, reading the registry's rows as they are) on phase
    6's corpus at 8192 lanes, a partial last block and the service's 2,752:
    its bitmap must equal the plain tree under the same switch on the card,
    ``comb_tree.cu``'s and ``comb_mxu.cu``'s bitmaps lane for lane and the
@@ -106,8 +109,11 @@ Phases (any failure exits non-zero and prints no result line):
 7tm. Its times — CUDA events, median over repeats: the kernel at 2,752,
    8192 and 65536 lanes, its two passes apart by ``torch.profiler``, the
    plain tree under ``mxu`` at 8192, beside the function's bound (the
-   comb's) and the int8 tensor-core reckoning of its own multiplies (an
-   estimate, not a bound).
+   comb's) and the int8 tensor-core reckoning of its own team calls (an
+   estimate, not a bound), and one launch of each lane count of phase 7's
+   sweep (1 to 262,144): at each count up to 8192 the bitmap must equal the
+   plain tree's under ``mxu``, at every count ``comb_mxu.cu``'s (on the
+   same lanes) and the expected verdicts.
 8. Service with signers — phase 5's traffic through
    ``CudaBatchVerifier(signers=...)``: every item must take the comb kernel
    and every bitmap must equal the expected verdicts.
@@ -1240,7 +1246,11 @@ def run(args) -> dict:
         print(f"[build] {name}.cu: a team of {ca['team']} lanes a signature, {ca['threads']} threads a block, "
               f"{ca['shared_bytes']} static and {ca['dynamic_shared_bytes']} dynamic shared bytes, "
               f"{ca['registers']} registers, {ca['local_bytes']} local bytes", flush=True)
-    for name in ("verify", "verify_mxu", "comb", "comb_mxu"):
+    for pas, ta in res["kernel_attributes"]["comb_tree_mxu"].items():
+        print(f"[build] comb_tree_mxu.cu {pas} pass: {ta['team']} lanes a signature, {ta['threads']} threads a "
+              f"block, {ta['shared_bytes']} static and {ta['dynamic_shared_bytes']} dynamic shared bytes, "
+              f"{ta['registers']} registers, {ta['local_bytes']} local bytes", flush=True)
+    for name in ("verify", "verify_mxu", "comb", "comb_mxu", "comb_tree_mxu"):
         sass = subprocess.run([str(Path(kernels.nvcc_path()).parent / "cuobjdump"), "-sass",
                                str(kernels.library_path(name))], capture_output=True, text=True, timeout=120,
                               check=True)
@@ -1665,25 +1675,44 @@ def run(args) -> dict:
         tm8k = _ms_median(lambda: CC.verify_comb_prepared(table17, *lanes, impl="tree"), 2, REPEATS)
         tm64k = _ms_median(lambda: CC.verify_comb_prepared(table17, *big_lanes, impl="tree"), 1, REPEATS // 4)
         tmplain = _ms_median(lambda: comb.verify_comb_prepared(table17, *lanes, impl="tree"), 1, 3)
+        # the launch-size sweep: each count up to the corpus against the
+        # plain tree under mxu, each against comb_mxu.cu's bitmap on the
+        # same lanes and the verdicts
+        for n in SWEEP:
+            if n <= len(citems) and n not in tmcheck:
+                tmcheck[n] = _check_comb_at(n, table17, table17, lanes, big_lanes, cprep[6], cwant, "tree")
+        mc_tiled = CC.verify_comb_prepared(table17, *ctiled, impl="chain").cpu().numpy()
+        tmsweep, tm_vs_sweep = sweep_vs(
+            lambda n: CC.verify_comb_prepared(table17, *[t[:n] for t in ctiled], impl="tree"), mc_tiled,
+            np.tile(cprep[6], reps), np.tile(np.asarray(cwant, dtype=bool), reps), SWEEP,
+            lambda n: _ms_median(lambda: CC.verify_comb_prepared(table17, *[t[:n] for t in ctiled], impl="tree"),
+                                 1, 5))
+        print(f"[comb tree mxu sweep] equal to the plain tree at {sorted(tmcheck)}, lanes differing from "
+              f"comb_mxu.cu or the verdicts {tm_vs_sweep}", flush=True)
+        if any(tm_vs_sweep.values()):
+            raise AssertionError(f"comb tree mxu kernel disagrees with comb_mxu.cu or the verdicts: {tm_vs_sweep}")
         # the two passes apart, by the profiler
         tmsplit = {n: kernel_split_ms(lambda: CC.verify_comb_prepared(table17, *[t[:n] for t in ctiled],
                                                                       impl="tree"), repeats=5)
                    for n in (CLIENTS * GRANTS, len(citems), BIG)}
     finally:
         F.SKEW_IMPL = skew0
-    # the int8 reckoning of the kernel's own multiplies, as phase 7m's
-    tm_tensor = lambda n: (1e3 * n * CC.MULS_PER_SIGNATURE_TREE_MXU * 2 * CC.MMA_MACS_PER_WARP_MUL  # noqa: E731
+    # the int8 reckoning of the kernel's own team calls, as phase 7m's
+    tm_tensor = lambda n: (1e3 * n * CC.TREE_MXU_CALLS_PER_SIGNATURE * 2 * CC.MMA_MACS_PER_CALL  # noqa: E731
                            / INT8_OPS_PER_S)
     res["comb_tree_mxu_times"] = {
         "kernel_ms_2752": tm_wave, "kernel_ms_8192": tm8k, "kernel_ms_65536": tm64k, "plain_ms_8192": tmplain,
         "bound_ms_8192": cbound(len(citems)), "bound_ms_65536": cbound(BIG), "bound_by": cbound_by,
         "sigs_per_s_8192": len(citems) / (tm8k / 1e3), "sigs_per_s_65536": BIG / (tm64k / 1e3),
-        "muls_per_signature": CC.MULS_PER_SIGNATURE_TREE_MXU, "mma_macs_per_mul": CC.MMA_MACS_PER_WARP_MUL,
+        "teams_per_signature": CC.TREE_MXU_TEAMS, "calls_per_signature": CC.TREE_MXU_CALLS_PER_SIGNATURE,
+        "mma_macs_per_call": CC.MMA_MACS_PER_CALL,
         "tensor_int8_estimate_ms_8192": tm_tensor(len(citems)), "tensor_int8_estimate_ms_65536": tm_tensor(BIG),
-        "profiler_ms_per_pass": tmsplit,
+        "profiler_ms_per_pass": tmsplit, "launch_size_sweep": tmsweep,
+        "sweep_lanes_differing_from_comb_mxu_cu_or_verdicts": tm_vs_sweep,
         "comb_mxu_cu_over_tree_ms_2752": mc_wave / tm_wave, "comb_mxu_cu_over_tree_ms_8192": mc8k / tm8k,
         "comb_mxu_cu_over_tree_ms_65536": mc64k / tm64k,
         "attributes": res["kernel_attributes"]["comb_tree_mxu"], "ptxas": res["ptxas"].get("comb_tree_mxu", []),
+        "sass": res["sass_comb_tree_mxu"],
     }
     print(f"[comb tree mxu times] {res['comb_tree_mxu_times']}", flush=True)
 

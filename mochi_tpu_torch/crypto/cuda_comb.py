@@ -26,9 +26,11 @@ follows the pair of switches (:func:`kernel_of`):
   2^25.5;
 * ``impl="tree"``, ``multiply="mxu"``: ``csrc/comb_tree_mxu.cu``
   (arithmetic in ``csrc/comb_tree17.cuh``), the same two passes in the 17 x
-  15-bit field with every multiply on the integer tensor cores; in the
-  accumulate pass the warp-wide multiply serves the 32 tree nodes of one
-  signature.
+  15-bit field on ``comb_mxu.cu``'s team multiply: the prepare pass a team
+  of four lanes a signature, the accumulate pass the eight teams of a warp
+  splitting one signature's 128 window points (each team mixed-adds its
+  windows' entries, then three levels of complete addition across the
+  teams).
 
 ``impl=None`` takes :data:`comb.COMB_IMPL` (``MOCHI_COMB_IMPL``) and
 ``multiply=None`` the ``MOCHI_SKEW_IMPL`` switch (``mxu`` for ``mxu``, else
@@ -107,14 +109,15 @@ MXU_CALLS_PER_SIGNATURE = 128 * 4 + 275 + 1
 # reduction issues: 57 m16n8k32 MMAs a warp of 8 signatures
 # (fe17_team.cuh), one multiply a call or two.
 MMA_MACS_PER_CALL = 57 * 16 * 8 * 32 // 8
-# The same count for the tree under mxu (comb_tree_mxu.cu), in multiplies
-# of one lane's operands: the prepare pass's decode (275, one signature a
-# lane) and the accumulate pass's 76 warp-wide multiplies (a lane's two
-# windows of 10, their sum and 5 levels of 9, the compare's 2), each
-# serving the 32 lanes of one signature, and the multiply-adds each one's
-# warp-wide reduction issues (196 m16n8k32 MMAs a warp of 32, fe17.cuh).
-MULS_PER_SIGNATURE_TREE_MXU = 275 + 32 * (2 * (3 + 7) + 9 + 5 * 9 + 2)
-MMA_MACS_PER_WARP_MUL = 196 * 16 * 8 * 32 // 32
+# Team calls one signature of the tree under mxu makes (comb_tree_mxu.cu):
+# the prepare pass's decode, 275 of one multiply, and in the accumulate
+# pass each of the signature's TREE_MXU_TEAMS teams (MOCHI_TREE17_TEAMS)
+# makes its share of the 128 mixed additions (4 calls each), every level
+# of the sum across the teams (ge_to_cached's call and ge_add's 4) and the
+# compare's 1: 275 + 8 x 80.  Each call issues MMA_MACS_PER_CALL.
+TREE_MXU_TEAMS = 8
+TREE_MXU_CALLS_PER_SIGNATURE = 275 + TREE_MXU_TEAMS * (
+    128 * 4 // TREE_MXU_TEAMS + 5 * (TREE_MXU_TEAMS.bit_length() - 1) + 1)
 
 # Bytes per signature in and out: key_idx, y_r, sign_r, s, h, the verdict.
 BYTES_PER_SIGNATURE = 4 + 17 * 4 + 4 + 32 + 32 + 1
@@ -222,18 +225,18 @@ def _lib(kernel: str = "chain"):
 
 
 def _attr_names(kernel: str) -> tuple:
-    """What ``kernel``'s attribute query reports, in its order: comb.cu's
-    and comb_mxu.cu's also their lanes a signature and the dynamic shared
-    bytes of a launch."""
+    """What ``kernel``'s attribute query reports, in its order: comb.cu's,
+    comb_mxu.cu's and each pass of comb_tree_mxu.cu's also their lanes a
+    signature and the dynamic shared bytes of a launch."""
     names = ("registers", "local_bytes", "shared_bytes", "threads")
-    return names + ("team", "dynamic_shared_bytes") if kernel in ("chain", "chain_mxu") else names
+    return names + ("team", "dynamic_shared_bytes") if kernel in ("chain", "chain_mxu", "tree_mxu") else names
 
 
 def kernel_attributes(kernel: str = "chain") -> dict:
     """Registers per thread, local bytes per thread, static shared bytes and
     threads per block of ``kernel``'s compiled kernel (one of
-    :data:`KERNELS`; cudaFuncGetAttributes), for ``chain`` and
-    ``chain_mxu`` also the lanes a signature (``team``) and the dynamic
+    :data:`KERNELS`; cudaFuncGetAttributes), for ``chain``, ``chain_mxu``
+    and ``tree_mxu`` also the lanes a signature (``team``) and the dynamic
     shared bytes of a launch; for a tree, one such dict for each pass
     (``prepare``, ``accumulate``)."""
     fn = getattr(_lib(kernel), _LIBS[kernel][1] + "_attrs")

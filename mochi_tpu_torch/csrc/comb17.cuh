@@ -14,14 +14,14 @@
 // an address (loads need no convergence) and a negative digit's negation is
 // ge_niels_signed's branchless select.
 //
-// Two forms.  comb_mxu.cu defines MOCHI_FE17_TEAM: every multiply is
+// Two forms.  comb_mxu.cu (and comb_tree_mxu.cu, whose tree loads its rows
+// here) defines MOCHI_FE17_TEAM: every multiply is
 // fe17_team.cuh's team multiply (four lanes a signature, each running all
 // of this code alike), ge_madd hands its multiplies over in pairs
 // (ge25519.cuh), and the compare's two go to one fe_mul2, so a signature
 // makes 128 x 4 + 275 + 1 = 788 team calls (R's decode stays one multiply
-// a call).  comb_tree17.cuh (comb_tree_mxu.cu) includes this header without
-// the define and gets the warp-wide form, one multiply a call: 1,173 a
-// signature.
+// a call).  Without the define (the g++ SHIM17) it compiles the serial
+// multiply, one multiply a call: 1,173 a signature.
 //
 // Bounds.  Table limbs are canonical, in [0, 2^15).  A negated 2dxy is
 // fe_neg's 2p - x after one carry pass, limbs in [0, LOOSE]; fe_mul takes

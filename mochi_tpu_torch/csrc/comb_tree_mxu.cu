@@ -1,58 +1,68 @@
 // Known-signer (comb) Ed25519 verification on Hopper with the tree
 // accumulation and every field multiply's column reduction on the integer
-// tensor cores: one warp per signature.  The comb tree under
-// MOCHI_SKEW_IMPL=mxu.
+// tensor cores: a team of four lanes a signature in the prepare pass, the
+// eight teams of a warp splitting one signature's 128 window points in the
+// accumulate pass.  The comb tree under MOCHI_SKEW_IMPL=mxu.
 //
 // Replaces the reference package's comb.verify_comb_prepared with
 // impl="tree" (crypto/comb.py:428-472, _tree_accumulate :354) as it runs
-// under MOCHI_SKEW_IMPL=mxu, where every rank-2 multiply of the leaf
-// conversion, of each level's complete addition and of the compare is
-// crypto/field.py:330 _mul_mxu.  The arithmetic lives in comb_tree17.cuh
-// (the tree over comb17.cuh's row loads and ge25519.cuh's formulas over
-// fe17.cuh's field, whose header says how a multiply becomes one
-// u8 x u8 -> s32 MMA product); the CPU tests compile the same code with
-// g++.  Where the reference selects the basepoint rows with a one-hot
-// float32 matmul, this kernel loads the row its digit names.
-//
-// Design.  comb_tree.cu's two launches on the caller's stream, in the 17 x
-// 15-bit field.  The prepare pass, one signature per lane, decodes R (275
-// dependent multiplies) and recodes both scalars into a record of
-// MOCHI_TREE17_RECORD_INTS int32 (268 bytes).  The accumulate pass, one
-// warp per signature, sums the 128 window points as comb_tree.cu does:
-// lane l holds windows l and l + 32 (leaf + mixed addition each, then their
-// sum), then 5 levels take the partner's point by __shfl_down_sync at
-// offsets 16 ... 1 (4 x 17 int32 a point), and the sum lands on lane 0.
-// Every lane calls fe17_mul_warp on its own operands, so the warp-wide
-// multiply serves 32 tree nodes of one signature; a lane's dependent chain
-// is 76 multiplies (74 for its windows and the levels, 2 for the compare)
-// instead of the chain's 1,173.
-//
-// Convergence.  mma.sync is warp-wide and a diverged warp traps in the
-// multiply: the accumulate pass leaves only as a whole warp (sig >= n),
-// every lane computes the compare and only lane 0 stores; in the prepare
-// pass lanes past the batch recompute the last signature, a warp with no
-// lane in the batch leaves before any multiply, and the store is masked.
-// Both passes launch 32 * MOCHI_MXU_WARPS threads a block: fe17_mul_warp
-// indexes its shared staging by the warp's number in the block.
+// under MOCHI_SKEW_IMPL=mxu, where every rank-2 multiply of the tree's
+// additions and of the compare is crypto/field.py:330 _mul_mxu.  The
+// arithmetic lives in comb_tree17.cuh (the tree's record, its team-order
+// sum and compare over comb17.cuh's row loads and ge25519.cuh's formulas
+// over fe17.cuh's field); the multiply is fe17_team.cuh's (this file
+// defines MOCHI_FE17_TEAM), which says how a multiply becomes u8 x u8 ->
+// s32 MMA products.  The CPU tests compile the same code with g++.  Where
+// the reference selects the basepoint rows with a one-hot float32 matmul,
+// this kernel loads the row its digit names.
 //
 // What bounds it: the function is the comb's, so its bound is comb.cu's
 // (105,725 integer multiply-adds a signature over the IMAD rate: 0.052 ms
-// at 8192 signatures on a 1980 MHz H100).  This kernel issues far more:
-// 275 multiplies a signature in the prepare pass and 76 warp-wide ones in
-// the accumulate pass, each a tensor-core reduction of 196 m16n8k32 MMAs
-// (2,707 lane-multiplies of 25,088 multiply-adds a signature, ~0.56 ms at
-// 8192 signatures at the int8 peak), on dependent chains of 275 and 76
-// multiplies of ~4 us each.  Bytes: 141 a signature in and out, the record
-// written and read once, 128 row gathers of 204 bytes from tables that stay
-// in the 50 MB L2: microseconds.  So the time goes to the latency of those
-// chains.  wgmma, more warps an SM and sharing the prepare pass's
-// constants are later work.
+// at 8192 signatures on a 1980 MHz H100).  Bytes: 141 a signature in and
+// out, the 268-byte record written and read once, 128 row gathers of 204
+// bytes from tables that stay in the 50 MB L2: microseconds.  This layout
+// pays more than the bound counts: every multiply is a team call of 57
+// m16n8k32 MMAs a warp with its products, splits, folds and shuffles, and
+// every lane of a team repeats the curve code.  So a small launch runs at
+// the latency of its dependent calls and a large one at their issue rate.
+//
+// Design.  Two launches on the caller's stream, 64-thread blocks.
+//   * The prepare pass: a team of four lanes a signature, 8 a warp, as
+//     comb_mxu.cu maps its chain: R's RFC 8032 decode (275 dependent team
+//     calls of one multiply) and both scalars' signed recoding into a
+//     record of MOCHI_TREE17_RECORD_INTS int32.
+//   * The accumulate pass: one signature a warp (MOCHI_TREE17_TEAMS = 8;
+//     with 4, two a warp).  Team k mixed-adds the signer's and the
+//     basepoint's entry of each of its windows w = k, k + 8, ..., k + 56
+//     to the identity (16 ge_madd of 4 team calls), then 3 levels of
+//     complete addition fold the partner team's point, taken by
+//     __shfl_down_sync 16, 8 and 4 lanes down, into its own (5 calls
+//     each), and team 0 compares the sum with R (1 call): 80 dependent
+//     team calls, where the warp-wide multiply's layout (one tree node a
+//     lane) made 76 multiplies of ~4 us.
+// Both passes take every multiply through fe17_team.cuh: no shared memory,
+// no ldmatrix and no warp barrier on the multiply's path.
+//
+// Convergence.  mma.sync and the shuffles are warp-wide, and a diverged
+// warp traps in the multiply, so every lane reaches every team call and
+// shuffle: a warp with no signature in the batch leaves before any
+// multiply, teams past the batch (the prepare pass's, or the accumulate
+// pass's second signature of a warp under 4 teams) recompute signature
+// n - 1 and their store is masked, every team computes every level and the
+// compare, a row's clip and a digit's negation are selects (comb_row,
+// ge_niels_signed), and lane 0 of a signature's first team stores.
+#define MOCHI_FE17_TEAM
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fe17.cuh"
+#include "fe17_team.cuh"
 #include "comb_tree17.cuh"
 
-#define MOCHI_TREE_MXU_THREADS (32 * MOCHI_MXU_WARPS)
+#define MOCHI_TREE_MXU_THREADS 64                                 // 2 warps a block
+#define MOCHI_TREE_MXU_PREP_SIGS (MOCHI_TREE_MXU_THREADS / 4)  // signatures a prepare block
+#define MOCHI_TREE_MXU_LANES (4 * MOCHI_TREE17_TEAMS)          // lanes a signature, accumulating
+#define MOCHI_TREE_MXU_ACC_SIGS (MOCHI_TREE_MXU_THREADS / MOCHI_TREE_MXU_LANES)
 
 __global__ void __launch_bounds__(MOCHI_TREE_MXU_THREADS)
     mochi_comb_tree_mxu_prepare_kernel(const int32_t* __restrict__ y_r,
@@ -60,8 +70,8 @@ __global__ void __launch_bounds__(MOCHI_TREE_MXU_THREADS)
                                        const uint8_t* __restrict__ s_bytes,
                                        const uint8_t* __restrict__ h_bytes,
                                        int32_t* __restrict__ scratch, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i - (int)(threadIdx.x & 31) >= n) return;  // the whole warp is past the batch
+  const int i = blockIdx.x * MOCHI_TREE_MXU_PREP_SIGS + (threadIdx.x >> 2);  // this team's signature
+  if (i - (int)((threadIdx.x & 31) >> 2) >= n) return;  // the whole warp is past the batch
   const int src = i < n ? i : n - 1;
   int32_t yr[17], rec[MOCHI_TREE17_RECORD_INTS];
   uint8_t s[32], h[32];
@@ -71,14 +81,9 @@ __global__ void __launch_bounds__(MOCHI_TREE_MXU_THREADS)
     h[k] = __ldg(&h_bytes[(size_t)src * 32 + k]);
   }
   comb_tree17_prepare(rec, yr, __ldg(&sign_r[src]), s, h);
-  if (i < n)
+  if (i < n && (threadIdx.x & 3) == 0)
     for (int k = 0; k < MOCHI_TREE17_RECORD_INTS; ++k)
       scratch[(size_t)i * MOCHI_TREE17_RECORD_INTS + k] = rec[k];
-}
-
-__device__ __forceinline__ void shfl_down_fe17(fe17* r, const fe17* f, int off) {
-#pragma unroll
-  for (int k = 0; k < 17; ++k) r->v[k] = __shfl_down_sync(0xffffffffu, f->v[k], off);
 }
 
 __global__ void __launch_bounds__(MOCHI_TREE_MXU_THREADS)
@@ -87,27 +92,15 @@ __global__ void __launch_bounds__(MOCHI_TREE_MXU_THREADS)
                                const int32_t* __restrict__ bcomb,
                                const int32_t* __restrict__ scratch,
                                uint8_t* __restrict__ out, int n) {
-  const int sig = blockIdx.x * MOCHI_MXU_WARPS + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (sig >= n) return;  // the whole warp: no multiply or shuffle is left half-joined
-  const int32_t* rec = scratch + (size_t)sig * MOCHI_TREE17_RECORD_INTS;
-  const int8_t* dig = (const int8_t*)(rec + MOCHI_TREE17_RECORD_DIGITS);
-  const int key = __ldg(&key_idx[sig]);
-  ge_p3_t<fe17> acc, other;
-  comb_tree17_window(&acc, table, rows, key, bcomb, lane, dig[64 + lane], dig[lane]);
-  comb_tree17_window(&other, table, rows, key, bcomb, lane + 32, dig[96 + lane], dig[32 + lane]);
-  comb_tree17_add(&acc, &acc, &other);
-#pragma unroll 1
-  for (int off = 16; off >= 1; off >>= 1) {
-    shfl_down_fe17(&other.X, &acc.X, off);
-    shfl_down_fe17(&other.Y, &acc.Y, off);
-    shfl_down_fe17(&other.Z, &acc.Z, off);
-    shfl_down_fe17(&other.T, &acc.T, off);
-    comb_tree17_add(&acc, &acc, &other);
-  }
-  // every lane multiplies (the warp-wide multiply); lane 0 holds the sum
-  const int ok = comb_tree17_finish(&acc, rec);
-  if (lane == 0) out[sig] = (uint8_t)ok;
+  const int t = blockIdx.x * MOCHI_TREE_MXU_THREADS + threadIdx.x;
+  const int sig = t / MOCHI_TREE_MXU_LANES;
+  if ((t - lane) / MOCHI_TREE_MXU_LANES >= n) return;  // the whole warp is past the batch
+  const int src = sig < n ? sig : n - 1;
+  const tree17_warp_teams teams = {(lane >> 2) % MOCHI_TREE17_TEAMS};
+  const int ok = comb_tree17_accumulate(teams, table, rows, __ldg(&key_idx[src]), bcomb,
+                                        scratch + (size_t)src * MOCHI_TREE17_RECORD_INTS);
+  if (sig < n && (lane & (MOCHI_TREE_MXU_LANES - 1)) == 0) out[sig] = (uint8_t)ok;
 }
 
 extern "C" {
@@ -124,14 +117,13 @@ int mochi_comb_tree_mxu_verify(const void* table, long long rows,
                                void* scratch, void* out, int n, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
-  mochi_comb_tree_mxu_prepare_kernel<<<(n + MOCHI_TREE_MXU_THREADS - 1) /
-                                           MOCHI_TREE_MXU_THREADS,
+  mochi_comb_tree_mxu_prepare_kernel<<<(n + MOCHI_TREE_MXU_PREP_SIGS - 1) / MOCHI_TREE_MXU_PREP_SIGS,
                                        MOCHI_TREE_MXU_THREADS, 0, st>>>(
       (const int32_t*)y_r, (const int32_t*)sign_r, (const uint8_t*)s_bytes,
       (const uint8_t*)h_bytes, (int32_t*)scratch, n);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  mochi_comb_tree_mxu_kernel<<<(n + MOCHI_MXU_WARPS - 1) / MOCHI_MXU_WARPS,
+  mochi_comb_tree_mxu_kernel<<<(n + MOCHI_TREE_MXU_ACC_SIGS - 1) / MOCHI_TREE_MXU_ACC_SIGS,
                                MOCHI_TREE_MXU_THREADS, 0, st>>>(
       (const int32_t*)table, (int64_t)rows, (const int32_t*)key_idx,
       (const int32_t*)bcomb, (const int32_t*)scratch, (uint8_t*)out, n);
@@ -139,10 +131,12 @@ int mochi_comb_tree_mxu_verify(const void* table, long long rows,
 }
 
 // Registers per thread, local (spill + stack) bytes per thread, static
-// shared bytes and threads per block of the prepare pass (which = 0) or
-// the accumulate pass (which = 1).
+// shared bytes, threads per block, lanes a signature and dynamic shared
+// bytes of a launch of the prepare pass (which = 0) or the accumulate pass
+// (which = 1).
 int mochi_comb_tree_mxu_verify_attrs(int which, int* regs, int* local_bytes,
-                                     int* shared_bytes, int* threads) {
+                                     int* shared_bytes, int* threads, int* team,
+                                     int* dynamic_shared_bytes) {
   cudaFuncAttributes a;
   const cudaError_t err =
       which == 0 ? cudaFuncGetAttributes(&a, mochi_comb_tree_mxu_prepare_kernel)
@@ -152,6 +146,8 @@ int mochi_comb_tree_mxu_verify_attrs(int which, int* regs, int* local_bytes,
   *local_bytes = (int)a.localSizeBytes;
   *shared_bytes = (int)a.sharedSizeBytes;
   *threads = MOCHI_TREE_MXU_THREADS;
+  *team = which == 0 ? 4 : MOCHI_TREE_MXU_LANES;
+  *dynamic_shared_bytes = 0;
   return 0;
 }
 

@@ -41,10 +41,12 @@
 // skipped at compile time (49 of the 215 pairs are live: 196 MMAs a
 // multiply); each finished row tile goes to shared memory and every lane
 // reads back its own 68 rows, recombines the planes, folds by 19 and runs
-// carry2.  Every lane of the warp must call it together.  comb_tree_mxu.cu
-// multiplies so; verify_mxu.cu and comb_mxu.cu define MOCHI_FE17_TEAM and
-// multiply with fe17_team.cuh's team form instead (four lanes a signature,
-// each forming its products straight into the MMA's A fragments).  Only u8 operands
+// carry2.  Every lane of the warp must call it together.  No kernel
+// multiplies so any more: verify_mxu.cu, comb_mxu.cu and comb_tree_mxu.cu
+// define MOCHI_FE17_TEAM and multiply with fe17_team.cuh's team form
+// (four lanes a signature, each forming its products straight into the
+// MMA's A fragments); the warp-wide form stays beside its serial twin,
+// which the host tests hold against the plain multiply.  Only u8 operands
 // with s32 accumulators are used, in either form: no f16, bf16, TF32 or
 // f32 product, whose mantissas would truncate the sums (the reference pins
 // precision=HIGHEST against the same trap on the TPU).  The host form is
@@ -506,7 +508,8 @@ __device__ __noinline__ fe17 fe17_mul_warp(const fe17 f, const fe17 g) {
 #endif  // __CUDACC__
 
 #if defined(MOCHI_FE17_TEAM)
-// A kernel that defines MOCHI_FE17_TEAM (verify_mxu.cu, comb_mxu.cu)
+// A kernel that defines MOCHI_FE17_TEAM (verify_mxu.cu, comb_mxu.cu,
+// comb_tree_mxu.cu)
 // multiplies with fe17_team.cuh's team multiply instead: a team of four
 // lanes a signature, eight signatures a warp, one multiply a call or two
 // (fe_mul2).  It

@@ -1,9 +1,8 @@
 // The mxu field multiply for a team of four lanes a signature, eight
 // signatures a warp: each lane forms its share of the limb products in its
-// own registers and hands them straight to the tensor cores.  verify_mxu.cu
-// and comb_mxu.cu define MOCHI_FE17_TEAM, so fe17.cuh's fe_mul calls
-// fe17_mul_team on the card; comb_tree_mxu.cu keeps fe17.cuh's
-// fe17_mul_warp.
+// own registers and hands them straight to the tensor cores.  verify_mxu.cu,
+// comb_mxu.cu and comb_tree_mxu.cu define MOCHI_FE17_TEAM, so fe17.cuh's
+// fe_mul calls fe17_mul_team on the card.
 //
 // The product is the one fe17.cuh describes: the 289 limb products, each
 // split into its word (lo0, lo1, hi0, hi1), reduced by the constant 0/1
@@ -39,7 +38,8 @@
 // 57 MMAs serve both, and the two chains of products, folds and shuffles
 // overlap in one call.  A signature's verify makes 1,308 such calls and
 // 817 of one multiply (ge25519.cuh under MOCHI_FE17_TEAM); its comb chain
-// (comb17.cuh) 385 and 403.
+// (comb17.cuh) 385 and 403; its comb tree (comb_tree17.cuh, 8 teams) 488
+// and 427 over its teams.
 //
 // Each lane's products.  Lane t needs f[i] g[s - i] with i = i0 + t for a
 // half-step whose slot 0 takes a-limb i0, column s.  A register array

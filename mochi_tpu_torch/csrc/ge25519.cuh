@@ -119,9 +119,9 @@ MOCHI_HD void ge_to_cached(ge_cached_t<FE>* r, const ge_p3_t<FE>* p) {
 }
 
 // Under fe17_team.cuh's team multiply (MOCHI_FE17_TEAM: verify_mxu.cu,
-// comb_mxu.cu and their host twins) ge_add, ge_madd and ge_dbl hand their independent
-// multiplies to fe_mul2 two at a time: the same formulas and results, in 4
-// calls where there were 7 or 8.  Every other kernel compiles the forms
+// comb_mxu.cu, comb_tree_mxu.cu and their host twins) ge_add, ge_madd and
+// ge_dbl hand their independent multiplies to fe_mul2 two at a time: the
+// same formulas and results, in 4 calls where there were 7 or 8.  Every other kernel compiles the forms
 // below them, one multiply a call.
 #if defined(MOCHI_FE17_TEAM)
 template <class FE>

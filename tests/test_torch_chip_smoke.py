@@ -169,14 +169,14 @@ def test_table_radix_check_counts_a_wrong_entry(signers):
     assert cs.check_table_radix(t25, t15) == 1
 
 
-def test_comb_mxu_sweep_rehearsal_on_cpu(signers, monkeypatch):
-    """Phase 7m's launch-size sweep at a small size: the chain under
-    ``mxu`` (on the CPU its plain version, every multiply through
-    ``_mul_mxu``) over the comb corpus tiled past its length, held at each
-    count against the chain under ``pad`` on the same lanes (``comb.cu``'s
-    stand-in) and the expected verdicts: no lane differs, every count is
-    timed; a bitmap with one lane flipped is flagged at every count that
-    reaches the lane and at no other."""
+def _sweep_rehearsal(signers, monkeypatch, impl, ref_kw):
+    """A launch-size sweep of ``impl`` under ``mxu`` (on the CPU its plain
+    version, every multiply through ``_mul_mxu``) over the comb corpus tiled
+    past its length, held by ``chip_smoke.sweep_vs`` against the bitmap of
+    ``verify_comb_prepared(..., **ref_kw)`` on the same lanes and the
+    expected verdicts: no lane differs, every count is timed; a bitmap with
+    one lane flipped is flagged at every count that reaches the lane and at
+    no other."""
     import time
 
     from mochi_tpu_torch.crypto import comb
@@ -190,7 +190,7 @@ def test_comb_mxu_sweep_rehearsal_on_cpu(signers, monkeypatch):
     kidx = np.asarray([reg.index_of(i.public_key) for i in items], dtype=np.int32)
     tiled = [torch.cat([t] * 2) for t in CC.from_prepared(kidx, prep, "cpu")]
     table = reg.device_table("cpu", layout="fe17")
-    ref = CC.verify_comb_prepared(table, *tiled, multiply="pad").numpy()
+    ref = CC.verify_comb_prepared(table, *tiled, **ref_kw).numpy()
     pre_ok, want2 = np.tile(prep[6], 2), np.tile(np.asarray(want, dtype=bool), 2)
     monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
     used = []
@@ -198,7 +198,7 @@ def test_comb_mxu_sweep_rehearsal_on_cpu(signers, monkeypatch):
     monkeypatch.setattr(F, "_mul_mxu", lambda a, b: used.append(1) or real(a, b))
 
     def launch(n):
-        return CC.verify_comb_prepared(table, *[t[:n] for t in tiled])
+        return CC.verify_comb_prepared(table, *[t[:n] for t in tiled], impl=impl)
 
     def host_ms(n):
         t0 = time.perf_counter()
@@ -220,6 +220,20 @@ def test_comb_mxu_sweep_rehearsal_on_cpu(signers, monkeypatch):
 
     _, differing = cs.sweep_vs(flipped, ref, pre_ok, want2, counts, lambda n: 1.0)
     assert differing[1] == differing[8] == 0 and differing[20] >= 1
+
+
+def test_comb_mxu_sweep_rehearsal_on_cpu(signers, monkeypatch):
+    """Phase 7m's launch-size sweep at a small size: the chain under
+    ``mxu`` held at each count against the chain under ``pad`` on the same
+    lanes (``comb.cu``'s stand-in) and the expected verdicts."""
+    _sweep_rehearsal(signers, monkeypatch, "chain", {"multiply": "pad"})
+
+
+def test_comb_tree_mxu_sweep_rehearsal_on_cpu(signers, monkeypatch):
+    """Phase 7tm's launch-size sweep at a small size: the tree under
+    ``mxu`` held at each count against the chain under ``mxu`` on the same
+    lanes (``comb_mxu.cu``'s stand-in) and the expected verdicts."""
+    _sweep_rehearsal(signers, monkeypatch, "tree", {"impl": "chain", "multiply": "mxu"})
 
 
 def test_tree_service_phase_rehearsal_on_cpu(signers, monkeypatch):

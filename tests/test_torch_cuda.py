@@ -564,9 +564,11 @@ def test_sharded_backend_on_two_slices_under_the_mxu_switch(card, comb_setup, mo
 def test_comb_tree_mxu_kernel_equals_plain_tree_under_mxu_and_comb_mxu_cu(card, comb_setup, monkeypatch):
     """``comb_tree_mxu.cu`` against the plain tree under ``mxu`` and the chain
     under ``mxu`` (``comb_mxu.cu``) on the comb corpus: 600 lanes, a partial
-    last block of both passes (2 signatures a block of the accumulate pass,
-    64 of the prepare pass), one lane, indices past the table, and the
-    expected verdicts."""
+    last block of both passes (16 signatures a block of the prepare pass, 2
+    or 4 of the accumulate pass), one lane, indices past the table, and the
+    expected verdicts; both passes run 64-thread blocks on the team
+    multiply, with no shared memory: a team of four lanes a signature in the
+    prepare pass, ``TREE_MXU_TEAMS`` teams in the accumulate pass."""
     from mochi_tpu_torch.crypto import comb
     from mochi_tpu_torch.crypto import cuda_comb as CC
     from mochi_tpu_torch.crypto import field as F
@@ -591,7 +593,61 @@ def test_comb_tree_mxu_kernel_equals_plain_tree_under_mxu_and_comb_mxu_cu(card, 
     assert [w for j, w in enumerate(want) if j not in (5, 9)] == [o for j, o in enumerate(ok) if j not in (5, 9)]
     attrs = CC.kernel_attributes("tree_mxu")
     assert attrs["prepare"]["threads"] == attrs["accumulate"]["threads"] == 64
-    assert attrs["accumulate"]["registers"] > 0 and attrs["accumulate"]["shared_bytes"] > 0
+    assert attrs["prepare"]["team"] == 4 and attrs["accumulate"]["team"] == 4 * CC.TREE_MXU_TEAMS
+    assert attrs["accumulate"]["registers"] > 0
+    for pas in attrs.values():
+        assert pas["shared_bytes"] == 0 and pas["dynamic_shared_bytes"] == 0
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 31, 32, 33, 63, 64, 65, 127, 129, 2752])
+def test_comb_tree_mxu_team_kernel_equals_plain_tree_at_team_warp_and_block_edges(card, comb_tiled, monkeypatch, n):
+    """comb_tree_mxu.cu (the prepare pass a team of four lanes a signature,
+    16 a block of 64 threads; the accumulate pass a warp's teams splitting
+    one signature's windows, 2 signatures a block) at lane counts around a
+    team, a warp and a block of either pass and the service's 2,752, with
+    clipped key indices: one launch counted as ``tree_mxu``, the plain
+    tree's bitmap under ``mxu`` and comb_mxu.cu's lane for lane, the
+    expected verdicts on every lane whose index is the signer's."""
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+    from mochi_tpu_torch.crypto import field as F
+
+    _, table15, tiled, pre_ok, want, clipped, m = comb_tiled
+    part = [t[:n] for t in tiled]
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    chain = CC.verify_comb_prepared(table15, *part, impl="chain")
+    before = dict(CC.launches)
+    got = CC.verify_comb_prepared(table15, *part, impl="tree")
+    assert CC.launches == dict(before, tree_mxu=before["tree_mxu"] + 1)
+    assert torch.equal(got, comb.verify_comb_prepared(table15, *part, impl="tree")) and torch.equal(got, chain)
+    ok = (got.cpu().numpy() & pre_ok[:n]).tolist()
+    kept = [j for j in range(n) if j % m not in clipped]
+    assert [ok[j] for j in kept] == [want[j] for j in kept]
+
+
+def test_comb_tree_mxu_team_kernel_accepts_the_host_rejected_lanes_raw(card, comb_setup, monkeypatch):
+    """The two lanes the host rejects while the device accepts them
+    (ROADMAP Queue C): comb_tree_mxu.cu's raw bitmap says True on both, as
+    the plain tree's under ``mxu``, alone and together."""
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+    from mochi_tpu_torch.crypto import field as F
+
+    reg, _, _ = comb_setup
+    signer = cs.make_signers(np.random.default_rng(3), 1)[0]
+    prepared = BV.prepare_packed(cs.host_rejected_items(signer))
+    assert prepared[6].tolist() == [False, False]
+    kidx = np.asarray([0, reg.index_of(signer.pub)], dtype=np.int32)
+    lanes = CC.from_prepared(kidx, prepared, card)
+    table17 = reg.device_table(card, layout="fe17")
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    before = CC.launches["tree_mxu"]
+    for n in (1, 2):
+        part = [t[:n] for t in lanes]
+        got = CC.verify_comb_prepared(table17, *part, impl="tree")
+        assert got.tolist() == [True] * n
+        assert torch.equal(got, comb.verify_comb_prepared(table17, *part, impl="tree"))
+    assert CC.launches["tree_mxu"] == before + 2
 
 
 def test_verifier_with_signers_under_both_switches(card, comb_setup, monkeypatch):

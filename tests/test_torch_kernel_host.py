@@ -301,6 +301,9 @@ int t17_comb_verify(const int32_t* table, long long rows, int key_idx,
                     const uint8_t* h, const int32_t* bcomb) {
   return comb17_verify_one(table, rows, key_idx, y_r, sign_r, s, h, bcomb);
 }
+void t17_ge_add(int32_t* r, const int32_t* p, const int32_t* c) {
+  ge_add((ge_p3_t<fe17>*)r, (const ge_p3_t<fe17>*)p, (const ge_cached_t<fe17>*)c);
+}
 void t17_tree_leaf(int32_t* r, const int32_t* entry, int neg) {
   comb_tree17_leaf((ge_p3_t<fe17>*)r, entry, neg);
 }
@@ -319,16 +322,19 @@ int t17_tree_verify(const int32_t* table, long long rows, int key_idx,
 }
 """
 
-# verify_mxu.cu's and comb_mxu.cu's arithmetic: the whole verify with
-# every multiply through the team multiply's twin and the [0..8](-A) table
-# in caller scratch, as the kernel's team keeps it in shared memory; the
-# comb chain (comb17.cuh) and its mixed addition in their team forms
+# verify_mxu.cu's, comb_mxu.cu's and comb_tree_mxu.cu's arithmetic: the
+# whole verify with every multiply through the team multiply's twin and the
+# [0..8](-A) table in caller scratch, as the kernel's team keeps it in
+# shared memory; the comb chain (comb17.cuh) and its mixed addition in their
+# team forms; the comb tree's team order (comb_tree17.cuh) and its paired
+# complete addition
 SHIM17T = r"""
 #define MOCHI_FE17_TEAM
 #include "fe17.cuh"
 #include "fe17_team.cuh"
 #include "ge25519.cuh"
 #include "comb17.cuh"
+#include "comb_tree17.cuh"
 
 extern "C" {
 int t17t_verify(const int32_t* y_a, int sign_a, const int32_t* y_r, int sign_r,
@@ -345,6 +351,20 @@ int t17t_comb_verify(const int32_t* table, long long rows, int key_idx,
                      const int32_t* y_r, int sign_r, const uint8_t* s,
                      const uint8_t* h, const int32_t* bcomb) {
   return comb17_verify_one(table, rows, key_idx, y_r, sign_r, s, h, bcomb);
+}
+// r = p + the cached point c (YplusX, YminusX, Z, T2d): ge_add's paired form
+void t17t_ge_add(int32_t* r, const int32_t* p, const int32_t* c) {
+  ge_add((ge_p3_t<fe17>*)r, (const ge_p3_t<fe17>*)p, (const ge_cached_t<fe17>*)c);
+}
+int t17t_tree_teams(void) { return MOCHI_TREE17_TEAMS; }
+void t17t_tree_sum_team(int32_t* q, const int32_t* entries, const int8_t* neg) {
+  const tree17_given_rows src = {entries, neg};
+  comb_tree17_sum_team(tree17_serial_teams(), (ge_p3_t<fe17>*)q, src);
+}
+int t17t_tree_verify(const int32_t* table, long long rows, int key_idx,
+                     const int32_t* y_r, int sign_r, const uint8_t* s,
+                     const uint8_t* h, const int32_t* bcomb) {
+  return comb_tree17_verify_team(table, rows, key_idx, y_r, sign_r, s, h, bcomb);
 }
 }
 """
@@ -1598,6 +1618,193 @@ def test_fe17_tree_verify_equals_the_plain_tree_under_mxu_and_the_chain(lib17, m
     want = [keys.verify(it.public_key, it.message, it.signature) for it in items]
     assert [t and ok for t, ok in zip(tree, prep[6])][:6] == want[:6]
     assert any(tree) and not all(tree)
+
+
+def _ge_add17_ints(p, c):
+    """add-2008-hwcd-3 on Python ints mod p: extended point p (X, Y, Z, T)
+    plus the cached point c (Y+X, Y-X, Z, 2dT), as ``ge25519.cuh`` lays out
+    ``ge_cached_t``."""
+    ypx, ymx, z2, t2d = c
+    return _add_ints(p, (ymx, ypx, t2d, z2), False, False)
+
+
+@pytest.mark.parametrize("form", ["serial", "team"])
+def test_fe17_ge_add_fuzz_at_the_limb_maximum(lib17, lib17t, form):
+    """The tree's complete addition over ``fe17`` (``ge_add<fe17>``), one
+    multiply a call (``serial``) and in ``comb_tree_mxu.cu``'s paired form
+    through the team multiply's twin (``team``), with the point's and the
+    cached addend's limbs at LOOSE or random in [0, LOOSE]: the formula mod
+    p on Python integers, every limb in [0, LOOSE]."""
+    add = lib17.t17_ge_add if form == "serial" else lib17t.t17t_ge_add
+    rng = random.Random(157)
+    for trial in range(120):
+        pt, c = ([[F.LOOSE] * F.NLIMBS if trial % 3 == k or rng.random() < 0.2
+                  else [rng.randint(0, F.LOOSE) for _ in range(F.NLIMBS)] for _ in range(4)] for k in (0, 1))
+        out = np.zeros(4 * F.NLIMBS, np.int32)
+        add(ptr(out), ptr(arr(sum(pt, []))), ptr(arr(sum(c, []))))
+        want = _ge_add17_ints([F.limbs_to_int(v) for v in pt], [F.limbs_to_int(v) for v in c])
+        got = [F.limbs_to_int(out[F.NLIMBS * k : F.NLIMBS * (k + 1)]) % P for k in range(4)]
+        assert got == want, trial
+        assert out.min() >= 0 and out.max() <= F.LOOSE, trial
+
+
+def _team_sum_ints(rows, neg, teams):
+    """``comb_tree17_sum_team``'s order on Python ints mod p: team k
+    mixed-adds entries w and w + 64 of its windows w = k, k + teams, ... to
+    the identity, then each level off = teams / 2 ... 1 adds team k + off's
+    point to team k's; team 0's (X, Y, Z, T)."""
+    ents = [[F.limbs_to_int(r[17 * c : 17 * c + 17]) for c in range(3)] for r in rows]
+    acc = [[0, 1, 1, 0] for _ in range(teams)]
+    for i in range(64 // teams):
+        for k in range(teams):
+            for e in (k + teams * i, k + teams * i + 64):
+                acc[k] = _madd_ints(acc[k], ents[e], bool(neg[e]))
+    off = teams // 2
+    while off:
+        acc = [_add_ints(acc[k], _cached_ints(acc[k + off]), False, False) if k + off < teams else acc[k]
+               for k in range(teams)]
+        off //= 2
+    return acc[0]
+
+
+def _cached_ints(q):
+    X, Y, Z, T = q
+    return ((Y - X) % P, (Y + X) % P, 2 * F.D_INT * T % P, Z)
+
+
+def _corpus_rows(table, kidx, s_b, h_b, j):
+    """Lane j's 128 window entries in the reference's point order (the
+    signer's rows for h's digits, clipped as ``comb_row`` clips, then the
+    basepoint comb's for s's digits) and their negation flags."""
+    from mochi_tpu_torch.crypto import comb
+
+    digs = []
+    for b in (h_b[j], s_b[j]):
+        mag, ng = C.recode_signed4(C.digits4_from_bytes(torch.from_numpy(np.ascontiguousarray(b))[None]))
+        digs.append((mag[:, 0].numpy(), ng[:, 0].numpy()))
+    (hm, hn), (sm, sn) = digs
+    flat = np.clip(int(kidx[j]) * 576 + np.arange(64) * 9 + hm, 0, table.shape[0] - 1)
+    rows = np.concatenate([table[flat], comb._b_comb()[np.arange(64), sm]])
+    return arr(rows), np.concatenate([hn, sn]).astype(np.int8)
+
+
+def _plain_tree_affine(rows, neg):
+    """The plain tree under ``mxu`` over 128 entries: the affine (x, y)."""
+    from mochi_tpu_torch.crypto import comb
+
+    t15 = torch.from_numpy(rows.astype(np.int64)).T
+    ngt = torch.from_numpy(neg.astype(bool))
+    ypx, ymx, xy2d = t15[:17], t15[17:34], t15[34:]
+    with F.skew("mxu"):
+        pt = comb._tree_accumulate(F.select(ngt, ymx, ypx), F.select(ngt, ypx, ymx),
+                                   F.select(ngt, F.neg(xy2d), xy2d), 128, 1)
+    X, Y, Z = (F.limbs_to_int(c) for c in pt[:3])
+    zi = pow(Z % P, P - 2, P)
+    return X * zi % P, Y * zi % P
+
+
+def _team_sum(lib17t, rows, neg):
+    """The shim's team-order sum of 128 entries: (4 x 17) int32."""
+    q = np.zeros(4 * F.NLIMBS, np.int32)
+    lib17t.t17t_tree_sum_team(ptr(q), ptr(rows), neg.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)))
+    return q
+
+
+def test_fe17_team_tree_sum_equals_the_plain_tree_under_mxu_and_python_ints(lib17t):
+    """``comb_tree_mxu.cu``'s accumulate order (``comb_tree17_sum_team``:
+    each team's windows by paired mixed additions from the identity, then
+    the levels across teams, every multiply through the team multiply's
+    twin) on real window entries (a signer table and the basepoint comb
+    with random digits, and the lanes of the tree corpus whose key is in
+    the table): the affine sum equals the plain tree's under ``mxu`` (the
+    reference's order) and the group sum of the points on Python ints, its
+    projective limbs the team order's formulas on Python ints, every limb
+    in [0, LOOSE]."""
+    teams = lib17t.t17t_tree_teams()
+    assert teams in (4, 8)
+    cases = [_tree_entries(seed)[1:] for seed in (183, 184)]
+    reg, items, kidx, prep = _tree17_corpus(205)
+    table = reg.host_table()
+    _, _, _, _, s_b, h_b, _ = prep
+    cases += [_corpus_rows(table, kidx, s_b, h_b, j) for j in range(len(items)) if 0 <= kidx[j] < len(reg)][:6]
+    for rows, neg in cases:
+        rows = arr(rows)
+        q = _team_sum(lib17t, rows, neg)
+        want = (0, 1)
+        for r, ng in zip(rows, neg):
+            x, y = _leaf_ints([F.limbs_to_int(r[17 * k : 17 * k + 17]) for k in range(3)], ng)[:2]
+            want = C._py_edwards_add(want, (x, y))
+        assert _tree17_ints(q) == _plain_tree_affine(rows, neg) == want
+        got = [F.limbs_to_int(q[F.NLIMBS * k : F.NLIMBS * (k + 1)]) % P for k in range(4)]
+        assert got == _team_sum_ints(rows, neg, teams)
+        assert q.min() >= 0 and q.max() <= F.LOOSE
+
+
+@pytest.mark.parametrize("negated", ["none", "all", "mixed"])
+def test_fe17_team_tree_sum_at_the_limb_maximum_equals_python_ints(lib17t, negated):
+    """The same team-order sum with every entry limb at 2^15 - 1 (the
+    canonical maximum), some entries random: negated on no leaf, on every
+    leaf (``fe_neg``'s 2p - x, limbs up to LOOSE) or on random ones.  Such
+    entries are not curve points, so no other order sums them to the same
+    point: the projective result equals the team order's formulas on Python
+    ints mod p, every limb in [0, LOOSE]."""
+    teams = lib17t.t17t_tree_teams()
+    rng = random.Random({"none": 211, "all": 212, "mixed": 213}[negated])
+    rows = arr([[(1 << 15) - 1] * 51 if rng.random() < 0.75 else
+                sum((list(F.int_to_limbs(rng.randrange(P))) for _ in range(3)), []) for _ in range(128)])
+    neg = np.array([{"none": 0, "all": 1}.get(negated, rng.randrange(2)) for _ in range(128)], dtype=np.int8)
+    q = _team_sum(lib17t, rows, neg)
+    got = [F.limbs_to_int(q[F.NLIMBS * k : F.NLIMBS * (k + 1)]) % P for k in range(4)]
+    assert got == _team_sum_ints(rows, neg, teams)
+    assert q.min() >= 0 and q.max() <= F.LOOSE
+
+
+def test_fe17_team_tree_verify_equals_the_serial_twin_the_plain_tree_comb_mxu_and_keys_verify(
+        lib17, lib17t, monkeypatch):
+    """``comb_tree_mxu.cu``'s arithmetic, both passes: the prepare record
+    and the team-order sum and compare (``comb_tree17_verify_team``), every
+    multiply through the team multiply's twin, on ``chip_smoke.py``'s
+    registered-signer corpus with key indices past both ends of the table
+    and the two lanes the host rejects while the device accepts them (ROADMAP
+    Queue C): the raw bitmap equals the reference-order serial twin's
+    (``t17_tree_verify``), the plain tree's under ``mxu``, ``comb_mxu.cu``'s
+    twin's (``t17t_comb_verify``) lane for lane, True on both host-rejected
+    lanes, and, ANDed with the host prechecks, the expected verdicts and
+    ``keys.verify`` on every lane whose index is the signer's."""
+    import chip_smoke as cs
+    from mochi_tpu_torch.crypto import batch_verify as BV
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    items, want, kidx, clipped, prep, t15 = _comb_corpus(357, 40)
+    signer = cs.make_signers(np.random.default_rng(357), 4)[0]  # _comb_corpus's signers[0]
+    rej = cs.host_rejected_items(signer)
+    rprep = BV.prepare_packed(rej)
+    prep = tuple(np.concatenate([a, b]) for a, b in zip(prep, rprep))
+    kidx = np.concatenate([kidx, np.asarray([0, 0], dtype=np.int32)])
+    assert rprep[6].tolist() == [False, False]
+    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    used = []
+    real = F._mul_mxu
+    monkeypatch.setattr(F, "_mul_mxu", lambda a, b: used.append(1) or real(a, b))
+    plain = comb.verify_comb_prepared(t15, *CC.from_prepared(kidx, prep, "cpu"), impl="tree",
+                                      multiply="mxu").tolist()
+    assert used
+    table = arr(t15.numpy())
+    bcomb = arr(comb._b_comb().reshape(-1, comb.ROW_WIDTH))
+    _, _, y_r, sign_r, s_b, h_b, pre_ok = prep
+    fns = (lib17t.t17t_tree_verify, lib17.t17_tree_verify, lib17t.t17t_comb_verify)
+    for fn in fns:
+        fn.argtypes = [I32P, ctypes.c_longlong, ctypes.c_int, I32P, ctypes.c_int, U8P, U8P, I32P]
+    team, serial, chain = (
+        [bool(fn(ptr(table), table.shape[0], int(kidx[j]), ptr(arr(y_r[j])), int(sign_r[j]),
+                 np.ascontiguousarray(s_b[j]).ctypes.data_as(U8P), np.ascontiguousarray(h_b[j]).ctypes.data_as(U8P),
+                 ptr(bcomb))) for j in range(len(kidx))]
+        for fn in fns)
+    assert team == serial == plain == chain
+    assert team[-2:] == [True, True]
+    _check_comb_corpus_verdicts(team[:-2], items, want, clipped, pre_ok[:-2])
+    assert any(team) and not all(team)
 
 
 # ------------------------------------------- the team verify (verify25519.cuh)
