@@ -99,7 +99,7 @@ Phases (any failure exits non-zero and prints no result line):
 6tm. The comb tree under ``MOCHI_SKEW_IMPL=mxu`` (``comb_tree_mxu.cu``, the
    tree's two passes in the 17 x 15-bit field with every multiply on the
    integer tensor cores, a team of four lanes a signature in the prepare
-   pass and the eight teams of a warp splitting one signature's 128 window
+   pass and four teams of four lanes splitting one signature's 128 window
    points in the accumulate pass, reading the registry's rows as they are) on phase
    6's corpus at 8192 lanes, a partial last block and the service's 2,752:
    its bitmap must equal the plain tree under the same switch on the card,

@@ -27,10 +27,10 @@ follows the pair of switches (:func:`kernel_of`):
 * ``impl="tree"``, ``multiply="mxu"``: ``csrc/comb_tree_mxu.cu``
   (arithmetic in ``csrc/comb_tree17.cuh``), the same two passes in the 17 x
   15-bit field on ``comb_mxu.cu``'s team multiply: the prepare pass a team
-  of four lanes a signature, the accumulate pass the eight teams of a warp
-  splitting one signature's 128 window points (each team mixed-adds its
-  windows' entries, then three levels of complete addition across the
-  teams).
+  of four lanes a signature, the accumulate pass four teams of four lanes
+  splitting one signature's 128 window points, two signatures a warp (each
+  team mixed-adds its windows' entries, then two levels of complete
+  addition across the teams).
 
 ``impl=None`` takes :data:`comb.COMB_IMPL` (``MOCHI_COMB_IMPL``) and
 ``multiply=None`` the ``MOCHI_SKEW_IMPL`` switch (``mxu`` for ``mxu``, else
@@ -114,8 +114,8 @@ MMA_MACS_PER_CALL = 57 * 16 * 8 * 32 // 8
 # pass each of the signature's TREE_MXU_TEAMS teams (MOCHI_TREE17_TEAMS)
 # makes its share of the 128 mixed additions (4 calls each), every level
 # of the sum across the teams (ge_to_cached's call and ge_add's 4) and the
-# compare's 1: 275 + 8 x 80.  Each call issues MMA_MACS_PER_CALL.
-TREE_MXU_TEAMS = 8
+# compare's 1: 275 + 4 x 139.  Each call issues MMA_MACS_PER_CALL.
+TREE_MXU_TEAMS = 4
 TREE_MXU_CALLS_PER_SIGNATURE = 275 + TREE_MXU_TEAMS * (
     128 * 4 // TREE_MXU_TEAMS + 5 * (TREE_MXU_TEAMS.bit_length() - 1) + 1)
 

@@ -52,10 +52,11 @@
 #include "comb17.cuh"
 #include "fe17_team.cuh"  // MOCHI_T17_MEMBER
 
-// Teams of four lanes a signature in comb_tree_mxu.cu's accumulate pass: 8
-// (one signature a warp) or 4 (two).  PERF.md has both measured.
+// Teams of four lanes a signature in comb_tree_mxu.cu's accumulate pass: 4
+// (two signatures a warp) or 8 (one).  4 measured faster at 2,752 and 8192
+// lanes, 8 at small launches (PERF.md).
 #ifndef MOCHI_TREE17_TEAMS
-#define MOCHI_TREE17_TEAMS 8
+#define MOCHI_TREE17_TEAMS 4
 #endif
 static_assert(MOCHI_TREE17_TEAMS == 8 || MOCHI_TREE17_TEAMS == 4, "8 or 4 teams a signature");
 

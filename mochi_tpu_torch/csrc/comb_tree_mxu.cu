@@ -1,7 +1,7 @@
 // Known-signer (comb) Ed25519 verification on Hopper with the tree
 // accumulation and every field multiply's column reduction on the integer
-// tensor cores: a team of four lanes a signature in the prepare pass, the
-// eight teams of a warp splitting one signature's 128 window points in the
+// tensor cores: a team of four lanes a signature in the prepare pass, four
+// teams of four lanes splitting one signature's 128 window points in the
 // accumulate pass.  The comb tree under MOCHI_SKEW_IMPL=mxu.
 //
 // Replaces the reference package's comb.verify_comb_prepared with
@@ -31,15 +31,17 @@
 //     comb_mxu.cu maps its chain: R's RFC 8032 decode (275 dependent team
 //     calls of one multiply) and both scalars' signed recoding into a
 //     record of MOCHI_TREE17_RECORD_INTS int32.
-//   * The accumulate pass: one signature a warp (MOCHI_TREE17_TEAMS = 8;
-//     with 4, two a warp).  Team k mixed-adds the signer's and the
-//     basepoint's entry of each of its windows w = k, k + 8, ..., k + 56
-//     to the identity (16 ge_madd of 4 team calls), then 3 levels of
+//   * The accumulate pass: MOCHI_TREE17_TEAMS = 4 teams a signature, two
+//     signatures a warp.  Team k mixed-adds the signer's and the
+//     basepoint's entry of each of its windows w = k, k + 4, ..., k + 60
+//     to the identity (32 ge_madd of 4 team calls), then 2 levels of
 //     complete addition fold the partner team's point, taken by
-//     __shfl_down_sync 16, 8 and 4 lanes down, into its own (5 calls
-//     each), and team 0 compares the sum with R (1 call): 80 dependent
-//     team calls, where the warp-wide multiply's layout (one tree node a
-//     lane) made 76 multiplies of ~4 us.
+//     __shfl_down_sync 8 and 4 lanes down, into its own (5 calls each),
+//     and team 0 compares the sum with R (1 call): 139 dependent team
+//     calls, where the warp-wide multiply's layout (one tree node a lane)
+//     made 76 multiplies of ~4 us.  With 8 teams (one signature a warp, 3
+//     levels) the chain is 80 calls, but a signature holds a whole warp
+//     for them: PERF.md has both measured, 4 faster from ~2,752 lanes.
 // Both passes take every multiply through fe17_team.cuh: no shared memory,
 // no ldmatrix and no warp barrier on the multiply's path.
 //

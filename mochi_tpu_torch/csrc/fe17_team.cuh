@@ -38,8 +38,8 @@
 // 57 MMAs serve both, and the two chains of products, folds and shuffles
 // overlap in one call.  A signature's verify makes 1,308 such calls and
 // 817 of one multiply (ge25519.cuh under MOCHI_FE17_TEAM); its comb chain
-// (comb17.cuh) 385 and 403; its comb tree (comb_tree17.cuh, 8 teams) 488
-// and 427 over its teams.
+// (comb17.cuh) 385 and 403; its comb tree (comb_tree17.cuh, 4 teams) 420
+// and 411 over its teams.
 //
 // Each lane's products.  Lane t needs f[i] g[s - i] with i = i0 + t for a
 // half-step whose slot 0 takes a-limb i0, column s.  A register array

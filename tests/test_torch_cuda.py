@@ -602,9 +602,9 @@ def test_comb_tree_mxu_kernel_equals_plain_tree_under_mxu_and_comb_mxu_cu(card, 
 @pytest.mark.parametrize("n", [1, 7, 8, 9, 31, 32, 33, 63, 64, 65, 127, 129, 2752])
 def test_comb_tree_mxu_team_kernel_equals_plain_tree_at_team_warp_and_block_edges(card, comb_tiled, monkeypatch, n):
     """comb_tree_mxu.cu (the prepare pass a team of four lanes a signature,
-    16 a block of 64 threads; the accumulate pass a warp's teams splitting
-    one signature's windows, 2 signatures a block) at lane counts around a
-    team, a warp and a block of either pass and the service's 2,752, with
+    16 a block of 64 threads; the accumulate pass ``TREE_MXU_TEAMS`` teams
+    splitting one signature's windows, 4 signatures a block) at lane counts
+    around a team, a warp and a block of either pass and the service's 2,752, with
     clipped key indices: one launch counted as ``tree_mxu``, the plain
     tree's bitmap under ``mxu`` and comb_mxu.cu's lane for lane, the
     expected verdicts on every lane whose index is the signer's."""
