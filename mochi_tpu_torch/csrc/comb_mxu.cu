@@ -25,7 +25,7 @@
 // repeats (PERF.md has both measured).
 //
 // What the design does about it.  fe17.cuh's warp-wide multiply (one signature
-// a lane, 32 a warp, as this kernel ran it before) stages every lane's
+// a lane, 32 a warp) stages every lane's
 // product words in shared memory, reloads them with ldmatrix, runs 196 MMAs
 // and reads the accumulators back: ~1,550 instructions a lane and 13 warp
 // barriers a multiply.  Here four lanes share a signature and each forms a

@@ -55,9 +55,7 @@
 // Teams of four lanes a signature in comb_tree_mxu.cu's accumulate pass: 4
 // (two signatures a warp) or 8 (one).  4 measured faster at 2,752 and 8192
 // lanes, 8 at small launches (PERF.md).
-#ifndef MOCHI_TREE17_TEAMS
 #define MOCHI_TREE17_TEAMS 4
-#endif
 static_assert(MOCHI_TREE17_TEAMS == 8 || MOCHI_TREE17_TEAMS == 4, "8 or 4 teams a signature");
 
 #define MOCHI_TREE17_POINTS 128

@@ -38,10 +38,9 @@
 //     complete addition fold the partner team's point, taken by
 //     __shfl_down_sync 8 and 4 lanes down, into its own (5 calls each),
 //     and team 0 compares the sum with R (1 call): 139 dependent team
-//     calls, where the warp-wide multiply's layout (one tree node a lane)
-//     made 76 multiplies of ~4 us.  With 8 teams (one signature a warp, 3
-//     levels) the chain is 80 calls, but a signature holds a whole warp
-//     for them: PERF.md has both measured, 4 faster from ~2,752 lanes.
+//     calls.  With 8 teams (one signature a warp, 3 levels) the chain is
+//     80 calls, but a signature holds a whole warp for them: PERF.md has
+//     both measured, 4 faster from ~2,752 lanes.
 // Both passes take every multiply through fe17_team.cuh: no shared memory,
 // no ldmatrix and no warp barrier on the multiply's path.
 //
