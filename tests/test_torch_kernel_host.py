@@ -34,7 +34,12 @@ against the serial twin and the plain bitmap, and the comb chain through
 it (paired mixed additions and compare): its mixed addition at the limb
 maximum against Python integers, its whole verify on the comb corpus
 against the serial twin, the plain chain under ``mxu`` and
-``keys.verify``.  ``verify.cu``'s team of four
+``keys.verify``; and ``comb_tree_mxu.cu``'s team order of the tree
+(``comb_tree17.cuh``, one thread playing a signature's teams): its paired
+complete addition at the limb maximum, its sum against the plain tree,
+Python ints and, at the limb maximum, its own order's formulas, and its
+whole verify against the reference-order twin, the plain tree, the chain
+and ``keys.verify``.  ``verify.cu``'s team of four
 lanes (``verify25519.cuh``) builds with its serial twin, one thread playing
 the four lanes: its basepoint comb, its [S]B (the dropped carry too), both
 team steps at the TIGHT maximum, one ladder window, and its whole verify
