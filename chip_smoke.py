@@ -12,11 +12,10 @@ Phases (any failure exits non-zero and prints no result line):
    ``verify_mxu.cu``, ``comb.cu``, ``comb_mxu.cu``, ``comb_tree.cu``,
    ``comb_tree_mxu.cu`` and ``tally.cu``, one nvcc each, started together;
    report ptxas's registers, spills and shared bytes and each kernel's
-   attributes (both passes of each tree; for ``verify.cu``, ``comb.cu``,
-   ``verify_mxu.cu``, ``comb_mxu.cu`` and both passes of ``comb_tree_mxu.cu``
-   also the lanes a signature, threads a block and dynamic shared bytes,
-   and from each of those five libraries' ``cuobjdump -sass`` listing the
-   instructions, IMAD, tensor-core MMAs and local stores and loads).
+   attributes (both passes of ``comb_tree_mxu.cu``; for every Ed25519
+   kernel also the lanes a signature, threads a block and dynamic shared
+   bytes, and from each of those six libraries' ``cuobjdump -sass`` listing
+   the instructions, IMAD, tensor-core MMAs and local stores and loads).
 3. Kernel vs plain — an 8192-item corpus made from ``--seed``: valid
    signatures from 64 signers, forgeries, and adversarial encodings
    (low-order and mixed-order points, non-points, x = 0 with the sign bit,
@@ -74,11 +73,14 @@ Phases (any failure exits non-zero and prints no result line):
    must equal the plain tree at both lane counts, the chain kernel's bitmap
    lane for lane, and ``keys.verify`` on the same 256 lanes.
 7. Comb times — for the chain and the tree kernel: CUDA events at 8192 and
-   65536 lanes, a launch-size sweep (phase 4's, 1 ... 262144), the plain version at
-   8192, the bound (the function's, one for both: they compute the same
-   bitmap), the tree's two passes apart by ``torch.profiler``, and one lone
-   43-grant certificate through ``verify_batch`` with the registry (the
-   tree's under its switch).
+   65536 lanes (the tree also at 2,752), a launch-size sweep (phase 4's, 1
+   ... 262144), the plain version at 8192, the bound (the function's, one
+   for both: they compute the same bitmap), the tree's kernel time beside
+   the chain's by ``torch.profiler``, and one lone 43-grant certificate
+   through ``verify_batch`` with the registry (the tree's under its
+   switch).  The tree's sweep is checked: at each count up to 8192 its
+   bitmap must equal the plain tree's, at every count ``comb.cu``'s (on
+   the same lanes) and the expected verdicts.
 6m. The comb chain under ``MOCHI_SKEW_IMPL=mxu`` (``comb_mxu.cu``, the
    chain in the 17 x 15-bit field with every multiply's column reduction on
    the integer tensor cores, a team of four lanes a signature, reading the
@@ -1241,7 +1243,7 @@ def run(args) -> dict:
     print(f"[build] verify_mxu.cu: a team of {ma['team']} lanes a signature, {ma['threads']} threads a block, "
           f"{ma['shared_bytes']} static and {ma['dynamic_shared_bytes']} dynamic shared bytes, "
           f"{ma['registers']} registers, {ma['local_bytes']} local bytes", flush=True)
-    for name in ("comb", "comb_mxu"):
+    for name in ("comb", "comb_mxu", "comb_tree"):
         ca = res["kernel_attributes"][name]
         print(f"[build] {name}.cu: a team of {ca['team']} lanes a signature, {ca['threads']} threads a block, "
               f"{ca['shared_bytes']} static and {ca['dynamic_shared_bytes']} dynamic shared bytes, "
@@ -1250,7 +1252,7 @@ def run(args) -> dict:
         print(f"[build] comb_tree_mxu.cu {pas} pass: {ta['team']} lanes a signature, {ta['threads']} threads a "
               f"block, {ta['shared_bytes']} static and {ta['dynamic_shared_bytes']} dynamic shared bytes, "
               f"{ta['registers']} registers, {ta['local_bytes']} local bytes", flush=True)
-    for name in ("verify", "verify_mxu", "comb", "comb_mxu", "comb_tree_mxu"):
+    for name in ("verify", "verify_mxu", "comb", "comb_mxu", "comb_tree", "comb_tree_mxu"):
         sass = subprocess.run([str(Path(kernels.nvcc_path()).parent / "cuobjdump"), "-sass",
                                str(kernels.library_path(name))], capture_output=True, text=True, timeout=120,
                               check=True)
@@ -1516,6 +1518,8 @@ def run(args) -> dict:
         BV.verify_batch(cert, dev, registry=reg)
     ccert_ms, ccert_launches = 1e2 * (time.perf_counter() - t0), (CC.launches["chain"] - l0) / 10
     ctiled = [torch.cat([t] * 4) for t in big_lanes]
+    reps = ctiled[0].shape[0] // len(citems)
+    wave_lanes = [t[: CLIENTS * GRANTS] for t in lanes]
     csweep = {}
     for n in SWEEP:
         part_l = [t[:n] for t in ctiled]
@@ -1530,18 +1534,31 @@ def run(args) -> dict:
     cbound = lambda n: 1e3 * max(n * CC.IMADS_PER_SIGNATURE / rate, cbytes(n) / 3.35e12)  # noqa: E731
     cbound_by = "operations" if len(citems) * CC.IMADS_PER_SIGNATURE / rate > cbytes(len(citems)) / 3.35e12 \
         else "bytes"
+    t_wave = _ms_median(lambda: CC.verify_comb_prepared(table25, *wave_lanes, impl="tree"), 3, REPEATS)
     t8k = _ms_median(lambda: CC.verify_comb_prepared(table25, *lanes, impl="tree"), 3, REPEATS)
     t64k = _ms_median(lambda: CC.verify_comb_prepared(table25, *big_lanes, impl="tree"), 2, REPEATS // 2)
     tplain = _ms_median(lambda: comb.verify_comb_prepared(table15, *lanes, impl="tree"), 1, 3)
-    tsweep = {}
-    for n in csweep:
-        part_l = [t[:n] for t in ctiled]
-        ms = _ms_median(lambda: CC.verify_comb_prepared(table25, *part_l, impl="tree"), 1, 5)
-        tsweep[n] = {"ms": ms, "sigs_per_s": n / (ms / 1e3), "chain_ms": csweep[n]["ms"]}
-    # the tree's two passes apart, by the profiler (the chain beside them)
-    tsplit = {n: kernel_split_ms(lambda: CC.verify_comb_prepared(table25, *[t[:n] for t in ctiled], impl="tree"))
-              for n in (1024, 8192, BIG)}
-    tsplit["chain_8192"] = kernel_split_ms(lambda: CC.verify_comb_prepared(table25, *lanes, impl="chain"))
+    # the launch-size sweep: each count up to the corpus against the plain
+    # tree, each against comb.cu's bitmap on the same lanes and the verdicts
+    for n in SWEEP:
+        if n <= len(citems) and n not in tcheck:
+            tcheck[n] = _check_comb_at(n, table25, table15, lanes, big_lanes, cprep[6], cwant, "tree")
+    pad_tiled = CC.verify_comb_prepared(table25, *ctiled, multiply="pad").cpu().numpy()  # comb.cu's
+    tsweep, t_vs_sweep = sweep_vs(
+        lambda n: CC.verify_comb_prepared(table25, *[t[:n] for t in ctiled], impl="tree"), pad_tiled,
+        np.tile(cprep[6], reps), np.tile(np.asarray(cwant, dtype=bool), reps), SWEEP,
+        lambda n: _ms_median(lambda: CC.verify_comb_prepared(table25, *[t[:n] for t in ctiled], impl="tree"), 1, 5))
+    for n in tsweep:
+        tsweep[n]["chain_ms"] = csweep[n]["ms"]
+    print(f"[comb tree sweep] equal to the plain tree at {sorted(tcheck)}, lanes differing from comb.cu or the "
+          f"verdicts {t_vs_sweep}", flush=True)
+    if any(t_vs_sweep.values()):
+        raise AssertionError(f"comb tree kernel disagrees with comb.cu or the verdicts: {t_vs_sweep}")
+    # the tree kernel's device time beside the chain's on the same lanes, by
+    # the profiler
+    tsplit = {n: kernel_split_ms(lambda: (CC.verify_comb_prepared(table25, *[t[:n] for t in ctiled], impl="tree"),
+                                          CC.verify_comb_prepared(table25, *[t[:n] for t in ctiled], impl="chain")))
+              for n in (CLIENTS * GRANTS, len(citems), BIG)}
     impl0 = comb.COMB_IMPL  # MOCHI_COMB_IMPL, restored after each tree leg
     try:  # one lone certificate through verify_batch under the tree switch
         comb.COMB_IMPL = "tree"
@@ -1553,16 +1570,17 @@ def run(args) -> dict:
     finally:
         comb.COMB_IMPL = impl0
     res["comb_tree_times"] = {
-        "kernel_ms_8192": t8k, "kernel_ms_65536": t64k, "plain_ms_8192": tplain,
+        "kernel_ms_2752": t_wave, "kernel_ms_8192": t8k, "kernel_ms_65536": t64k, "plain_ms_8192": tplain,
         "bound_ms_8192": cbound(len(citems)), "bound_ms_65536": cbound(BIG), "bound_by": cbound_by,
         "sigs_per_s_8192": len(citems) / (t8k / 1e3), "sigs_per_s_65536": BIG / (t64k / 1e3),
         "imads_per_signature": CC.IMADS_PER_SIGNATURE, "imads_issued_per_signature": CC.IMADS_PER_SIGNATURE_TREE,
         "issued_bound_ms_8192": 1e3 * len(citems) * CC.IMADS_PER_SIGNATURE_TREE / rate,
-        "launch_size_sweep": tsweep,
+        "launch_size_sweep": tsweep, "sweep_lanes_differing_from_comb_cu_or_verdicts": t_vs_sweep,
+        "lane_counts_checked_vs_plain": sorted(tcheck),
         "cert43_verify_batch_ms": tcert_ms, "cert43_launches": tcert_launches,
-        "chain_over_tree_ms_8192": c8k / t8k, "profiler_ms_per_pass": tsplit,
+        "chain_over_tree_ms_8192": c8k / t8k, "profiler_ms_beside_the_chain": tsplit,
         "attributes": res["kernel_attributes"]["comb_tree"],
-        "ptxas": res["ptxas"].get("comb_tree", []),
+        "ptxas": res["ptxas"].get("comb_tree", []), "sass": res["sass_comb_tree"],
     }
     print(f"[comb tree times] {res['comb_tree_times']}", flush=True)
     res["comb_times"] = {
@@ -1587,7 +1605,6 @@ def run(args) -> dict:
     skew0 = F.SKEW_IMPL  # MOCHI_SKEW_IMPL, restored after each mxu leg
     table17 = reg.device_table(dev, layout="fe17")
     table17_mismatch = int((table17.cpu() != torch.from_numpy(reg.host_table())).sum())
-    pad_tiled = CC.verify_comb_prepared(table25, *ctiled, multiply="pad").cpu().numpy()  # comb.cu's, for 7m's sweep
     try:
         F.SKEW_IMPL = "mxu"
         mcgot = CC.verify_comb_prepared(table17, *lanes).cpu().numpy()
@@ -1610,7 +1627,6 @@ def run(args) -> dict:
             raise AssertionError(f"comb mxu kernel disagrees: table entries {table17_mismatch}, {mc_vs_pad} lanes "
                                  f"with comb.cu, wrong kinds {sorted(set(mcwrong))[:10]}, sample lanes "
                                  f"{mcsample_wrong[:10]}")
-        wave_lanes = [t[: CLIENTS * GRANTS] for t in lanes]
         mc_wave = _ms_median(lambda: CC.verify_comb_prepared(table17, *wave_lanes), 2, REPEATS // 2)
         mc8k = _ms_median(lambda: CC.verify_comb_prepared(table17, *lanes), 2, REPEATS)
         mc64k = _ms_median(lambda: CC.verify_comb_prepared(table17, *big_lanes), 1, REPEATS // 4)
@@ -1620,7 +1636,6 @@ def run(args) -> dict:
         for n in SWEEP:
             if n <= len(citems) and n not in mccheck:
                 mccheck[n] = _check_comb_at(n, table17, table17, lanes, big_lanes, cprep[6], cwant)
-        reps = ctiled[0].shape[0] // len(citems)
         mcsweep, mc_vs_sweep = sweep_vs(
             lambda n: CC.verify_comb_prepared(table17, *[t[:n] for t in ctiled]), pad_tiled,
             np.tile(cprep[6], reps), np.tile(np.asarray(cwant, dtype=bool), reps), SWEEP,
@@ -1932,10 +1947,14 @@ def run(args) -> dict:
         "name": "comb_tree_verify",
         "route": "cuda",
         "source": "mochi_tpu_torch/csrc/comb_tree.cu",
+        "design": f"one launch: a decode warp beside {res['kernel_attributes']['comb_tree']['team']} lanes a "
+                  "signature summing its window points (csrc/comb_tree.cuh)",
         "replaces": "mochi_tpu/crypto/comb.py:428",
         "launches": svc2t["comb_launches"]["tree"],
         "max_abs_err": max(tcheck.values()),
         "ms": t8k,
+        "ms_2752": t_wave,
+        "ms_65536": t64k,
         "plain_ms": tplain,
         "bound_ms": cbound(len(citems)),
         "bound_by": res["comb_tree_times"]["bound_by"],

@@ -20,10 +20,11 @@ follows the pair of switches (:func:`kernel_of`):
   straight into the MMA's operands (``csrc/fe17_team.cuh``), two
   multiplies a call where the chain has two independent ones;
 * ``impl="tree"``, ``multiply="pad"``: ``csrc/comb_tree.cu`` (arithmetic
-  in ``csrc/comb_tree.cuh``), a prepare pass (R's decode and the digit
-  recoding, one thread per signature) and an accumulate pass (the 128
-  window points summed by a 7-level tree, one warp per signature), in radix
-  2^25.5;
+  in ``csrc/comb_tree.cuh``), one launch in radix 2^25.5, 32 signatures a
+  block: one warp decodes R of each, while :data:`TREE_LANES` lanes a
+  signature split its 128 window points (each lane mixed-adds both tables'
+  entries of its windows from the identity, then levels of complete
+  addition across the lanes by shuffles) and the first compares;
 * ``impl="tree"``, ``multiply="mxu"``: ``csrc/comb_tree_mxu.cu``
   (arithmetic in ``csrc/comb_tree17.cuh``), the same two passes in the 17 x
   15-bit field on ``comb_mxu.cu``'s team multiply: the prepare pass a team
@@ -70,15 +71,15 @@ from .cuda_verify import _BITS, _OFFS, _check
 KERNELS = ("chain", "tree", "chain_mxu", "tree_mxu")
 
 # Launches of each kernel, keyed by kernel (plain counts; the chip smoke
-# test zeroes them before driving a main path and reads them after).  A
-# tree counts one per call, both passes.
+# test zeroes them before driving a main path and reads them after).
+# comb_tree_mxu.cu counts one per call, both passes.
 launches = dict.fromkeys(KERNELS, 0)
 _count_lock = threading.Lock()
 
 # Launch traces of each kernel, keyed by kernel, off when None.  When a
 # list, each launch appends (lanes, start, end): CUDA events recorded on the
-# launch's stream just before and just after the kernel (a tree's: both
-# passes).
+# launch's stream just before and just after the kernel (comb_tree_mxu.cu's:
+# both passes).
 launch_logs = dict.fromkeys(KERNELS)
 
 # 32x32->64 integer multiply-adds one signature's verdict takes (the
@@ -87,15 +88,19 @@ launch_logs = dict.fromkeys(KERNELS)
 # either kernel.  The data-dependent sqrt(-1) multiply of the decode is
 # left out.
 IMADS_PER_SIGNATURE = 917 * 100 + 255 * 55
-# What comb_tree.cu issues for the same verdict: 1,228 multiplies and the
-# same 255 squarings (the lanes that compute unread sums are not counted).
-IMADS_PER_SIGNATURE_TREE = 1228 * 100 + 255 * 55
+# Lanes a signature in comb_tree.cu (MOCHI_TREE_LANES in comb_tree.cuh; it
+# sizes the issued count below and the card test of the attributes).
+TREE_LANES = 4
+# What comb_tree.cu issues for the same verdict: each of a signature's
+# TREE_LANES lanes makes its share of the 128 mixed additions of 7
+# multiplies, every level across the lanes (ge_to_cached's and ge_add's 9)
+# and the compare's 2 (issued for the warp, whichever lanes store), plus R's
+# decode, 19 multiplies and 255 squarings, on the decode warp.
+IMADS_PER_SIGNATURE_TREE = (128 * 7 + TREE_LANES * (9 * (TREE_LANES.bit_length() - 1) + 2) + 19) * 100 + 255 * 55
 
-# Each tree's per-signature record between its passes (comb_tree.cuh,
-# comb_tree17.cuh): R's x and y, R's verdict, 128 int8 digits.
-TREE_RECORD_INTS = 53
+# comb_tree_mxu.cu's per-signature record between its passes
+# (comb_tree17.cuh): R's x and y, R's verdict, 128 int8 digits.
 TREE17_RECORD_INTS = 67
-_RECORD_INTS = {"tree": TREE_RECORD_INTS, "tree_mxu": TREE17_RECORD_INTS}
 
 # Multiplies and squarings one signature of the chain under mxu makes
 # (128 mixed additions of 7, the decode's 275, its sqrt(-1) multiply
@@ -200,10 +205,13 @@ def table_layout(device, impl: str, multiply: str) -> str:
 # count and the lane count, whether the attribute query takes a pass index)
 _LIBS = {
     "chain": ("comb", "mochi_comb_verify", 7, False),
-    "tree": ("comb_tree", "mochi_comb_tree_verify", 8, True),
+    "tree": ("comb_tree", "mochi_comb_tree_verify", 7, False),
     "chain_mxu": ("comb_mxu", "mochi_comb_mxu_verify", 7, False),
     "tree_mxu": ("comb_tree_mxu", "mochi_comb_tree_mxu_verify", 8, True),
 }
+
+# What every comb kernel's attribute query reports, in its order.
+_ATTR_NAMES = ("registers", "local_bytes", "shared_bytes", "threads", "team", "dynamic_shared_bytes")
 
 
 def _lib(kernel: str = "chain"):
@@ -218,36 +226,26 @@ def _lib(kernel: str = "chain"):
         launch.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * n_ptrs
                            + [ctypes.c_int, ctypes.c_void_p])
         launch.restype = ctypes.c_int
-        attrs.argtypes = [ctypes.c_int] * by_pass + [ctypes.POINTER(ctypes.c_int)] * len(_attr_names(kernel))
+        attrs.argtypes = [ctypes.c_int] * by_pass + [ctypes.POINTER(ctypes.c_int)] * len(_ATTR_NAMES)
         attrs.restype = ctypes.c_int
         lib._mochi_typed = True
     return lib
 
 
-def _attr_names(kernel: str) -> tuple:
-    """What ``kernel``'s attribute query reports, in its order: comb.cu's,
-    comb_mxu.cu's and each pass of comb_tree_mxu.cu's also their lanes a
-    signature and the dynamic shared bytes of a launch."""
-    names = ("registers", "local_bytes", "shared_bytes", "threads")
-    return names + ("team", "dynamic_shared_bytes") if kernel in ("chain", "chain_mxu", "tree_mxu") else names
-
-
 def kernel_attributes(kernel: str = "chain") -> dict:
-    """Registers per thread, local bytes per thread, static shared bytes and
-    threads per block of ``kernel``'s compiled kernel (one of
-    :data:`KERNELS`; cudaFuncGetAttributes), for ``chain``, ``chain_mxu``
-    and ``tree_mxu`` also the lanes a signature (``team``) and the dynamic
-    shared bytes of a launch; for a tree, one such dict for each pass
-    (``prepare``, ``accumulate``)."""
+    """Registers per thread, local bytes per thread, static shared bytes,
+    threads per block, lanes a signature (``team``) and the dynamic shared
+    bytes of a launch of ``kernel``'s compiled kernel (one of
+    :data:`KERNELS`; cudaFuncGetAttributes); for ``tree_mxu``, one such
+    dict for each pass (``prepare``, ``accumulate``)."""
     fn = getattr(_lib(kernel), _LIBS[kernel][1] + "_attrs")
-    names = _attr_names(kernel)
 
     def query(*which):
-        vals = [ctypes.c_int(0) for _ in names]
+        vals = [ctypes.c_int(0) for _ in _ATTR_NAMES]
         rc = fn(*which, *[ctypes.byref(v) for v in vals])
         if rc:
             raise RuntimeError(f"cudaFuncGetAttributes failed with CUDA error {rc}")
-        return dict(zip(names, (v.value for v in vals)))
+        return dict(zip(_ATTR_NAMES, (v.value for v in vals)))
 
     if _LIBS[kernel][3]:
         return {"prepare": query(0), "accumulate": query(1)}
@@ -302,10 +300,10 @@ def verify_comb_prepared(table, key_idx, y_r, sign_r, s_bytes, h_bytes, impl=Non
             start.record(stream)
         args = (table.data_ptr(), table.shape[0], key_idx.data_ptr(), y_r.data_ptr(), sign_r.data_ptr(),
                 s_bytes.data_ptr(), h_bytes.data_ptr(), bcomb.data_ptr())
-        if kernel in _RECORD_INTS:
+        if kernel == "tree_mxu":
             # allocated on this stream: the caching allocator reuses it only
             # after work queued here, so the passes below own it
-            scratch = torch.empty((n, _RECORD_INTS[kernel]), dtype=torch.int32, device=device)
+            scratch = torch.empty((n, TREE17_RECORD_INTS), dtype=torch.int32, device=device)
             args += (scratch.data_ptr(),)
         rc = getattr(lib, _LIBS[kernel][1])(*args, out.data_ptr(), n, stream.cuda_stream)
         if log is not None:

@@ -128,11 +128,13 @@ MOCHI_HD int ct_first(int r) {
   return r < MOCHI_CT_TEAM ? r * shared / (MOCHI_CT_TEAM - 1) : MOCHI_COMB_WINDOWS;
 }
 
-// Lane r's partial sum: windows [ct_first(r), ct_first(r + 1)) of the
-// signer's rows (row index clipped by comb_row) and of the basepoint comb.
-MOCHI_HD void ct_partial(ge_p3* q, int r, const int32_t* table, int64_t rows, int key_idx,
+// The sum of windows [w0, w1) of the signer's rows (row index clipped by
+// comb_row) and of the basepoint comb, from the identity: each window's
+// signer entry, then its basepoint entry, by ge_madd.  The digits are
+// recoded on the fly, the carry into window w0 from the windows below.
+// comb_tree.cuh's lanes sum their windows with it too.
+MOCHI_HD void ct_windows(ge_p3* q, int w0, int w1, const int32_t* table, int64_t rows, int key_idx,
                          const uint8_t* s_bytes, const uint8_t* h_bytes, const int32_t* bcomb) {
-  const int w0 = ct_first(r), w1 = ct_first(r + 1);
   int cs = 0, ch = 0;
   for (int w = 0; w < w0; ++w) {
     ct_digit(s_bytes, w, &cs);
@@ -151,6 +153,12 @@ MOCHI_HD void ct_partial(ge_p3* q, int r, const int32_t* table, int64_t rows, in
     comb_load_niels(&n, bcomb + (w * MOCHI_COMB_ENTRIES + ms) * MOCHI_COMB_ENTRY_INTS, ds < 0);
     ge_madd(q, q, &n);
   }
+}
+
+// Lane r's partial sum: windows [ct_first(r), ct_first(r + 1)).
+MOCHI_HD void ct_partial(ge_p3* q, int r, const int32_t* table, int64_t rows, int key_idx,
+                         const uint8_t* s_bytes, const uint8_t* h_bytes, const int32_t* bcomb) {
+  ct_windows(q, ct_first(r), ct_first(r + 1), table, rows, key_idx, s_bytes, h_bytes, bcomb);
 }
 
 // Step 1: R's decode on the last lane, then every lane's partial sum, into

@@ -1,146 +1,140 @@
 // Known-signer (comb) Ed25519 verification on Hopper with the tree
-// accumulation: one warp per signature.
+// accumulation: one launch, a decode warp beside MOCHI_TREE_LANES lanes a
+// signature summing its window points.
 //
 // Replaces the reference package's comb.verify_comb_prepared with
 // impl="tree" (crypto/comb.py:428-472, _tree_accumulate :354), selected by
-// MOCHI_COMB_IMPL=tree.  The arithmetic lives in comb_tree.cuh on top of
-// comb25519.cuh, so the CPU tests compile the same code with g++.  Where the
+// MOCHI_COMB_IMPL=tree.  The arithmetic lives in comb_tree.cuh (the lane
+// order of the sum, over comb_team.cuh's window sum and comb25519.cuh's
+// gathers), so the CPU tests compile the same code with g++.  Where the
 // reference selects the basepoint rows with a one-hot float32 matmul, this
 // kernel loads the row its digit names: integer arithmetic only.
 //
-// Design.  The chain (comb.cu) is 128 dependent mixed additions per
-// thread.  The tree cuts that dependent depth to 7 levels by spreading one
-// signature's 128 window points over the 32 lanes of a warp: lane l holds
-// windows l and l + 32, of the signer and of the basepoint.  Levels 1 and 2
-// of the reference's pairing (point i with i + P/2) are then local to the
-// lane: S_l + B_l, S_{l+32} + B_{l+32}, and their sum.  Levels 3-7 take the
-// partner's point by __shfl_down_sync at offsets 16, 8, 4, 2, 1 (40 int32 a
-// point) and the sum lands on lane 0, which does the compare.  Every lane
-// runs every level (SIMT issues a warp's instruction once for all lanes),
-// so the lanes past each level's half compute sums nobody reads.
+// What bounds it: integer multiply throughput.  The function's bound is
+// the chain's (comb.cu): 917 multiplies of 100 32x32->64 products and 255
+// squarings of 55, 105,725 multiply-adds a signature, against 64 per clock
+// per SM x 132 SMs x 1.98 GHz: 8192 signatures take at least 0.052 ms.
+// This kernel issues more: each of the signature's MOCHI_TREE_LANES lanes
+// makes its 128 / LANES mixed additions of 7 multiplies, every level of the
+// sum across the lanes (9) and the compare's 2, and R's decode 19
+// multiplies and 255 squarings: with 4 lanes 976 + 19 multiplies, 113,525
+// multiply-adds a signature (8 lanes: 1,128 + 19).  Bytes: 141 a signature
+// in and out and one read of the tables, which stay in the 50 MB L2:
+// microseconds at 3.35 TB/s.
 //
-// R's decode (ge_decode: 255 squarings and 19 multiplies in one dependent
-// chain) is now the longest chain of a signature.  Run inside the warp it
-// would cost 32 lanes' issue slots for one result, so the kernel is two
-// launches on the caller's stream: a prepare pass, one thread per
-// signature, decodes R and recodes both scalars into a scratch record of
-// MOCHI_TREE_SCRATCH_INTS int32 per signature (212 bytes); then the
-// accumulate pass, one warp per signature, reads the record, sums the
-// tree and compares.
-//
-// What bounds it: integer multiply throughput.  Counting what a signature
-// needs (not the lanes that compute unread sums): R's decode (19
-// multiplies, 255 squarings), 64 leaves of 3 multiplies, 64 level-1 mixed
-// additions of 7, 63 complete additions of 9 (with the cached conversion's
-// d2 multiply) and the 2 compare multiplies: 1,228 multiplies of 100
-// 32x32->64 products and 255 squarings of 55, 136,825 multiply-adds.  The
-// chain computes the same verdict with 105,725, so that is the function's
-// bound for both kernels: against 64 per clock per SM x 132 SMs x 1.98
-// GHz, 8192 signatures take at least 0.052 ms (0.067 at the tree's own
-// count).  The warp issues more: 74 multiplies a lane, 2,368 a
-// signature.  Bytes: 141 per signature in and out plus the 212-byte record
-// written and read once, and one read of the tables: microseconds at 3.35
-// TB/s.
+// Design.  The tree exists to cut a signature's dependent depth, and on
+// this card the longest chain is R's decode (ge_decode: 255 squarings and
+// 19 multiplies in one dependent chain), not the 128-point sum.  So a block
+// serves 32 signatures with two roles, run at once:
+//   * warp 0 decodes: lane l decodes R of the block's signature l and
+//     leaves x_R, y_R and the verdict in shared memory (21 words a
+//     signature);
+//   * the other warps sum: lane j of a signature's MOCHI_TREE_LANES
+//     neighbouring lanes mixed-adds both tables' entries of its 64 / LANES
+//     windows from the identity (its digits recoded from s and h on the fly,
+//     with the carry from the windows below), then log2(LANES) levels of
+//     ge_to_cached + ge_add fold the partner lane's point, taken by
+//     __shfl_down_sync within the signature's lanes, into its own.
+// After one barrier, lane 0 of each signature compares its sum with R and
+// stores the verdict.  A decode lane's chain (274 operations) and a summing
+// lane's (with 4 lanes: 32 x 7 + 2 x 9 + 2 = 244 multiplies) about
+// balance, so a small launch runs at about the decode's latency.  The field
+// multiply and squaring are compiled once and called by value
+// (MOCHI_FE_CALLED, fe25519.cuh), as comb.cu's.  A role is a whole warp, so
+// only the compare diverges, and every lane reaches every shuffle and the
+// barrier: signatures past the batch repeat its last one and store nothing.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// One copy of the field multiply and squaring, called by value (fe25519.cuh).
+#define MOCHI_FE_CALLED
 #include "comb_tree.cuh"
 
-#define MOCHI_TREE_PREPARE_THREADS 128
-#define MOCHI_TREE_WARPS 4  // signatures per block of the accumulate pass
-#define MOCHI_TREE_THREADS (32 * MOCHI_TREE_WARPS)
+#define MOCHI_TREE_SIGS 32  // signatures a block: one a lane of the decode warp
+#define MOCHI_TREE_SUM_WARPS (MOCHI_TREE_SIGS * MOCHI_TREE_LANES / 32)
+#define MOCHI_TREE_THREADS (32 * (1 + MOCHI_TREE_SUM_WARPS))
 
-__global__ void __launch_bounds__(MOCHI_TREE_PREPARE_THREADS)
-    mochi_comb_tree_prepare_kernel(const int32_t* __restrict__ y_r,
-                                   const int32_t* __restrict__ sign_r,
-                                   const uint8_t* __restrict__ s_bytes,
-                                   const uint8_t* __restrict__ h_bytes,
-                                   int32_t* __restrict__ scratch, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int32_t yr[17];
-  uint8_t s[32], h[32];
-  for (int k = 0; k < 17; ++k) yr[k] = __ldg(&y_r[(size_t)i * 17 + k]);
-  for (int k = 0; k < 32; ++k) {
-    s[k] = __ldg(&s_bytes[(size_t)i * 32 + k]);
-    h[k] = __ldg(&h_bytes[(size_t)i * 32 + k]);
-  }
-  comb_tree_prepare(scratch + (size_t)i * MOCHI_TREE_SCRATCH_INTS, yr,
-                    __ldg(&sign_r[i]), s, h);
-}
-
-__device__ __forceinline__ void shfl_down_fe(fe* r, const fe* f, int off) {
-#pragma unroll
-  for (int k = 0; k < 10; ++k) r->v[k] = __shfl_down_sync(0xffffffffu, f->v[k], off);
-}
+// R of one signature as the decode warp leaves it: 21 words (odd, so that
+// the block's 32 signatures read a given word from 32 different banks).
+struct tree_r {
+  int32_t x[10], y[10];
+  int32_t ok;
+};
 
 __global__ void __launch_bounds__(MOCHI_TREE_THREADS)
     mochi_comb_tree_kernel(const int32_t* __restrict__ table, int64_t rows,
                            const int32_t* __restrict__ key_idx,
+                           const int32_t* __restrict__ y_r,
+                           const int32_t* __restrict__ sign_r,
+                           const uint8_t* __restrict__ s_bytes,
+                           const uint8_t* __restrict__ h_bytes,
                            const int32_t* __restrict__ bcomb,
-                           const int32_t* __restrict__ scratch,
                            uint8_t* __restrict__ out, int n) {
-  const int sig = blockIdx.x * MOCHI_TREE_WARPS + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (sig >= n) return;  // the whole warp: no shuffle is left half-joined
-  const int32_t* rec = scratch + (size_t)sig * MOCHI_TREE_SCRATCH_INTS;
-  const int8_t* dig = (const int8_t*)(rec + MOCHI_TREE_SCRATCH_DIGITS);
-  const int key = __ldg(&key_idx[sig]);
-  ge_p3 acc, other;
-  comb_tree_window(&acc, table, rows, key, bcomb, lane, dig[64 + lane], dig[lane]);
-  comb_tree_window(&other, table, rows, key, bcomb, lane + 32, dig[96 + lane], dig[32 + lane]);
-  comb_tree_add(&acc, &acc, &other);
-#pragma unroll 1
-  for (int off = 16; off >= 1; off >>= 1) {
-    shfl_down_fe(&other.X, &acc.X, off);
-    shfl_down_fe(&other.Y, &acc.Y, off);
-    shfl_down_fe(&other.Z, &acc.Z, off);
-    shfl_down_fe(&other.T, &acc.T, off);
-    comb_tree_add(&acc, &acc, &other);
+  __shared__ tree_r rs[MOCHI_TREE_SIGS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int first = blockIdx.x * MOCHI_TREE_SIGS;
+  // this thread's signature in the block, and its lane among the signature's
+  const int local = warp == 0 ? lane : (warp - 1) * (32 / MOCHI_TREE_LANES) + lane / MOCHI_TREE_LANES;
+  const tree_warp_lanes ln = {lane % MOCHI_TREE_LANES};
+  // Inputs are batch-leading: the limbs of signature i are contiguous.
+  const size_t i = first + local < n ? first + local : n - 1;
+  ge_p3 q;
+  if (warp == 0) {
+    ge_p3 r;
+    const int ok = ge_decode(&r, y_r + i * 17, 1, __ldg(&sign_r[i]));
+    for (int k = 0; k < 10; ++k) {
+      rs[lane].x[k] = r.X.v[k];
+      rs[lane].y[k] = r.Y.v[k];
+    }
+    rs[lane].ok = ok;
+  } else {
+    const tree_byte_rows src = {table, rows, __ldg(&key_idx[i]), s_bytes + i * 32, h_bytes + i * 32, bcomb};
+    comb_tree_sum_lanes(ln, &q, src);
   }
-  if (lane == 0) out[sig] = (uint8_t)comb_tree_finish(&acc, rec);
+  __syncthreads();
+  if (warp != 0 && ln.j == 0 && first + local < n) {
+    fe xr, yr;
+    for (int k = 0; k < 10; ++k) {
+      xr.v[k] = rs[local].x[k];
+      yr.v[k] = rs[local].y[k];
+    }
+    out[first + local] = (uint8_t)comb_tree_compare(&q, &xr, &yr, rs[local].ok);
+  }
 }
 
 extern "C" {
 
-// Both passes on `stream` (a cudaStream_t passed as a pointer); `scratch`
-// holds n * MOCHI_TREE_SCRATCH_INTS int32.  Returns the first launch error
-// (cudaGetLastError) so the caller sees a refused launch.
-int mochi_comb_tree_verify(const void* table, long long rows,
-                           const void* key_idx, const void* y_r,
-                           const void* sign_r, const void* s_bytes,
-                           const void* h_bytes, const void* bcomb,
-                           void* scratch, void* out, int n, void* stream) {
-  if (n <= 0) return (int)cudaGetLastError();
-  const cudaStream_t st = (cudaStream_t)stream;
-  mochi_comb_tree_prepare_kernel<<<(n + MOCHI_TREE_PREPARE_THREADS - 1) /
-                                       MOCHI_TREE_PREPARE_THREADS,
-                                   MOCHI_TREE_PREPARE_THREADS, 0, st>>>(
-      (const int32_t*)y_r, (const int32_t*)sign_r, (const uint8_t*)s_bytes,
-      (const uint8_t*)h_bytes, (int32_t*)scratch, n);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  mochi_comb_tree_kernel<<<(n + MOCHI_TREE_WARPS - 1) / MOCHI_TREE_WARPS,
-                           MOCHI_TREE_THREADS, 0, st>>>(
-      (const int32_t*)table, (int64_t)rows, (const int32_t*)key_idx,
-      (const int32_t*)bcomb, (const int32_t*)scratch, (uint8_t*)out, n);
+// Launch on `stream` (a cudaStream_t passed as a pointer); returns
+// cudaGetLastError() so the caller sees a refused launch.
+int mochi_comb_tree_verify(const void* table, long long rows, const void* key_idx,
+                           const void* y_r, const void* sign_r, const void* s_bytes,
+                           const void* h_bytes, const void* bcomb, void* out, int n,
+                           void* stream) {
+  if (n > 0) {
+    const int blocks = (n + MOCHI_TREE_SIGS - 1) / MOCHI_TREE_SIGS;
+    mochi_comb_tree_kernel<<<blocks, MOCHI_TREE_THREADS, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)table, (int64_t)rows, (const int32_t*)key_idx, (const int32_t*)y_r,
+        (const int32_t*)sign_r, (const uint8_t*)s_bytes, (const uint8_t*)h_bytes,
+        (const int32_t*)bcomb, (uint8_t*)out, n);
+  }
   return (int)cudaGetLastError();
 }
 
 // Registers per thread, local (spill + stack) bytes per thread, static
-// shared bytes and threads per block of the prepare pass (which = 0) or
-// the accumulate pass (which = 1).
-int mochi_comb_tree_verify_attrs(int which, int* regs, int* local_bytes,
-                                 int* shared_bytes, int* threads) {
+// shared bytes, the threads per block the kernel launches with, the lanes a
+// signature and the dynamic shared bytes of a launch (none: R's rows are
+// static).
+int mochi_comb_tree_verify_attrs(int* regs, int* local_bytes, int* shared_bytes,
+                                 int* threads, int* team, int* dynamic_shared_bytes) {
   cudaFuncAttributes a;
-  const cudaError_t err =
-      which == 0 ? cudaFuncGetAttributes(&a, mochi_comb_tree_prepare_kernel)
-                 : cudaFuncGetAttributes(&a, mochi_comb_tree_kernel);
+  const cudaError_t err = cudaFuncGetAttributes(&a, mochi_comb_tree_kernel);
   if (err != cudaSuccess) return (int)err;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
   *shared_bytes = (int)a.sharedSizeBytes;
-  *threads = which == 0 ? MOCHI_TREE_PREPARE_THREADS : MOCHI_TREE_THREADS;
+  *threads = MOCHI_TREE_THREADS;
+  *team = MOCHI_TREE_LANES;
+  *dynamic_shared_bytes = 0;
   return 0;
 }
 

@@ -2,23 +2,43 @@
 // Counterpart of the reference package's comb.verify_comb_prepared with
 // impl="tree" and its _tree_accumulate.
 //
-// The same 128 window points as the chain (comb25519.cuh): the signer's
-// 64 rows T[key][w][|h_w|] and the basepoint comb's 64 rows B[w][|s_w|],
-// each a Niels entry negated by its digit's sign.  In the reference's point
-// order (signer windows at [0, 64), basepoint windows at [64, 128)), each
-// level of the tree adds point i to point i + P/2, seven levels in all.
+// The sum is of 128 window points, as the chain's (comb25519.cuh): the
+// signer's 64 rows T[key][w][|h_w|] and the basepoint comb's 64 rows
+// B[w][|s_w|], each a Niels entry negated by its digit's sign.  Two orders
+// of the same group sum live here:
 //
-// Level 1 pairs signer window w with basepoint window w.  The reference
-// converts both to extended form and adds them with the complete addition;
-// here the signer point is converted (comb_tree_leaf) and the basepoint
-// entry joins it by a mixed addition (ge_madd), since a Niels entry is
-// already the addend form of a point with Z = 1 (y+x, y-x, 2dxy = T*2d).
-// That is 10 multiplies a pair instead of 15, and the same group element:
-// verdicts are equal, representations differ (the compare is projective).
-// Levels 2-7 are ge_to_cached + ge_add (9 multiplies).
+//   * The reference's order (comb_tree_sum_serial, comb_tree_verify_one,
+//     the host build's twin of the plain tree): the signer points at
+//     [0, 64), the basepoint points at [64, 128), each level of the tree
+//     adding point i to point i + P/2, seven levels in all.  Level 1 pairs
+//     signer window w with basepoint window w.  The reference converts both
+//     to extended form and adds them with the complete addition; here the
+//     signer point is converted (comb_tree_leaf) and the basepoint entry
+//     joins it by a mixed addition (ge_madd), since a Niels entry is already
+//     the addend form of a point with Z = 1 (y+x, y-x, 2dxy = T*2d).  That
+//     is 10 multiplies a pair instead of 15, and the same group element.
+//     Levels 2-7 are ge_to_cached + ge_add (9 multiplies).
+//   * The lane order (comb_tree_sum_lanes, comb_tree.cu's and its twin
+//     comb_tree_verify_lanes): LANES lanes share a signature; lane j starts
+//     from the identity and mixed-adds both tables' entries of its windows
+//     [64 j / LANES, 64 (j + 1) / LANES), each window's signer entry, then
+//     its basepoint entry, the digits recoded on the fly (comb_team.cuh's
+//     ct_windows, comb.cu's lane sum); then log2(LANES) levels of complete
+//     addition fold lane j + off into lane j (off = LANES / 2 ... 1), and
+//     lane 0 holds the sum.
 //
-// Leaf bounds.  Entries are canonical (limbs in [0, 2^26) / [0, 2^25)) and
-// a negated one swaps y+x and y-x and negates 2dxy.  The leaf forms
+// The orders give the same point in other limbs (the group law is exact on
+// the curve), so the verdicts agree, not the representations: the compare
+// is projective.  The lane order is written once over a lane policy LN: on
+// the card (tree_warp_lanes) a thread is lane j of its signature's
+// MOCHI_TREE_LANES neighbouring lanes of a warp and a level takes the
+// partner's point by __shfl_down_sync; on the host (tree_serial_lanes<L>)
+// one thread plays a signature's L lanes in turn, so the g++ build in the
+// tests runs every piece of the kernel's sum, at either lane count.
+//
+// Leaf bounds (the reference order).  Entries are canonical (limbs in
+// [0, 2^26) / [0, 2^25)) and a negated one swaps y+x and y-x and negates
+// 2dxy.  The leaf forms
 //   x = (ypx - ymx) / 2,  y = (ypx + ymx) / 2,  t = xy2d / (2d),  z = 1.
 // ypx - ymx and xy2d have limbs below 2^26 in magnitude, within LOOSE.
 // ypx + ymx reaches 2^27 - 2 on an even limb, over MOCHI_LOOSE_EVEN
@@ -27,18 +47,21 @@
 // outputs are fe_mul outputs, TIGHT, as ge_madd and ge_add require of a
 // point.  tests/test_torch_kernel_host.py fuzzes the leaf with every limb
 // at 2^26 - 1 / 2^25 - 1, negated and not, and shows that the leaf without
-// the carry gets such inputs wrong.
+// the carry gets such inputs wrong.  The lane order starts from the
+// identity and only ever holds fe_mul outputs; its mixed and complete
+// additions are comb.cu's, fuzzed at the TIGHT maximum there.
 #pragma once
 
 #include "comb25519.cuh"
+#include "comb_team.cuh"  // ct_windows, MOCHI_CT_MEMBER
+
+// Lanes a signature in comb_tree.cu: 4 or 8.  PERF.md has both measured.
+#ifndef MOCHI_TREE_LANES
+#define MOCHI_TREE_LANES 4
+#endif
+static_assert(MOCHI_TREE_LANES == 4 || MOCHI_TREE_LANES == 8, "4 or 8 lanes a signature");
 
 #define MOCHI_TREE_POINTS 128
-// Per-signature record the prepare pass writes for the accumulate pass:
-// R's affine x and y (10 limbs each), R's decode verdict, then the 64 s
-// digits and the 64 h digits as int8 (32 int32 words).
-#define MOCHI_TREE_SCRATCH_INTS 53
-#define MOCHI_TREE_SCRATCH_OK 20
-#define MOCHI_TREE_SCRATCH_DIGITS 21
 
 // (p + 1) / 2 and 1 / (2d) mod p, canonical.
 MOCHI_HD void fe_const_inv2(fe* h) {
@@ -79,20 +102,6 @@ MOCHI_HD void comb_tree_pair(ge_p3* r, const int32_t* s_entry, int s_neg,
   ge_madd(r, r, &n);
 }
 
-// Level 1 for window w of one signature: signer `key_idx`'s row for the
-// digit dh (clipped into the table as comb_row clips) and the basepoint
-// comb's row for the digit ds.
-MOCHI_HD void comb_tree_window(ge_p3* r, const int32_t* table, int64_t rows,
-                               int key_idx, const int32_t* bcomb, int w,
-                               int dh, int ds) {
-  const int mh = dh < 0 ? -dh : dh, ms = ds < 0 ? -ds : ds;
-  comb_tree_pair(r,
-                 table + comb_row(rows, key_idx, w, mh) * MOCHI_COMB_ENTRY_INTS,
-                 dh < 0,
-                 bcomb + (w * MOCHI_COMB_ENTRIES + ms) * MOCHI_COMB_ENTRY_INTS,
-                 ds < 0);
-}
-
 // Levels 2-7: r = p + q with the complete addition (9 multiplies).  r may
 // alias p.
 MOCHI_HD void comb_tree_add(ge_p3* r, const ge_p3* p, const ge_p3* q) {
@@ -104,9 +113,8 @@ MOCHI_HD void comb_tree_add(ge_p3* r, const ge_p3* p, const ge_p3* q) {
 // The tree over 128 leaf entries of 30 int32 (leaf i negated when neg[i]),
 // in the reference's order: leaves [0, 64) the signer's windows, [64, 128)
 // the basepoint's.  Level 1 pairs leaf w with leaf w + 64, every later
-// level point i with point i + P/2.  The kernel (comb_tree.cu) runs the same
-// pairing across the 32 lanes of a warp, so both give the same limbs; this
-// serial form is the host build's.
+// level point i with point i + P/2.  The host build's twin of the plain
+// tree, limb for limb.
 MOCHI_HD void comb_tree_sum_serial(ge_p3* q, const int32_t* entries,
                                    const int8_t* neg) {
   ge_p3 pts[MOCHI_TREE_POINTS / 2];
@@ -118,63 +126,145 @@ MOCHI_HD void comb_tree_sum_serial(ge_p3* q, const int32_t* entries,
   *q = pts[0];
 }
 
-// The prepare pass of one signature: R's RFC 8032 decode and both scalars'
-// signed recoding, into the MOCHI_TREE_SCRATCH_INTS record `rec`.
-MOCHI_HD void comb_tree_prepare(int32_t* rec, const int32_t* y_r, int sign_r,
-                                const uint8_t* s_bytes,
-                                const uint8_t* h_bytes) {
-  ge_p3 r;
-  const int ok = ge_decode(&r, y_r, 1, sign_r);
-  for (int k = 0; k < 10; ++k) {
-    rec[k] = r.X.v[k];
-    rec[10 + k] = r.Y.v[k];
-  }
-  rec[MOCHI_TREE_SCRATCH_OK] = ok;
-  int8_t* dig = (int8_t*)(rec + MOCHI_TREE_SCRATCH_DIGITS);
-  recode_signed4(dig, s_bytes);
-  recode_signed4(dig + 64, h_bytes);
-}
-
-// R's decode verdict AND the projective compare of the sum q with R's
-// affine (x, y) from the record: 2 multiplies.
-MOCHI_HD int comb_tree_finish(const ge_p3* q, const int32_t* rec) {
-  fe rx, ry, t;
-  for (int k = 0; k < 10; ++k) {
-    rx.v[k] = rec[k];
-    ry.v[k] = rec[10 + k];
-  }
-  fe_mul(&t, &rx, &q->Z);
+// R's decode verdict `ok` AND the projective compare of the sum q with R's
+// affine (x, y): 2 multiplies.
+MOCHI_HD int comb_tree_compare(const ge_p3* q, const fe* xr, const fe* yr, int ok) {
+  fe t;
+  fe_mul(&t, xr, &q->Z);
   const int eq_x = fe_eq(&q->X, &t);
-  fe_mul(&t, &ry, &q->Z);
+  fe_mul(&t, yr, &q->Z);
   const int eq_y = fe_eq(&q->Y, &t);
-  return rec[MOCHI_TREE_SCRATCH_OK] & eq_x & eq_y;
+  return ok & eq_x & eq_y;
 }
 
-// The whole tree verify of one signature, serially (the host build's
-// counterpart of the two kernel passes): 1 valid, 0 not.
+// The whole tree verify of one signature in the reference's order,
+// serially (the host build's twin of the plain tree): 1 valid, 0 not.
+// y_r: 17 contiguous limbs of 15 bits; table: `rows` entries; bcomb: the
+// 576 entries of the basepoint comb.
 MOCHI_HD int comb_tree_verify_one(const int32_t* table, int64_t rows,
                                   int key_idx, const int32_t* y_r, int sign_r,
                                   const uint8_t* s_bytes,
                                   const uint8_t* h_bytes,
                                   const int32_t* bcomb) {
-  int32_t rec[MOCHI_TREE_SCRATCH_INTS];
-  comb_tree_prepare(rec, y_r, sign_r, s_bytes, h_bytes);
-  const int8_t* dig = (const int8_t*)(rec + MOCHI_TREE_SCRATCH_DIGITS);
+  ge_p3 r;
+  const int ok = ge_decode(&r, y_r, 1, sign_r);
+  int8_t ds[MOCHI_COMB_WINDOWS], dh[MOCHI_COMB_WINDOWS];
+  recode_signed4(ds, s_bytes);
+  recode_signed4(dh, h_bytes);
   int32_t entries[MOCHI_TREE_POINTS * MOCHI_COMB_ENTRY_INTS];
   int8_t neg[MOCHI_TREE_POINTS];
   for (int w = 0; w < MOCHI_COMB_WINDOWS; ++w) {
-    const int dh = dig[64 + w], ds = dig[w];
-    const int mh = dh < 0 ? -dh : dh, ms = ds < 0 ? -ds : ds;
+    const int mh = dh[w] < 0 ? -dh[w] : dh[w], ms = ds[w] < 0 ? -ds[w] : ds[w];
     const int32_t* a = table + comb_row(rows, key_idx, w, mh) * MOCHI_COMB_ENTRY_INTS;
     const int32_t* b = bcomb + (w * MOCHI_COMB_ENTRIES + ms) * MOCHI_COMB_ENTRY_INTS;
     for (int k = 0; k < MOCHI_COMB_ENTRY_INTS; ++k) {
       entries[w * MOCHI_COMB_ENTRY_INTS + k] = a[k];
       entries[(w + 64) * MOCHI_COMB_ENTRY_INTS + k] = b[k];
     }
-    neg[w] = dh < 0;
-    neg[w + 64] = ds < 0;
+    neg[w] = dh[w] < 0;
+    neg[w + 64] = ds[w] < 0;
   }
   ge_p3 q;
   comb_tree_sum_serial(&q, entries, neg);
-  return comb_tree_finish(&q, rec);
+  return comb_tree_compare(&q, &r.X, &r.Y, ok);
+}
+
+// ------------------------------------------------------------ the lane order
+
+// One thread plays a signature's L lanes in turn: the serial twin.
+template <int L>
+struct tree_serial_lanes {
+  static constexpr int N = L, LANES = L;
+  MOCHI_CT_MEMBER int lane(int j) const { return j; }
+  // o[j] = p[j + off], or p[j] where lane j + off is past the signature's
+  // (its sum is never read), as a shuffle within a segment of L lanes gives
+  MOCHI_CT_MEMBER void down(ge_p3* o, const ge_p3* p, int off) const {
+    for (int j = 0; j < N; ++j) o[j] = p[j + off < N ? j + off : j];
+  }
+};
+
+// The card's lanes: a thread is lane j of its signature, whose
+// MOCHI_TREE_LANES lanes are neighbours in a warp; every lane of the warp
+// calls down() together.
+struct tree_warp_lanes {
+  static constexpr int N = 1, LANES = MOCHI_TREE_LANES;
+  int j;
+  MOCHI_CT_MEMBER int lane(int) const { return j; }
+  MOCHI_CT_MEMBER void down(ge_p3* o, const ge_p3* p, int off) const {
+#if defined(__CUDA_ARCH__)
+#pragma unroll
+    for (int k = 0; k < 10; ++k) {
+      o->X.v[k] = __shfl_down_sync(0xffffffffu, p->X.v[k], off, MOCHI_TREE_LANES);
+      o->Y.v[k] = __shfl_down_sync(0xffffffffu, p->Y.v[k], off, MOCHI_TREE_LANES);
+      o->Z.v[k] = __shfl_down_sync(0xffffffffu, p->Z.v[k], off, MOCHI_TREE_LANES);
+      o->T.v[k] = __shfl_down_sync(0xffffffffu, p->T.v[k], off, MOCHI_TREE_LANES);
+    }
+#endif
+  }
+};
+
+// A lane's windows as the kernel reads them: signer `key`'s rows for h's
+// digits (clipped into the table as comb_row clips) and the basepoint
+// comb's for s's, recoded from the bytes on the fly.
+struct tree_byte_rows {
+  const int32_t* table;
+  int64_t rows;
+  int key;
+  const uint8_t* s_bytes;
+  const uint8_t* h_bytes;
+  const int32_t* bcomb;
+  MOCHI_CT_MEMBER void windows(ge_p3* q, int w0, int w1) const {
+    ct_windows(q, w0, w1, table, rows, key, s_bytes, h_bytes, bcomb);
+  }
+};
+
+// A lane's windows from 128 given entries in the reference's point order
+// (leaves [0, 64) the signer's windows, [64, 128) the basepoint's), leaf i
+// negated when neg[i]: the tests' form.
+struct tree_given_rows {
+  const int32_t* entries;
+  const int8_t* neg;
+  MOCHI_CT_MEMBER void windows(ge_p3* q, int w0, int w1) const {
+    ge_identity(q);
+    for (int w = w0; w < w1; ++w)
+      for (int e = w; e < MOCHI_TREE_POINTS; e += 64) {
+        ge_niels n;
+        comb_load_niels(&n, entries + e * MOCHI_COMB_ENTRY_INTS, neg[e]);
+        ge_madd(q, q, &n);
+      }
+  }
+};
+
+// The 128 window points summed in the lane order (see the header): q gets
+// lane 0's sum on the host, the lane's own on the card (lane 0 holds the
+// sum).  Each lane makes 128 / LANES mixed additions and log2(LANES)
+// complete ones.
+template <class LN, class SRC>
+MOCHI_HD void comb_tree_sum_lanes(const LN& ln, ge_p3* q, const SRC& src) {
+  constexpr int per = MOCHI_COMB_WINDOWS / LN::LANES;
+  ge_p3 acc[LN::N];
+  for (int j = 0; j < LN::N; ++j) src.windows(&acc[j], ln.lane(j) * per, (ln.lane(j) + 1) * per);
+#if defined(__CUDA_ARCH__)
+#pragma unroll 1
+#endif
+  for (int off = LN::LANES / 2; off >= 1; off >>= 1) {
+    ge_p3 other[LN::N];
+    ln.down(other, acc, off);
+    for (int j = 0; j < LN::N; ++j) comb_tree_add(&acc[j], &acc[j], &other[j]);
+  }
+  *q = acc[0];
+}
+
+// The whole tree verify of one signature in the lane order with L lanes,
+// serially (the host build's twin of comb_tree.cu): R's decode, the lanes'
+// sum, the compare.  1 valid, 0 not.
+template <int L>
+MOCHI_HD int comb_tree_verify_lanes(const int32_t* table, int64_t rows, int key_idx,
+                                    const int32_t* y_r, int sign_r, const uint8_t* s_bytes,
+                                    const uint8_t* h_bytes, const int32_t* bcomb) {
+  ge_p3 r, q;
+  const int ok = ge_decode(&r, y_r, 1, sign_r);
+  const tree_byte_rows src = {table, rows, key_idx, s_bytes, h_bytes, bcomb};
+  comb_tree_sum_lanes(tree_serial_lanes<L>(), &q, src);
+  return comb_tree_compare(&q, &r.X, &r.Y, ok);
 }

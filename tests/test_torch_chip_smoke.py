@@ -169,12 +169,12 @@ def test_table_radix_check_counts_a_wrong_entry(signers):
     assert cs.check_table_radix(t25, t15) == 1
 
 
-def _sweep_rehearsal(signers, monkeypatch, impl, ref_kw):
-    """A launch-size sweep of ``impl`` under ``mxu`` (on the CPU its plain
-    version, every multiply through ``_mul_mxu``) over the comb corpus tiled
-    past its length, held by ``chip_smoke.sweep_vs`` against the bitmap of
-    ``verify_comb_prepared(..., **ref_kw)`` on the same lanes and the
-    expected verdicts: no lane differs, every count is timed; a bitmap with
+def _sweep_rehearsal(signers, monkeypatch, impl, ref_kw, skew="mxu"):
+    """A launch-size sweep of ``impl`` under ``skew`` (on the CPU its plain
+    version; under ``mxu`` every multiply through ``_mul_mxu``) over the
+    comb corpus tiled past its length, held by ``chip_smoke.sweep_vs``
+    against the bitmap of ``verify_comb_prepared(..., **ref_kw)`` on the
+    same lanes and the expected verdicts: no lane differs, every count is timed; a bitmap with
     one lane flipped is flagged at every count that reaches the lane and at
     no other."""
     import time
@@ -192,7 +192,7 @@ def _sweep_rehearsal(signers, monkeypatch, impl, ref_kw):
     table = reg.device_table("cpu", layout="fe17")
     ref = CC.verify_comb_prepared(table, *tiled, **ref_kw).numpy()
     pre_ok, want2 = np.tile(prep[6], 2), np.tile(np.asarray(want, dtype=bool), 2)
-    monkeypatch.setattr(F, "SKEW_IMPL", "mxu")
+    monkeypatch.setattr(F, "SKEW_IMPL", skew)
     used = []
     real = F._mul_mxu
     monkeypatch.setattr(F, "_mul_mxu", lambda a, b: used.append(1) or real(a, b))
@@ -208,7 +208,7 @@ def _sweep_rehearsal(signers, monkeypatch, impl, ref_kw):
     counts = (1, 8, 20)
     before = dict(CC.launches)
     sweep, differing = cs.sweep_vs(launch, ref, pre_ok, want2, counts, host_ms)
-    assert used and differing == {1: 0, 8: 0, 20: 0}
+    assert bool(used) == (skew == "mxu") and differing == {1: 0, 8: 0, 20: 0}
     assert sorted(sweep) == list(counts) and all(v["ms"] > 0 and v["sigs_per_s"] > 0 for v in sweep.values())
     assert CC.launches == before  # the plain version launches nothing
 
@@ -227,6 +227,13 @@ def test_comb_mxu_sweep_rehearsal_on_cpu(signers, monkeypatch):
     ``mxu`` held at each count against the chain under ``pad`` on the same
     lanes (``comb.cu``'s stand-in) and the expected verdicts."""
     _sweep_rehearsal(signers, monkeypatch, "chain", {"multiply": "pad"})
+
+
+def test_comb_tree_sweep_rehearsal_on_cpu(signers, monkeypatch):
+    """Phase 7's tree sweep at a small size: the tree under ``pad`` held
+    at each count against the chain under ``pad`` on the same lanes
+    (``comb.cu``'s stand-in) and the expected verdicts."""
+    _sweep_rehearsal(signers, monkeypatch, "tree", {"impl": "chain", "multiply": "pad"}, skew="pad")
 
 
 def test_comb_tree_mxu_sweep_rehearsal_on_cpu(signers, monkeypatch):

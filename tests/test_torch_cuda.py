@@ -259,9 +259,9 @@ def test_routed_mixed_batch_on_the_card(card, comb_setup):
 
 def test_comb_tree_kernel_equals_plain_tree_and_chain_kernel(card, comb_setup):
     """The tree kernel against the plain tree and the chain kernel on the
-    comb corpus: 600 lanes (a partial last block of the accumulate pass's 4
-    signatures and of the prepare pass's 128), indices past the table, and
-    the expected verdicts."""
+    comb corpus: 600 lanes (a partial last block of 32 signatures), indices
+    past the table, and the expected verdicts; one kernel whose block is a
+    whole number of warps, ``TREE_LANES`` lanes a signature."""
     from mochi_tpu_torch.crypto import comb
     from mochi_tpu_torch.crypto import cuda_comb as CC
 
@@ -284,7 +284,60 @@ def test_comb_tree_kernel_equals_plain_tree_and_chain_kernel(card, comb_setup):
     ok = (full.cpu().numpy() & prepared[6]).tolist()
     assert [w for j, w in enumerate(want) if j not in (5, 9)] == [o for j, o in enumerate(ok) if j not in (5, 9)]
     attrs = CC.kernel_attributes("tree")
-    assert attrs["accumulate"]["threads"] % 32 == 0 and attrs["prepare"]["registers"] > 0
+    assert attrs["threads"] % 32 == 0 and attrs["team"] == CC.TREE_LANES and attrs["registers"] > 0
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 7, 8, 9, 31, 32, 33, 63, 64, 65, 127, 129, 2752])
+def test_comb_tree_team_kernel_equals_plain_tree_at_team_warp_and_block_edges(card, comb_tiled, n):
+    """comb_tree.cu (a decode warp beside ``TREE_LANES`` lanes a signature
+    splitting its windows, 32 signatures a block) at lane counts around a
+    signature's lanes, a warp of them and a block, and the service's 2,752,
+    with clipped key indices: one launch counted as ``tree``, the plain
+    tree's bitmap and comb.cu's lane for lane, the expected verdicts on
+    every lane whose index is the signer's."""
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    table, table15, tiled, pre_ok, want, clipped, m = comb_tiled
+    part = [t[:n] for t in tiled]
+    chain = CC.verify_comb_prepared(table, *part, impl="chain")
+    before = dict(CC.launches)
+    got = CC.verify_comb_prepared(table, *part, impl="tree")
+    assert CC.launches == dict(before, tree=before["tree"] + 1)
+    assert torch.equal(got, comb.verify_comb_prepared(table15, *part, impl="tree")) and torch.equal(got, chain)
+    ok = (got.cpu().numpy() & pre_ok[:n]).tolist()
+    kept = [j for j in range(n) if j % m not in clipped]
+    assert [ok[j] for j in kept] == [want[j] for j in kept]
+
+
+def test_comb_tree_team_kernel_accepts_the_host_rejected_lanes_raw(card, comb_setup):
+    """The two lanes the host rejects while the device accepts them (the
+    host leaves h = 0, so the lane checks only [S]B == R): comb_tree.cu's
+    raw bitmap says True on both, as the plain tree's, alone and together;
+    its attributes name ``TREE_LANES`` lanes a signature, a block of one
+    decode warp and 32 signatures' summing lanes, and R's rows in static
+    shared memory."""
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    reg, _, _ = comb_setup
+    signer = cs.make_signers(np.random.default_rng(3), 1)[0]
+    prepared = BV.prepare_packed(cs.host_rejected_items(signer))
+    assert prepared[6].tolist() == [False, False]
+    kidx = np.asarray([0, reg.index_of(signer.pub)], dtype=np.int32)
+    lanes = CC.from_prepared(kidx, prepared, card)
+    table = reg.device_table(card, layout="radix25")
+    table15 = torch.from_numpy(reg.host_table()).to(card)
+    before = CC.launches["tree"]
+    for n in (1, 2):
+        part = [t[:n] for t in lanes]
+        got = CC.verify_comb_prepared(table, *part, impl="tree")
+        assert got.tolist() == [True] * n
+        assert torch.equal(got, comb.verify_comb_prepared(table15, *part, impl="tree"))
+    assert CC.launches["tree"] == before + 2
+    attrs = CC.kernel_attributes("tree")
+    assert attrs["team"] == CC.TREE_LANES and attrs["threads"] == 32 + 32 * CC.TREE_LANES
+    assert attrs["shared_bytes"] >= 32 * 21 * 4 and attrs["dynamic_shared_bytes"] == 0
 
 
 def test_comb_tree_wrapper_rejects_what_the_kernel_does_not_take(card, comb_setup):

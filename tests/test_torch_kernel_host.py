@@ -189,6 +189,31 @@ int t_tree_verify(const int32_t* table, long long rows, int key_idx,
                   const uint8_t* h, const int32_t* bcomb) {
   return comb_tree_verify_one(table, rows, key_idx, y_r, sign_r, s, h, bcomb);
 }
+// comb_tree.cu's lane order as its serial twin, one thread playing a
+// signature's 4 or 8 lanes: the sum of 128 given entries, the sum of one
+// lane's gathers from the bytes, and the whole verify.
+int t_tree_lanes(void) { return MOCHI_TREE_LANES; }
+void t_tree_sum_lanes(int32_t* q, int lanes, const int32_t* entries, const int8_t* neg) {
+  const tree_given_rows src = {entries, neg};
+  if (lanes == 8)
+    comb_tree_sum_lanes(tree_serial_lanes<8>(), (ge_p3*)q, src);
+  else
+    comb_tree_sum_lanes(tree_serial_lanes<4>(), (ge_p3*)q, src);
+}
+void t_tree_sum_lanes_gathered(int32_t* q, int lanes, const int32_t* table, long long rows, int key_idx,
+                               const uint8_t* s, const uint8_t* h, const int32_t* bcomb) {
+  const tree_byte_rows src = {table, rows, key_idx, s, h, bcomb};
+  if (lanes == 8)
+    comb_tree_sum_lanes(tree_serial_lanes<8>(), (ge_p3*)q, src);
+  else
+    comb_tree_sum_lanes(tree_serial_lanes<4>(), (ge_p3*)q, src);
+}
+int t_tree_verify_lanes(int lanes, const int32_t* table, long long rows, int key_idx,
+                        const int32_t* y_r, int sign_r, const uint8_t* s,
+                        const uint8_t* h, const int32_t* bcomb) {
+  return lanes == 8 ? comb_tree_verify_lanes<8>(table, rows, key_idx, y_r, sign_r, s, h, bcomb)
+                    : comb_tree_verify_lanes<4>(table, rows, key_idx, y_r, sign_r, s, h, bcomb);
+}
 }
 """
 
@@ -1089,6 +1114,145 @@ def test_tree_verify_matches_the_plain_tree_lane_for_lane(lib):
     assert any(host) and not all(host)
 
 
+def _lane_sum_ints(ents, neg, lanes):
+    """``comb_tree_sum_lanes``'s order on Python ints mod p over 128 entries
+    (each three ints, y+x, y-x, 2dxy): lane j mixed-adds entries w and
+    w + 64 of its windows w in [64 j / lanes, 64 (j + 1) / lanes) to the
+    identity, then each level off = lanes / 2 ... 1 adds lane j + off's
+    point to lane j's; lane 0's (X, Y, Z, T)."""
+    per = 64 // lanes
+    acc = []
+    for j in range(lanes):
+        a = [0, 1, 1, 0]
+        for w in range(j * per, (j + 1) * per):
+            for e in (w, w + 64):
+                a = _madd_ints(a, ents[e], bool(neg[e]))
+        acc.append(a)
+    off = lanes // 2
+    while off:
+        acc = [_add_ints(acc[k], _cached_ints(acc[k + off]), False, False) if k + off < lanes else acc[k]
+               for k in range(lanes)]
+        off //= 2
+    return acc[0]
+
+
+def _lane_sum(lib, lanes, ent25, neg):
+    q = np.zeros(40, np.int32)
+    lib.t_tree_sum_lanes(ptr(q), lanes, ptr(ent25), neg.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)))
+    return q
+
+
+@pytest.mark.parametrize("lanes", [4, 8])
+def test_tree_lane_sum_equals_the_plain_tree_and_python_ints(lib, lanes):
+    """``comb_tree.cu``'s order of the sum (``comb_tree_sum_lanes``: each
+    lane's windows by mixed additions from the identity, then the levels
+    across the lanes) with 4 and 8 lanes a signature, on real window entries
+    (a signer table and the basepoint comb with random digits, and the
+    lanes of the tree corpus whose key is in the table): the affine sum
+    equals the plain tree's (the reference's order), the reference-order
+    twin's and the group sum of the points on Python ints, its projective
+    limbs the lane order's formulas on Python ints, every coordinate
+    TIGHT."""
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    assert lib.t_tree_lanes() == CC.TREE_LANES in (4, 8)
+    cases = [_tree_entries(seed)[1:] for seed in (135, 136)]
+    reg, items, kidx, prep = _tree17_corpus(207)
+    table = reg.host_table()
+    _, _, _, _, s_b, h_b, _ = prep
+    cases += [_corpus_rows(table, kidx, s_b, h_b, j) for j in range(len(items)) if 0 <= kidx[j] < len(reg)][:5]
+    for rows, neg in cases:
+        ent25 = arr(CC.to_radix25(rows).reshape(128, 30))
+        q = _lane_sum(lib, lanes, ent25, neg)
+        serial = np.zeros(40, np.int32)
+        lib.t_tree_sum(ptr(serial), ptr(ent25), neg.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)))
+        want = (0, 1)
+        for r, ng in zip(rows, neg):
+            x, y = _leaf_ints([F.limbs_to_int(r[17 * k : 17 * k + 17]) for k in range(3)], ng)[:2]
+            want = C._py_edwards_add(want, (x, y))
+        assert _affine(q) == _affine(serial) == _plain_tree_affine(rows, neg, "pad") == want
+        ents = [[value(c) for c in e.reshape(3, 10)] for e in ent25]
+        assert [value(q[10 * k : 10 * k + 10]) % P for k in range(4)] == _lane_sum_ints(ents, neg, lanes)
+        assert all(is_tight(q[10 * k : 10 * k + 10]) for k in range(4))
+
+
+@pytest.mark.parametrize("negated", ["none", "all", "mixed"])
+@pytest.mark.parametrize("lanes", [4, 8])
+def test_tree_lane_sum_at_the_limb_maximum_equals_python_ints(lib, lanes, negated):
+    """The same lane-order sum with most entries' limbs at 2^26 - 1 /
+    2^25 - 1 (the canonical maximum), negated on no leaf, on every leaf
+    (2dxy's limbs down to -(2^26 - 1)) or on random ones.  Such entries are
+    not curve points, so no other order sums them to the same point: the
+    projective result equals the lane order's formulas on Python ints mod p,
+    every coordinate TIGHT."""
+    rng = random.Random({"none": 221, "all": 222, "mixed": 223}[negated] + lanes)
+    ent25 = arr([[MAX_ENTRY if rng.random() < 0.75 else list(CV.int_to_limbs25(rng.randrange(P)))
+                  for _ in range(3)] for _ in range(128)]).reshape(128, 30)
+    neg = np.array([{"none": 0, "all": 1}.get(negated, rng.randrange(2)) for _ in range(128)], dtype=np.int8)
+    q = _lane_sum(lib, lanes, ent25, neg)
+    ents = [[value(c) for c in e.reshape(3, 10)] for e in ent25]
+    assert [value(q[10 * k : 10 * k + 10]) % P for k in range(4)] == _lane_sum_ints(ents, neg, lanes)
+    assert all(is_tight(q[10 * k : 10 * k + 10]) for k in range(4))
+
+
+@pytest.mark.parametrize("lanes", [4, 8])
+def test_tree_lane_verify_equals_the_reference_order_twin_the_plain_tree_the_chain_and_keys_verify(lib, lanes):
+    """``comb_tree.cu``'s arithmetic as its serial twin
+    (``comb_tree_verify_lanes``: R's decode, each lane's gathers recoded from
+    the bytes with the row index clipped, the lane-order sum, the compare),
+    with 4 and 8 lanes, on ``chip_smoke.py``'s registered-signer corpus with
+    key indices past both ends of the table and the two lanes the host
+    rejects while the device accepts them (ROADMAP Queue C): the raw bitmap
+    equals the reference-order twin's (``comb_tree_verify_one``), the plain
+    tree's, ``comb.cu``'s twin's lane for lane, True on both host-rejected
+    lanes, and, ANDed with the host prechecks, the expected verdicts and
+    ``keys.verify`` on every lane whose index is the signer's.  On every
+    lane, a lane's gathers from the bytes sum to the same limbs as the
+    lane order over the same 128 entries given."""
+    import chip_smoke as cs
+    from mochi_tpu_torch.crypto import batch_verify as BV
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    items, want, kidx, clipped, prep, t15 = _comb_corpus(359, 40)
+    signer = cs.make_signers(np.random.default_rng(359), 4)[0]  # _comb_corpus's signers[0]
+    rprep = BV.prepare_packed(cs.host_rejected_items(signer))
+    prep = tuple(np.concatenate([a, b]) for a, b in zip(prep, rprep))
+    kidx = np.concatenate([kidx, np.asarray([0, 0], dtype=np.int32)])
+    assert rprep[6].tolist() == [False, False]
+    plain = comb.verify_comb_prepared(t15, *CC.from_prepared(kidx, prep, "cpu"), impl="tree").tolist()
+    t25 = arr(CC.to_radix25(t15.numpy()))
+    bcomb = _bcomb25()
+    _, _, y_r, sign_r, s_b, h_b, pre_ok = prep
+    args = [I32P, ctypes.c_longlong, ctypes.c_int, I32P, ctypes.c_int, U8P, U8P, I32P]
+    lib.t_tree_verify_lanes.argtypes = [ctypes.c_int] + args
+    lib.t_tree_sum_lanes_gathered.argtypes = [I32P, ctypes.c_int, I32P, ctypes.c_longlong, ctypes.c_int, U8P,
+                                              U8P, I32P]
+    for fn in (lib.t_tree_verify, lib.t_comb_verify):
+        fn.argtypes = args
+
+    def lane_args(j):
+        return (ptr(t25), t25.shape[0], int(kidx[j]), ptr(arr(y_r[j])), int(sign_r[j]),
+                np.ascontiguousarray(s_b[j]).ctypes.data_as(U8P), np.ascontiguousarray(h_b[j]).ctypes.data_as(U8P),
+                ptr(bcomb))
+
+    got = [bool(lib.t_tree_verify_lanes(lanes, *lane_args(j))) for j in range(len(kidx))]
+    serial, chain = ([bool(fn(*lane_args(j))) for j in range(len(kidx))] for fn in (lib.t_tree_verify,
+                                                                                    lib.t_comb_verify))
+    assert got == serial == plain == chain
+    assert got[-2:] == [True, True]
+    _check_comb_corpus_verdicts(got[:-2], items, want, clipped, pre_ok[:-2])
+    assert any(got) and not all(got)
+    table15 = t15.numpy()
+    for j in range(len(kidx)):
+        rows, neg = _corpus_rows(table15, kidx, s_b, h_b, j)
+        q = np.zeros(40, np.int32)
+        lib.t_tree_sum_lanes_gathered(ptr(q), lanes, ptr(t25), t25.shape[0], int(kidx[j]),
+                                      np.ascontiguousarray(s_b[j]).ctypes.data_as(U8P),
+                                      np.ascontiguousarray(h_b[j]).ctypes.data_as(U8P), ptr(bcomb))
+        assert np.array_equal(q, _lane_sum(lib, lanes, arr(CC.to_radix25(rows).reshape(128, 30)), neg)), j
+
+
 # ---------------------------------------------------- the mxu field (fe17)
 
 
@@ -1693,14 +1857,14 @@ def _corpus_rows(table, kidx, s_b, h_b, j):
     return arr(rows), np.concatenate([hn, sn]).astype(np.int8)
 
 
-def _plain_tree_affine(rows, neg):
-    """The plain tree under ``mxu`` over 128 entries: the affine (x, y)."""
+def _plain_tree_affine(rows, neg, multiply="mxu"):
+    """The plain tree under ``multiply`` over 128 entries: the affine (x, y)."""
     from mochi_tpu_torch.crypto import comb
 
     t15 = torch.from_numpy(rows.astype(np.int64)).T
     ngt = torch.from_numpy(neg.astype(bool))
     ypx, ymx, xy2d = t15[:17], t15[17:34], t15[34:]
-    with F.skew("mxu"):
+    with F.skew(multiply):
         pt = comb._tree_accumulate(F.select(ngt, ymx, ypx), F.select(ngt, ypx, ymx),
                                    F.select(ngt, F.neg(xy2d), xy2d), 128, 1)
     X, Y, Z = (F.limbs_to_int(c) for c in pt[:3])
