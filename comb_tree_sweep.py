@@ -5,9 +5,11 @@ each other on one card, in one process.
 Run from the root of a checkout on a machine with a card:
 ``python3 comb_tree_sweep.py [--seed N]``.  Each variant is the kernel's
 source compiled with nvcc into ``build/sweep/`` with one value of
-``MOCHI_TREE_LANES`` (ptxas's registers, stack and spills printed): 4 lanes
-a signature (the source's default, 160-thread blocks) and 8 (288-thread
-blocks).  Every variant's bitmap must equal ``comb.cu``'s and the expected
+``MOCHI_TREE_LANES`` and ``MOCHI_TREE_SUM_WARPS`` (ptxas's registers,
+stack and spills printed): 4 lanes a signature and 4 summing warps (the
+source's default, 160-thread blocks of 32 signatures), 4 lanes and 3
+summing warps (128-thread blocks of 24 signatures: one warp a scheduler),
+and 8 lanes and 8 warps (288-thread blocks of 32).  Every variant's bitmap must equal ``comb.cu``'s and the expected
 verdicts at every lane count; each is timed with CUDA events (median of
 repeats) at lane counts from 1 to 262,144 of ``chip_smoke.py``'s
 registered-signer corpus, tiled, in two rounds (the variants in one order,
@@ -27,17 +29,18 @@ import numpy as np
 
 import chip_smoke as cs
 
-VARIANTS = {"4 lanes": 4, "8 lanes": 8}
+VARIANTS = {"4 lanes": (4, 4), "4 lanes, 3 warps": (4, 3), "8 lanes": (8, 8)}
 COUNTS = (1, 64, 512, 1024, 2752, 4096, 8192, 16384, 65536, 262144)
 
 
-def build(name: str, lanes: int) -> ctypes.CDLL:
+def build(name: str, lanes: int, warps: int) -> ctypes.CDLL:
     from mochi_tpu_torch import kernels
 
     out = Path("build/sweep")
     out.mkdir(parents=True, exist_ok=True)
-    so = out / f"comb_tree_{lanes}.so"
+    so = out / f"comb_tree_{lanes}_{warps}.so"
     proc = subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, f"-DMOCHI_TREE_LANES={lanes}",
+                           f"-DMOCHI_TREE_SUM_WARPS={warps}",
                            "-I", str(kernels.CSRC), "-o", str(so), str(kernels.CSRC / "comb_tree.cu")],
                           capture_output=True, text=True, timeout=600)
     if proc.returncode:
@@ -67,7 +70,7 @@ def main(argv=None) -> int:
         return 2
     dev = torch.device("cuda", 0)
     print(cs._nvidia_smi("name,power.limit"), flush=True)
-    libs = {name: build(name, lanes) for name, lanes in VARIANTS.items()}
+    libs = {name: build(name, *shape) for name, shape in VARIANTS.items()}
     signers = cs.make_signers(np.random.default_rng(args.seed), cs.CLIENTS)
     reg = comb.SignerRegistry(dev)
     reg.register_all([s.pub for s in signers])

@@ -50,8 +50,11 @@
 #define MOCHI_FE_CALLED
 #include "comb_tree.cuh"
 
-#define MOCHI_TREE_SIGS 32  // signatures a block: one a lane of the decode warp
-#define MOCHI_TREE_SUM_WARPS (MOCHI_TREE_SIGS * MOCHI_TREE_LANES / 32)
+#ifndef MOCHI_TREE_SUM_WARPS
+#define MOCHI_TREE_SUM_WARPS MOCHI_TREE_LANES
+#endif
+// signatures a block: at most one a lane of the decode warp
+#define MOCHI_TREE_SIGS (MOCHI_TREE_SUM_WARPS * 32 / MOCHI_TREE_LANES)
 #define MOCHI_TREE_THREADS (32 * (1 + MOCHI_TREE_SUM_WARPS))
 
 // R of one signature as the decode warp leaves it: 21 words (odd, so that
@@ -70,7 +73,7 @@ __global__ void __launch_bounds__(MOCHI_TREE_THREADS)
                            const uint8_t* __restrict__ h_bytes,
                            const int32_t* __restrict__ bcomb,
                            uint8_t* __restrict__ out, int n) {
-  __shared__ tree_r rs[MOCHI_TREE_SIGS];
+  __shared__ tree_r rs[32];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int first = blockIdx.x * MOCHI_TREE_SIGS;
   // this thread's signature in the block, and its lane among the signature's
