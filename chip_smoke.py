@@ -1948,7 +1948,7 @@ def run(args) -> dict:
         "route": "cuda",
         "source": "mochi_tpu_torch/csrc/comb_tree.cu",
         "design": f"one launch: a decode warp beside {res['kernel_attributes']['comb_tree']['team']} lanes a "
-                  "signature summing its window points (csrc/comb_tree.cuh)",
+                  "signature summing its window points, four warps a block (csrc/comb_tree.cuh)",
         "replaces": "mochi_tpu/crypto/comb.py:428",
         "launches": svc2t["comb_launches"]["tree"],
         "max_abs_err": max(tcheck.values()),

@@ -20,8 +20,8 @@ follows the pair of switches (:func:`kernel_of`):
   straight into the MMA's operands (``csrc/fe17_team.cuh``), two
   multiplies a call where the chain has two independent ones;
 * ``impl="tree"``, ``multiply="pad"``: ``csrc/comb_tree.cu`` (arithmetic
-  in ``csrc/comb_tree.cuh``), one launch in radix 2^25.5, 32 signatures a
-  block: one warp decodes R of each, while :data:`TREE_LANES` lanes a
+  in ``csrc/comb_tree.cuh``), one launch in radix 2^25.5, 24 signatures a
+  block of four warps: one warp decodes R of each, while :data:`TREE_LANES` lanes a
   signature split its 128 window points (each lane mixed-adds both tables'
   entries of its windows from the identity, then levels of complete
   addition across the lanes by shuffles) and the first compares;
@@ -88,15 +88,19 @@ launch_logs = dict.fromkeys(KERNELS)
 # either kernel.  The data-dependent sqrt(-1) multiply of the decode is
 # left out.
 IMADS_PER_SIGNATURE = 917 * 100 + 255 * 55
-# Lanes a signature in comb_tree.cu (MOCHI_TREE_LANES in comb_tree.cuh; it
-# sizes the issued count below and the card test of the attributes).
+# Lanes a signature and signatures a block in comb_tree.cu (MOCHI_TREE_LANES
+# in comb_tree.cuh, MOCHI_TREE_SIGS in comb_tree.cu; they size the issued
+# count below and the card test of the attributes).
 TREE_LANES = 4
+TREE_SIGS = 24
 # What comb_tree.cu issues for the same verdict: each of a signature's
 # TREE_LANES lanes makes its share of the 128 mixed additions of 7
 # multiplies, every level across the lanes (ge_to_cached's and ge_add's 9)
 # and the compare's 2 (issued for the warp, whichever lanes store), plus R's
-# decode, 19 multiplies and 255 squarings, on the decode warp.
-IMADS_PER_SIGNATURE_TREE = (128 * 7 + TREE_LANES * (9 * (TREE_LANES.bit_length() - 1) + 2) + 19) * 100 + 255 * 55
+# decode, 19 multiplies and 255 squarings, on the decode warp, whose 32
+# lanes serve TREE_SIGS signatures.
+IMADS_PER_SIGNATURE_TREE = ((128 * 7 + TREE_LANES * (9 * (TREE_LANES.bit_length() - 1) + 2)) * 100
+                            + (19 * 100 + 255 * 55) * 32 // TREE_SIGS)
 
 # comb_tree_mxu.cu's per-signature record between its passes
 # (comb_tree17.cuh): R's x and y, R's verdict, 128 int8 digits.

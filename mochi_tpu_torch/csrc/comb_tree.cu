@@ -1,6 +1,6 @@
 // Known-signer (comb) Ed25519 verification on Hopper with the tree
 // accumulation: one launch, a decode warp beside MOCHI_TREE_LANES lanes a
-// signature summing its window points.
+// signature summing its window points, one warp a scheduler.
 //
 // Replaces the reference package's comb.verify_comb_prepared with
 // impl="tree" (crypto/comb.py:428-472, _tree_accumulate :354), selected by
@@ -17,19 +17,20 @@
 // This kernel issues more: each of the signature's MOCHI_TREE_LANES lanes
 // makes its 128 / LANES mixed additions of 7 multiplies, every level of the
 // sum across the lanes (9) and the compare's 2, and R's decode 19
-// multiplies and 255 squarings: with 4 lanes 976 + 19 multiplies, 113,525
-// multiply-adds a signature (8 lanes: 1,128 + 19).  Bytes: 141 a signature
+// multiplies and 255 squarings, on a warp whose lanes past the block's
+// signatures decode too: with 4 lanes 976 multiplies and 4/3 of a decode,
+// 118,833 multiply-adds a signature.  Bytes: 141 a signature
 // in and out and one read of the tables, which stay in the 50 MB L2:
 // microseconds at 3.35 TB/s.
 //
 // Design.  The tree exists to cut a signature's dependent depth, and on
 // this card the longest chain is R's decode (ge_decode: 255 squarings and
 // 19 multiplies in one dependent chain), not the 128-point sum.  So a block
-// serves 32 signatures with two roles, run at once:
+// of four warps serves 24 signatures with two roles, run at once:
 //   * warp 0 decodes: lane l decodes R of the block's signature l and
 //     leaves x_R, y_R and the verdict in shared memory (21 words a
-//     signature);
-//   * the other warps sum: lane j of a signature's MOCHI_TREE_LANES
+//     signature; lanes 24-31 decode the next signatures for nothing);
+//   * warps 1-3 sum: lane j of a signature's MOCHI_TREE_LANES
 //     neighbouring lanes mixed-adds both tables' entries of its 64 / LANES
 //     windows from the identity (its digits recoded from s and h on the fly,
 //     with the carry from the windows below), then log2(LANES) levels of
@@ -38,11 +39,15 @@
 // After one barrier, lane 0 of each signature compares its sum with R and
 // stores the verdict.  A decode lane's chain (274 operations) and a summing
 // lane's (with 4 lanes: 32 x 7 + 2 x 9 + 2 = 244 multiplies) about
-// balance, so a small launch runs at about the decode's latency.  The field
-// multiply and squaring are compiled once and called by value
-// (MOCHI_FE_CALLED, fe25519.cuh), as comb.cu's.  A role is a whole warp, so
-// only the compare diverges, and every lane reaches every shuffle and the
-// barrier: signatures past the batch repeat its last one and store nothing.
+// balance, so a small launch runs at about the decode's latency.  Four
+// warps, one on each of the SM's four schedulers: a fifth (32 signatures a
+// block) shares the decode warp's scheduler, and measured slower up to
+// 2,752 lanes and from 65536, faster only at 8192-16384, where blocks of
+// 24 fill the SMs unevenly (PERF.md).  The field multiply and squaring are
+// compiled once and called by value (MOCHI_FE_CALLED, fe25519.cuh), as
+// comb.cu's.  A role is a whole warp, so only the compare diverges, and
+// every lane reaches every shuffle and the barrier: signatures past the
+// batch repeat its last one and store nothing.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,15 +55,13 @@
 #define MOCHI_FE_CALLED
 #include "comb_tree.cuh"
 
-#ifndef MOCHI_TREE_SUM_WARPS
-#define MOCHI_TREE_SUM_WARPS MOCHI_TREE_LANES
-#endif
+#define MOCHI_TREE_SUM_WARPS 3
 // signatures a block: at most one a lane of the decode warp
 #define MOCHI_TREE_SIGS (MOCHI_TREE_SUM_WARPS * 32 / MOCHI_TREE_LANES)
 #define MOCHI_TREE_THREADS (32 * (1 + MOCHI_TREE_SUM_WARPS))
 
 // R of one signature as the decode warp leaves it: 21 words (odd, so that
-// the block's 32 signatures read a given word from 32 different banks).
+// the decode warp's 32 lanes write a given word to 32 different banks).
 struct tree_r {
   int32_t x[10], y[10];
   int32_t ok;

@@ -55,10 +55,9 @@
 #include "comb25519.cuh"
 #include "comb_team.cuh"  // ct_windows, MOCHI_CT_MEMBER
 
-// Lanes a signature in comb_tree.cu: 4 or 8.  PERF.md has both measured.
-#ifndef MOCHI_TREE_LANES
+// Lanes a signature in comb_tree.cu: 4 or 8.  8 measured as fast up to
+// 4096 lanes and 30-53% slower from 8192 (PERF.md).
 #define MOCHI_TREE_LANES 4
-#endif
 static_assert(MOCHI_TREE_LANES == 4 || MOCHI_TREE_LANES == 8, "4 or 8 lanes a signature");
 
 #define MOCHI_TREE_POINTS 128

@@ -259,7 +259,7 @@ def test_routed_mixed_batch_on_the_card(card, comb_setup):
 
 def test_comb_tree_kernel_equals_plain_tree_and_chain_kernel(card, comb_setup):
     """The tree kernel against the plain tree and the chain kernel on the
-    comb corpus: 600 lanes (a partial last block of 32 signatures), indices
+    comb corpus: 600 lanes (a partial last block of 24 signatures), indices
     past the table, and the expected verdicts; one kernel whose block is a
     whole number of warps, ``TREE_LANES`` lanes a signature."""
     from mochi_tpu_torch.crypto import comb
@@ -287,11 +287,13 @@ def test_comb_tree_kernel_equals_plain_tree_and_chain_kernel(card, comb_setup):
     assert attrs["threads"] % 32 == 0 and attrs["team"] == CC.TREE_LANES and attrs["registers"] > 0
 
 
-@pytest.mark.parametrize("n", [1, 3, 4, 5, 7, 8, 9, 31, 32, 33, 63, 64, 65, 127, 129, 2752])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 7, 8, 9, 23, 24, 25, 31, 32, 33, 47, 48, 49, 63, 64, 65, 127, 129,
+                               2752])
 def test_comb_tree_team_kernel_equals_plain_tree_at_team_warp_and_block_edges(card, comb_tiled, n):
     """comb_tree.cu (a decode warp beside ``TREE_LANES`` lanes a signature
-    splitting its windows, 32 signatures a block) at lane counts around a
-    signature's lanes, a warp of them and a block, and the service's 2,752,
+    splitting its windows, ``TREE_SIGS`` signatures a block) at lane counts
+    around a signature's lanes, a warp of them, a block and the decode
+    warp's 32 lanes, and the service's 2,752,
     with clipped key indices: one launch counted as ``tree``, the plain
     tree's bitmap and comb.cu's lane for lane, the expected verdicts on
     every lane whose index is the signer's."""
@@ -315,8 +317,8 @@ def test_comb_tree_team_kernel_accepts_the_host_rejected_lanes_raw(card, comb_se
     host leaves h = 0, so the lane checks only [S]B == R): comb_tree.cu's
     raw bitmap says True on both, as the plain tree's, alone and together;
     its attributes name ``TREE_LANES`` lanes a signature, a block of one
-    decode warp and 32 signatures' summing lanes, and R's rows in static
-    shared memory."""
+    decode warp and ``TREE_SIGS`` signatures' summing lanes, and R's rows in
+    static shared memory."""
     from mochi_tpu_torch.crypto import comb
     from mochi_tpu_torch.crypto import cuda_comb as CC
 
@@ -336,7 +338,7 @@ def test_comb_tree_team_kernel_accepts_the_host_rejected_lanes_raw(card, comb_se
         assert torch.equal(got, comb.verify_comb_prepared(table15, *part, impl="tree"))
     assert CC.launches["tree"] == before + 2
     attrs = CC.kernel_attributes("tree")
-    assert attrs["team"] == CC.TREE_LANES and attrs["threads"] == 32 + 32 * CC.TREE_LANES
+    assert attrs["team"] == CC.TREE_LANES and attrs["threads"] == 32 + CC.TREE_SIGS * CC.TREE_LANES
     assert attrs["shared_bytes"] >= 32 * 21 * 4 and attrs["dynamic_shared_bytes"] == 0
 
 
