@@ -1544,10 +1544,14 @@ def run(args) -> dict:
         if n <= len(citems) and n not in tcheck:
             tcheck[n] = _check_comb_at(n, table25, table15, lanes, big_lanes, cprep[6], cwant, "tree")
     pad_tiled = CC.verify_comb_prepared(table25, *ctiled, multiply="pad").cpu().numpy()  # comb.cu's
+
+    def tree_ms(n):  # the lanes sliced outside the timed calls, as the chain's sweep
+        part_l = [t[:n] for t in ctiled]
+        return _ms_median(lambda: CC.verify_comb_prepared(table25, *part_l, impl="tree"), 1, 5)
+
     tsweep, t_vs_sweep = sweep_vs(
         lambda n: CC.verify_comb_prepared(table25, *[t[:n] for t in ctiled], impl="tree"), pad_tiled,
-        np.tile(cprep[6], reps), np.tile(np.asarray(cwant, dtype=bool), reps), SWEEP,
-        lambda n: _ms_median(lambda: CC.verify_comb_prepared(table25, *[t[:n] for t in ctiled], impl="tree"), 1, 5))
+        np.tile(cprep[6], reps), np.tile(np.asarray(cwant, dtype=bool), reps), SWEEP, tree_ms)
     for n in tsweep:
         tsweep[n]["chain_ms"] = csweep[n]["ms"]
     print(f"[comb tree sweep] equal to the plain tree at {sorted(tcheck)}, lanes differing from comb.cu or the "

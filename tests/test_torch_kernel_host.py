@@ -11,7 +11,11 @@ edges of the bounds the header states (maximum loose limbs, every sign
 pattern), and decode, the comb's
 negated-Niels mixed addition, the whole comb verify, the tree's leaf
 conversion, its 7-level sum and its whole verify against Python integers
-and the port's plain PyTorch versions.  The 17 x 15-bit field of the mxu
+and the port's plain PyTorch versions, and ``comb_tree.cu``'s lane order
+(one thread playing a signature's 4 or 8 lanes): its sum against the
+plain tree and, at the limb maximum, its own order's formulas on Python
+integers, its whole verify against the reference-order twin, the plain
+tree, ``comb.cu``'s twin and ``keys.verify``.  The 17 x 15-bit field of the mxu
 kernel (``fe17.cuh``) builds with its serial twin of the tensor-core
 multiply, which sums the same product bytes against the same 0/1 entries
 over the same live tiles: it is held limb for limb against the plain
