@@ -171,13 +171,21 @@ Phases (any failure exits non-zero and prints no result line):
    forged grants) with the two lanes the host rejects but the device accepts
    appended (they must not be counted), and the north-star leg (4 slots x
    64 voters, 30 forged votes in slot 3: counts [64, 64, 64, 34]).  The
-   counts must equal a numpy oracle of the reference's semantics; the tally
-   kernel must equal its plain version at every lane count it ran and on
-   ids that wrap and drop.  The tally and commit kernels and their library
-   calls are timed on the card alone, as the replay of a CUDA graph of 200
-   calls (an eager call of these kernels is bound by the host's
-   submission, which is kept as ``eager_ms``); the whole step on the host
-   clock.
+   counts must equal a numpy oracle of the reference's semantics.  On a
+   mesh of one slice (every card of a one-card machine, card 0 alone on a
+   larger one) the step takes the fused tally-and-commit kernel, elsewhere
+   the tally, the add, ``all_reduce`` and the commit kernel; each must
+   have launched.  The tally kernel and the fused one must equal their
+   plain versions at every lane count the step ran, on ids that wrap and
+   drop, with all 66,048 lanes in one slot, on views one byte into their
+   storage and on no lane.  The tally, fused and commit kernels and their
+   library calls (``index_add_``, ``torch.ge``) are timed on the card
+   alone, as the replay of a CUDA graph of 200 calls (an eager call of
+   these kernels is bound by the host's submission, which is kept as
+   ``eager_ms``), beside their byte bounds, a graph node's floor (an empty
+   PyTorch kernel) and the tally with no lane and no slot; the tally's and
+   the fused kernel's device time by node (the memset, the kernel) by
+   ``torch.profiler``; the whole step on the host clock.
 12. Multi-process — ``python -m mochi_tpu_torch.parallel.multihost
    --backend nccl``, one process per visible card: each process's JSON line
    must equal the closed form for its world size.
@@ -616,6 +624,27 @@ def check_tally_vs_plain(bitmap, pre_ok, group_ids, n_groups: int) -> int:
     return err
 
 
+def check_fused_vs_plain(bitmap, pre_ok, group_ids, n_groups: int, threshold: int) -> int:
+    """The fused tally-and-commit kernel and its plain version (the plain
+    tally, then the plain commit) on the same card tensors: the max abs
+    difference of their counts and commits (raises if not 0)."""
+    import torch
+
+    from mochi_tpu_torch.parallel import cuda_tally as CT
+    from mochi_tpu_torch.parallel.sharded import commit, segment_tally
+
+    counts, committed = CT.quorum_tally_commit(bitmap, pre_ok, group_ids, n_groups, threshold)
+    plain = segment_tally(bitmap, pre_ok, group_ids, n_groups)
+    err = 0
+    if n_groups:
+        err = max(int((counts.to(torch.int64) - plain.to(torch.int64)).abs().max().item()),
+                  int((committed.to(torch.int64) - commit(plain, threshold).to(torch.int64)).abs().max().item()))
+    if err or counts.shape != (n_groups,) or committed.shape != (n_groups,):
+        raise AssertionError(f"fused tally-and-commit kernel disagrees at {bitmap.shape[0]} lanes: "
+                             f"max abs error {err}, shapes {tuple(counts.shape)} {tuple(committed.shape)}")
+    return err
+
+
 def multihost_expected(lanes: int, world: int) -> List[int]:
     """The multi-process leg's counts in closed form: lane i of every process
     votes for slot i % 3, lanes with i % 4 == 3 are forged."""
@@ -758,9 +787,10 @@ def _graph_ms(fn, calls: int) -> float:
     return statistics.median(times)
 
 
-def kernel_split_ms(fn, repeats: int = 10) -> dict:
+def kernel_split_ms(fn, repeats: int = 10, names=("mochi",)) -> dict:
     """Device milliseconds per call of each of the port's kernels that
-    ``fn`` launches (a kernel whose name holds "mochi"), from
+    ``fn`` launches (a kernel whose name holds "mochi", or any of
+    ``names``: "Memset" also keeps the memset nodes), from
     ``torch.profiler``'s per-kernel sums over ``repeats`` calls after a
     warm-up call.  A profiler that traces no device time gives {}, one that
     cannot start says so; an error of ``fn`` raises."""
@@ -783,7 +813,7 @@ def kernel_split_ms(fn, repeats: int = 10) -> dict:
     out = {}
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
-        if us and "mochi" in ev.key:
+        if us and any(name in ev.key for name in names):
             out[ev.key.split("(")[0]] = us / 1e3 / repeats
     return out
 
@@ -1106,7 +1136,7 @@ def _zero_counts():
     from mochi_tpu_torch.crypto import cuda_verify as CV
     from mochi_tpu_torch.parallel import cuda_tally as CT
 
-    CT.launches = CT.commit_launches = 0
+    CT.launches = CT.fused_launches = CT.commit_launches = 0
     BV.reset_counts()
     for skew in CV.launches:
         CV.launches[skew], CV.launch_logs[skew] = 0, []
@@ -1132,6 +1162,7 @@ def _read_counts(out: dict):
     out["verify_mxu_launches"] = CV.launches["mxu"]
     out["comb_launches"] = dict(CC.launches)
     out["tally_launches"] = CT.launches
+    out["fused_tally_launches"] = CT.fused_launches
     out["commit_launches"] = CT.commit_launches
     out["device_items"] = BV.device_item_count()
     out["device_dispatches"] = BV.device_dispatch_count()
@@ -1227,7 +1258,8 @@ def run(args) -> dict:
     res["kernel_attributes"] = {"verify": CV.kernel_attributes(), "verify_mxu": CV.kernel_attributes("mxu"),
                                 "comb": CC.kernel_attributes(), "comb_mxu": CC.kernel_attributes("chain_mxu"),
                                 "comb_tree": CC.kernel_attributes("tree"),
-                                "comb_tree_mxu": CC.kernel_attributes("tree_mxu"), "tally": CT.kernel_attributes()}
+                                "comb_tree_mxu": CC.kernel_attributes("tree_mxu"), "tally": CT.kernel_attributes(),
+                                "tally_fused": CT.kernel_attributes(fused=True)}
     print(f"[build] {res['build_s']:.1f} s {took}; {res['kernel_attributes']}", flush=True)
     va = res["kernel_attributes"]["verify"]
     print(f"[build] verify.cu: a team of {va['team']} lanes a signature, {va['threads']} threads a block, "
@@ -1983,6 +2015,8 @@ def run(args) -> dict:
         "name": "quorum_tally",
         "route": "cuda",
         "source": "mochi_tpu_torch/csrc/tally.cu",
+        "design": "a warp sums each step's equal slots (match_any, ballot) and carries the run that reaches "
+                  "its last lane: one atomic a run a warp (csrc/tally.cuh)",
         "replaces": "mochi_tpu/parallel/sharded.py:216",
         "launches": qres["launches"]["tally"],
         "max_abs_err": q_tally["max_abs_err"],
@@ -2003,6 +2037,20 @@ def run(args) -> dict:
         "bound_ms": qres["commit"]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": qres["commit"]["library_ms"],
+    }, {
+        "name": "quorum_tally_commit",
+        "route": "cuda",
+        "source": "mochi_tpu_torch/csrc/tally.cu",
+        "design": "the tally kernel, then the last block (a ticket) writes counts >= threshold",
+        "replaces": "mochi_tpu/parallel/sharded.py:216",
+        "replaces_also": "mochi_tpu/parallel/sharded.py:220",
+        "launches": qres["launches"]["fused_tally_commit"],
+        "max_abs_err": qres["fused"]["max_abs_err"],
+        "ms": qres["fused"]["ms"],
+        "plain_ms": qres["fused"]["plain_ms"],
+        "bound_ms": qres["fused"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
     }]
     return res
 
@@ -2117,9 +2165,10 @@ def quorum_phase(seed: int, traffic, signers: List[Signer], dev, res: dict) -> d
     counts_out: dict = {}
     _read_counts(counts_out)
     out["launches"] = {"verify": counts_out["verify_launches"], "tally": counts_out["tally_launches"],
+                       "fused_tally_commit": counts_out["fused_tally_launches"],
                        "commit": counts_out["commit_launches"], "by_card": counts_out["launches_by_card"]}
     if dev.type == "cuda" and min(out["launches"]["verify"], out["launches"]["tally"],
-                                  out["launches"]["commit"]) <= 0:
+                                  out["launches"]["fused_tally_commit"], out["launches"]["commit"]) <= 0:
         raise AssertionError(f"the quorum step did not run every kernel: {out['launches']}")
     ns_counts = legs_out[f"north star / {first_mesh}"]["counts"].tolist()
     if ns_counts != [ns[1]] * (ns[0] - 1) + [ns[1] - ns[2]]:
@@ -2131,14 +2180,29 @@ def quorum_phase(seed: int, traffic, signers: List[Signer], dev, res: dict) -> d
         v["counts"] = v["counts"].tolist() if len(v["counts"]) <= ns[0] else "equal to the oracle"
     out["legs"] = legs_out
 
-    # the tally kernel against its plain version at every lane count it ran,
-    # and on ids that wrap and drop
+    # the tally kernel and the fused tally-and-commit against their plain
+    # versions at every lane count the step ran, on ids that wrap and drop,
+    # with every lane in one slot, on views one byte into their storage and
+    # on no lane
     ok_dev = torch.from_numpy(qprep[6]).to(dev)
     ids_dev = torch.from_numpy(qgids).to(dev)
     g = n_certs + 1
     checked = {n: check_tally_vs_plain(raw[:n], ok_dev[:n], ids_dev[:n], g) for n in sorted(tally_lanes)}
+    fused_checked = {n: check_fused_vs_plain(raw[:n], ok_dev[:n], ids_dev[:n], g, threshold)
+                     for n in sorted(tally_lanes)}
     wild = torch.from_numpy(np.random.default_rng(seed + 6).integers(-2 * g, 2 * g, len(qgids)).astype(np.int32))
-    wild_err = check_tally_vs_plain(raw, ok_dev, wild.to(dev), g)
+    wild = wild.to(dev)
+    ones = torch.ones(n_stream, dtype=torch.bool, device=dev)
+    one_slot = torch.zeros(n_stream, dtype=torch.int32, device=dev)
+    nothing = (raw[:0], ok_dev[:0], ids_dev[:0])
+    cases = {"wrap_and_drop_ids": (raw, ok_dev, wild), "one_slot": (ones, ones, one_slot),
+             "offset_1": (raw[1:], ok_dev[1:], ids_dev[1:]), "no_lane": nothing}
+    case_err = {cname: max([check_tally_vs_plain(*lanes, g)]
+                           + [check_fused_vs_plain(*lanes, g, t) for t in (threshold, 0, 1)])
+                for cname, lanes in cases.items()}
+    one_slot_counts = CT.quorum_tally(ones, ones, one_slot, g)
+    if int(one_slot_counts[0]) != n_stream or int(one_slot_counts[1:].sum()) != 0:
+        raise AssertionError(f"one slot: {one_slot_counts[:4].tolist()}")
 
     # times at the certificate stream's 66,048 lanes
     b, o, i = raw[:n_stream], ok_dev[:n_stream], ids_dev[:n_stream]
@@ -2152,18 +2216,46 @@ def quorum_phase(seed: int, traffic, signers: List[Signer], dev, res: dict) -> d
     def tally_k():
         return CT.quorum_tally(b, o, i, g)
 
+    def fused_k():
+        return CT.quorum_tally_commit(b, o, i, g, threshold)
+
     def tally_lib():
         return torch.zeros(g, dtype=torch.int32, device=dev).index_add_(0, i, votes)
 
+    def empty_tally():  # no lane, no slot: no memset, one block that adds nothing
+        return CT.quorum_tally(*nothing, 0)
+
     tally = {
-        "lanes": n_stream, "slots": g, "max_abs_err": max([wild_err, *checked.values()]),
-        "lane_counts_checked": sorted(checked), "wrap_and_drop_ids_max_abs_err": wild_err,
+        "lanes": n_stream, "slots": g, "max_abs_err": max([*case_err.values(), *checked.values()]),
+        "lane_counts_checked": sorted(checked), "wrap_and_drop_ids_max_abs_err": case_err["wrap_and_drop_ids"],
+        "cases_max_abs_err": case_err,
         "ms": _graph_ms(tally_k, 200), "eager_ms": _ms_per_call(tally_k, 200),
         "plain_ms": _graph_ms(lambda: segment_tally(b, o, i, g), 5),
         "library_ms": _graph_ms(tally_lib, 200), "library_eager_ms": _ms_per_call(tally_lib, 200),
         "library_call": "torch.zeros(slots).index_add_(0, group_ids, votes)",
         "bound_ms": 1e3 * (n_stream * CT.BYTES_PER_LANE + g * 4) / HBM_BYTES_PER_S,
+        "one_slot_ms": _graph_ms(lambda: CT.quorum_tally(ones, ones, one_slot, g), 200),
+        "empty_tally_ms": _graph_ms(empty_tally, 200),
+        # the floor of one node of a CUDA graph: an empty PyTorch kernel
+        "graph_floor_ms": _graph_ms(lambda: torch.cuda._sleep(0), 200),
+        "attributes": res.get("kernel_attributes", {}).get("tally"), "ptxas": res.get("ptxas", {}).get("tally"),
     }
+    fused = {
+        "lanes": n_stream, "slots": g, "threshold": threshold,
+        "max_abs_err": max([*case_err.values(), *fused_checked.values()]),
+        "lane_counts_checked": sorted(fused_checked),
+        "ms": _graph_ms(fused_k, 200), "eager_ms": _ms_per_call(fused_k, 200),
+        "plain_ms": _graph_ms(lambda: commit(segment_tally(b, o, i, g), threshold), 5),
+        "library_two_calls_ms": _graph_ms(lambda: torch.ge(tally_lib(), threshold), 200),
+        "library_two_calls": "index_add_ as the tally's, then torch.ge(counts, threshold)",
+        "bound_ms": 1e3 * (n_stream * CT.BYTES_PER_LANE + g * (4 + 1)) / HBM_BYTES_PER_S,
+        "attributes": res.get("kernel_attributes", {}).get("tally_fused"),
+    }
+    if dev.type == "cuda":  # device time by node: the memset and the kernel
+        tally["profiler_ms"] = kernel_split_ms(tally_k, 20, names=("mochi", "Memset", "memset"))
+        fused["profiler_ms"] = kernel_split_ms(fused_k, 20, names=("mochi", "Memset", "memset"))
+        print(f"[quorum] tally kernel {tally['attributes']}, fused {fused['attributes']}; ptxas "
+              f"{tally['ptxas']}", flush=True)
     committed_k = CT.quorum_commit(counts_k, threshold)
     c_err = int((committed_k.to(torch.int64) - commit(counts_k, threshold).to(torch.int64)).abs().max().item())
     if c_err:
@@ -2174,9 +2266,11 @@ def quorum_phase(seed: int, traffic, signers: List[Signer], dev, res: dict) -> d
         "eager_ms": _ms_per_call(lambda: CT.quorum_commit(counts_k, threshold), 200),
         "plain_ms": _graph_ms(lambda: commit(counts_k, threshold), 200),
         "library_ms": _graph_ms(lambda: torch.ge(counts_k, threshold), 200),
+        "library_eager_ms": _ms_per_call(lambda: torch.ge(counts_k, threshold), 200),
         "library_call": "torch.ge(counts, threshold)",
         "bound_ms": 1e3 * g * (4 + 1) / HBM_BYTES_PER_S,
     }
+    out["fused"] = fused
     out["tally"] = tally
     # the whole step (host prepare excluded: inputs already packed), host clock
     step_s = {}

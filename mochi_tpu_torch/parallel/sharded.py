@@ -256,10 +256,12 @@ def make_quorum_step(mesh: Mesh, n_groups: int):
     for — and ``threshold``, 2f+1.  B must be a multiple of ``mesh.size``
     (:func:`pad_to_multiple`).  Per slice: one verify launch and one tally
     launch into an (n_groups,) int32 on its device, on the slice's stream
-    (a slice the prechecks reject whole launches neither and counts 0).
-    Then the slots of all slices are added on the first slice's stream,
-    after an event per slice, summed over the process group
-    (``all_reduce``), and compared with the threshold there.
+    (a slice the prechecks reject whole launches no verify and tallies no
+    lane).  Then the slots of all slices are added on the first slice's
+    stream, after an event per slice, summed over the process group
+    (``all_reduce``), and compared with the threshold there.  On a mesh of
+    one slice and no process group the tally's counts are final, so one
+    launch of the fused tally-and-commit kernel does both.
 
     Returns (bitmap (B,) bool: the verdicts, device bitmap AND pre_ok;
     counts (n_groups,) int32; committed (n_groups,) bool), on the host.
@@ -272,20 +274,26 @@ def make_quorum_step(mesh: Mesh, n_groups: int):
         _require_even(mesh, len(ids))
         prepared = (y_a, sign_a, y_r, sign_r, s_bytes, h_bytes, np.asarray(pre_ok, dtype=bool))
         launched = _dispatch_slices(mesh, prepared)
+        final = mesh.size == 1 and mesh.group is None  # the one slice's counts are the step's
+        committed = None
         parts, alive = [], []  # (stream, counts) per slice; pinned inputs kept until readback
         for k, (dev, (lo, hi), (bitmap, _s, _keep, ok)) in enumerate(
                 zip(mesh.devices, _bounds(mesh, len(ids)), launched)):
             stream = BV._thread_stream(dev, k) if dev.type == "cuda" else None
             with torch.cuda.stream(stream):  # a no-op on the CPU
                 if bitmap is None:  # the host rejected every lane: no vote to count
-                    counts = torch.zeros(n_groups, dtype=torch.int32, device=dev)
+                    lanes = (torch.zeros(0, dtype=torch.bool, device=dev),) * 2 + (
+                        torch.zeros(0, dtype=torch.int32, device=dev),)
                 else:
                     host = (torch.from_numpy(ok), torch.from_numpy(ids[lo:hi]))
                     if stream is not None:
                         host = tuple(h.pin_memory() for h in host)
                         alive.append(host)
-                    counts = cuda_tally.quorum_tally(
-                        bitmap, *(h.to(dev, non_blocking=True) for h in host), n_groups)
+                    lanes = (bitmap, *(h.to(dev, non_blocking=True) for h in host))
+                if final:
+                    counts, committed = cuda_tally.quorum_tally_commit(*lanes, n_groups, threshold)
+                else:
+                    counts = cuda_tally.quorum_tally(*lanes, n_groups)
             parts.append((stream, counts))
         stream0 = parts[0][0]
         with torch.cuda.stream(stream0):
@@ -300,7 +308,8 @@ def make_quorum_step(mesh: Mesh, n_groups: int):
                 counts = counts + c.to(mesh.devices[0], non_blocking=True)
             if mesh.group is not None:
                 _all_reduce(counts, mesh.group)
-            committed = cuda_tally.quorum_commit(counts, threshold)
+            if committed is None:
+                committed = cuda_tally.quorum_commit(counts, threshold)
         bitmap = _bitmap(launched)
         with torch.cuda.stream(stream0):
             return bitmap, counts.cpu(), committed.cpu()

@@ -429,6 +429,10 @@ def test_quorum_phase_rehearsal_on_cpu(signers, monkeypatch):
     assert out["tally"]["lane_counts_checked"] == [6, 11, 12, 22]
     assert out["tally"]["max_abs_err"] == 0 and out["commit"]["max_abs_err"] == 0
     assert out["launches"]["tally"] == out["launches"]["commit"] == 0  # the plain versions launch nothing
+    assert out["launches"]["fused_tally_commit"] == 0
+    assert out["fused"]["max_abs_err"] == 0 and out["fused"]["lane_counts_checked"] == [6, 11, 12, 22]
+    assert out["tally"]["cases_max_abs_err"] == dict.fromkeys(("wrap_and_drop_ids", "one_slot", "offset_1",
+                                                               "no_lane"), 0)
 
 
 def test_tally_check_raises_on_a_wrong_count(monkeypatch):
@@ -440,6 +444,19 @@ def test_tally_check_raises_on_a_wrong_count(monkeypatch):
     monkeypatch.setattr(CT, "quorum_tally", lambda *a: torch.tensor([1, 1, 4], dtype=torch.int32))
     with pytest.raises(AssertionError, match="max abs error 1"):
         cs.check_tally_vs_plain(b, b, ids, 3)
+
+
+def test_fused_check_raises_on_a_wrong_commit(monkeypatch):
+    from mochi_tpu_torch.parallel import cuda_tally as CT
+
+    b = torch.ones(6, dtype=torch.bool)
+    ids = torch.tensor([0, 1, 2, -1, 5, 2], dtype=torch.int32)
+    assert cs.check_fused_vs_plain(b, b, ids, 3, 2) == 0
+    assert cs.check_fused_vs_plain(b[:0], b[:0], ids[:0], 3, 0) == 0
+    monkeypatch.setattr(CT, "quorum_tally_commit", lambda *a: (torch.tensor([1, 1, 3], dtype=torch.int32),
+                                                               torch.tensor([False, False, False])))
+    with pytest.raises(AssertionError, match="max abs error 1"):
+        cs.check_fused_vs_plain(b, b, ids, 3, 2)
 
 
 def test_sharded_service_drive_counts_on_cpu(signers):

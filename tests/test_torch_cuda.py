@@ -892,22 +892,80 @@ def test_service_cli_serves_a_certificate_on_the_mxu_kernel(card, tmp_path):
 # ------------------------------------------------ quorum tally and sharding
 
 
-@pytest.mark.parametrize("n,g", [(0, 4), (1, 1), (1000, 37), (5000, 0), (66048, 1537)])
-def test_tally_kernel_equals_plain_version_on_wrapping_and_dropped_ids(card, n, g):
+def _tally_lanes(card, n, g, kind):
+    """bitmap, pre_ok and group_ids on the card for one tally case: "wild"
+    ids that wrap and drop, "runs of 43" (the certificate stream's sorted
+    grants), "one slot" (every lane votes for slot 0), or "offset k" (wild
+    ids in views that start k elements into their storage)."""
+    rng = np.random.default_rng(n + g)
+    bitmap = rng.random(n) < 0.8
+    ok = rng.random(n) < 0.9
+    if kind == "runs of 43":
+        ids = np.minimum(np.arange(n) // 43, g - 1)
+    elif kind == "one slot":
+        bitmap, ok, ids = np.ones(n, bool), np.ones(n, bool), np.zeros(n)
+    else:
+        ids = rng.integers(-2 * g - 1, 2 * g + 2, n)
+    arrays = (bitmap, ok, ids.astype(np.int32))
+    if not kind.startswith("offset"):
+        return tuple(torch.from_numpy(a).to(card) for a in arrays)
+    k = int(kind.split()[1])
+    views = tuple(torch.from_numpy(np.concatenate([a[:1].repeat(k), a])).to(card)[k:] for a in arrays)
+    assert all(v.storage_offset() == k and v.is_contiguous() for v in views)
+    return views
+
+
+# lane counts around the warp's 256 lanes and the block's 1,024, the
+# certificate stream's shape, every lane in one slot, views at offsets 1-3
+TALLY_CASES = [(0, 4, "wild"), (1, 1, "wild"), (1000, 37, "wild"), (5000, 0, "wild"), (66048, 1537, "wild"),
+               (31, 3, "wild"), (32, 3, "wild"), (33, 3, "wild"), (255, 7, "wild"), (256, 7, "wild"),
+               (257, 7, "wild"), (1023, 9, "wild"), (1024, 9, "wild"), (1025, 9, "wild"), (2049, 17, "wild"),
+               (66048, 1537, "runs of 43"), (66047, 1537, "runs of 43"), (66048, 1537, "one slot"),
+               (5000, 37, "offset 1"), (5000, 37, "offset 2"), (5001, 37, "offset 3")]
+
+
+@pytest.mark.parametrize("n,g,kind", TALLY_CASES)
+def test_tally_kernel_equals_plain_version_on_wrapping_and_dropped_ids(card, n, g, kind):
     from mochi_tpu_torch.parallel import cuda_tally as CT
     from mochi_tpu_torch.parallel import sharded as S
 
-    rng = np.random.default_rng(n + g)
-    bitmap = torch.from_numpy(rng.random(n) < 0.8).to(card)
-    ok = torch.from_numpy(rng.random(n) < 0.9).to(card)
-    ids = torch.from_numpy(rng.integers(-2 * g - 1, 2 * g + 2, n).astype(np.int32)).to(card)
-    before, before_c = CT.launches, CT.commit_launches
+    bitmap, ok, ids = _tally_lanes(card, n, g, kind)
+    before = (CT.launches, CT.fused_launches, CT.commit_launches)
     got = CT.quorum_tally(bitmap, ok, ids, g)
     committed = CT.quorum_commit(got, 3)
-    assert (CT.launches, CT.commit_launches) == (before + 1, before_c + 1)
+    assert (CT.launches, CT.fused_launches, CT.commit_launches) == (before[0] + 1, before[1], before[2] + 1)
     assert got.dtype == torch.int32 and got.device == card
     assert torch.equal(got, S.segment_tally(bitmap, ok, ids, g))
     assert torch.equal(committed, S.commit(got, 3))
+
+
+@pytest.mark.parametrize("n,g,kind", [(0, 5, "wild"), (0, 0, "wild"), (1, 1, "wild"), (257, 7, "wild"),
+                                      (1025, 9, "wild"), (66048, 1537, "runs of 43"),
+                                      (66048, 1537, "one slot"), (5000, 37, "offset 1")])
+def test_fused_tally_commit_kernel_equals_plain_version(card, n, g, kind):
+    """The fused tally-and-commit at thresholds 0, 1, 43 and 44: one launch
+    (counted as a tally and as a fused launch, not as a commit), counts and
+    commits equal to the plain versions, also when a CUDA graph replays it
+    (the ticket is zeroed with the slots on every call)."""
+    from mochi_tpu_torch.parallel import cuda_tally as CT
+    from mochi_tpu_torch.parallel import sharded as S
+
+    bitmap, ok, ids = _tally_lanes(card, n, g, kind)
+    plain = S.segment_tally(bitmap, ok, ids, g)
+    for threshold in (0, 1, 43, 44):
+        before = (CT.launches, CT.fused_launches, CT.commit_launches)
+        counts, committed = CT.quorum_tally_commit(bitmap, ok, ids, g, threshold)
+        assert (CT.launches, CT.fused_launches, CT.commit_launches) == (before[0] + 1, before[1] + 1, before[2])
+        assert counts.dtype == torch.int32 and committed.dtype == torch.bool and counts.shape == (g,)
+        assert torch.equal(counts, plain) and torch.equal(committed, S.commit(plain, threshold))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        counts, committed = CT.quorum_tally_commit(bitmap, ok, ids, g, 43)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(counts, plain) and torch.equal(committed, S.commit(plain, 43))
 
 
 def test_tally_wrapper_rejects_what_the_kernel_does_not_take(card):
@@ -938,10 +996,14 @@ def test_quorum_step_on_the_card_equals_the_plain_step(card, corpus):
     assert plain[0].tolist() == want[:n]
     for devices in ([card, card], None):
         mesh = make_mesh(devices=devices)
-        before = (CV.launches["pad"], CT.launches, CT.commit_launches, dict(CC.launches))
+        # a one-slice mesh (the default mesh of a one-card machine) takes
+        # the fused tally-and-commit: one launch, no commit launch
+        fused = mesh.size == 1 and mesh.group is None
+        before = (CV.launches["pad"], CT.launches, CT.fused_launches, CT.commit_launches, dict(CC.launches))
         got = make_quorum_step(mesh, g)(*prepared, ids, 4)
-        after = (CV.launches["pad"], CT.launches, CT.commit_launches, dict(CC.launches))
-        assert after == (before[0] + mesh.size, before[1] + mesh.size, before[2] + 1, before[3])
+        after = (CV.launches["pad"], CT.launches, CT.fused_launches, CT.commit_launches, dict(CC.launches))
+        assert after == (before[0] + mesh.size, before[1] + mesh.size, before[2] + fused,
+                         before[3] + (not fused), before[4])
         for a, b in zip(got, plain):
             assert a.dtype == b.dtype and torch.equal(a, b)
 

@@ -2,8 +2,11 @@
 
 The quorum tally's plain version against the reference's own expression
 (``jnp.zeros(n).at[ids].add(v, mode="drop")``), including its index rule
-for negative and out-of-range ids, and the CUDA slot rule (``tally.cuh``,
-built here with g++) against the same; ``pad_to_multiple`` byte for byte;
+for negative and out-of-range ids, and the CUDA slot rule and a warp's
+walk of the tally kernel with the fused commit (``tally.cuh``, built here
+with g++, the warp intrinsics emulated by its serial twin) against the
+same; ``make_quorum_step`` on one slice taking the fused tally-and-commit;
+``pad_to_multiple`` byte for byte;
 ``make_quorum_step`` over an 8-slice CPU mesh on ``tests/test_parallel.py``'s
 cases; the lanes the reference's step counts although the host rejected
 them; the sharded backend and verifier on CPU slices, behind the verifier
@@ -126,6 +129,119 @@ def test_the_kernel_slot_rule_equals_the_reference(tmp_path):
         assert counted.tolist() == _reference_tally(np.ones(len(ids), bool), np.ones(len(ids), bool), ids, g).tolist()
 
 
+WALK_SHIM = r"""
+#include "tally.cuh"
+// The kernel's grid, serially: every warp of 32 MOCHI_TALLY_STEPS lanes (at
+// least one, as the fused launch) walks its lanes into `counts`, then the
+// last block's `threads` threads write the commits.  Returns the adds.
+extern "C" int t_walk(const uint8_t* bitmap, const uint8_t* pre_ok, const int32_t* ids, int n, int n_groups,
+                      int threshold, int threads, int32_t* counts, uint8_t* committed, int32_t* log, int cap) {
+  const int lanes = 32 * MOCHI_TALLY_STEPS;
+  const int warps = n > 0 ? (n + lanes - 1) / lanes : 1;
+  int n_log = 0;
+  for (int g = 0; g < n_groups; ++g) counts[g] = 0;
+  for (int w = 0; w < warps; ++w) {
+    const tally_serial_warp ln{w, log, cap, &n_log};
+    tally_warp_walk(ln, bitmap, pre_ok, ids, (int64_t)w * lanes, n, n_groups, counts);
+  }
+  for (int t = 0; t < threads; ++t) tally_commit_slots(counts, n_groups, threshold, committed, t, threads);
+  return n_log;
+}
+extern "C" int t_lanes_a_warp(void) { return 32 * MOCHI_TALLY_STEPS; }
+"""
+
+
+@pytest.fixture(scope="module")
+def walk_lib(tmp_path_factory):
+    """csrc/tally.cuh's warp walk and its serial twin (32 lanes in one
+    thread, the warp intrinsics emulated), built for the host with g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed: the host build of the tally walk needs it")
+    d = tmp_path_factory.mktemp("walk")
+    (d / "walk.cpp").write_text(WALK_SHIM)
+    so = d / "walk.so"
+    proc = subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall", "-Werror", "-fwrapv",
+                           "-I", str(kernels.CSRC), "-o", str(so), str(d / "walk.cpp")],
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    return ctypes.CDLL(str(so))
+
+
+def _walk(lib, bitmap, pre_ok, ids, g, threshold):
+    """The twin's counts, commits and adds, each add (warp, step, slot, votes)."""
+    n = len(ids)
+    bitmap, pre_ok = (np.ascontiguousarray(a, dtype=np.uint8) for a in (bitmap, pre_ok))
+    ids = np.ascontiguousarray(ids, dtype=np.int32)
+    counts, committed = np.empty(g, np.int32), np.empty(g, np.uint8)
+    cap = 4 * n + 64
+    log = np.empty((cap, 4), np.int32)
+    u8p, i32p = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32)
+    adds = lib.t_walk(bitmap.ctypes.data_as(u8p), pre_ok.ctypes.data_as(u8p), ids.ctypes.data_as(i32p), n, g,
+                      threshold, 128, counts.ctypes.data_as(i32p), committed.ctypes.data_as(u8p),
+                      log.ctypes.data_as(i32p), cap)
+    assert adds <= cap
+    return counts, committed.astype(bool), log[:adds]
+
+
+def _walk_case(name):
+    """(bitmap, pre_ok, ids, n_groups, slots contiguous) of a named case."""
+    rng = np.random.default_rng(sum(name.encode()))
+    if name == "sorted runs of 43":  # the certificate stream's shape
+        g = 1537
+        ids = np.repeat(np.arange(g - 1), 43)
+        return rng.random(len(ids)) < 0.97, rng.random(len(ids)) < 0.99, ids, g, True
+    if name.startswith("runs across warp and block edges"):
+        lengths = rng.integers(1, 700, 40)
+        lengths[:6] = [250, 780, 6, 1024, 1, 300]  # across a warp's 256 lanes, a block's 1024
+        ids = np.repeat(np.arange(len(lengths)), lengths)
+        return rng.random(len(ids)) < 0.9, rng.random(len(ids)) < 0.95, ids, len(lengths) + 1, True
+    if name == "one slot for every lane":
+        n = 66048
+        return np.ones(n, bool), np.ones(n, bool), np.zeros(n, np.int64), 1537, True
+    if name == "random ids, wrap and drop":
+        bitmap, pre_ok, ids, g = _tally_case("seeded, wrap and drop")
+        return bitmap, pre_ok, ids, g, False
+    if name == "runs of wrapping and dropped ids":
+        g = 9
+        ids = np.repeat(rng.integers(-2 * g, 2 * g, 60), rng.integers(1, 90, 60))
+        return rng.random(len(ids)) < 0.8, rng.random(len(ids)) < 0.9, ids, g, False
+    n = int(name.split()[0])  # "<n> lanes": sorted random slots
+    ids = np.sort(rng.integers(0, 5, n))
+    return rng.random(n) < 0.8, np.ones(n, bool), ids, 5, True
+
+
+WALK_CASES = ["sorted runs of 43", "runs across warp and block edges", "runs across warp and block edges 2",
+              "one slot for every lane", "random ids, wrap and drop", "runs of wrapping and dropped ids",
+              "0 lanes", "1 lanes", "31 lanes", "32 lanes", "33 lanes", "257 lanes"]
+
+
+@pytest.mark.parametrize("name", WALK_CASES)
+def test_the_kernel_warp_walk_equals_the_reference_scatter(walk_lib, name):
+    """csrc/tally.cuh's warp walk, as the tally kernel runs it but with the
+    warp intrinsics emulated: its adds, summed, and the fused commit equal
+    the reference's scatter and ``>= threshold``; no slot takes two adds in
+    one warp step; where each slot's lanes are contiguous, a warp adds once
+    for each slot it holds votes of."""
+    bitmap, pre_ok, ids, g, contiguous = _walk_case(name)
+    want = _reference_tally(bitmap, pre_ok, ids.astype(np.int32), g)
+    lanes_a_warp = walk_lib.t_lanes_a_warp()
+    for threshold in (0, 1, 43, 44):
+        counts, committed, log = _walk(walk_lib, bitmap, pre_ok, ids, g, threshold)
+        assert counts.tolist() == want.tolist()
+        assert committed.tolist() == (want >= threshold).tolist()
+    assert (log[:, 3] > 0).all() and ((log[:, 2] >= 0) & (log[:, 2] < g)).all()
+    assert np.bincount(log[:, 2], weights=log[:, 3], minlength=g).astype(np.int64).tolist() == want.tolist()
+    assert len({tuple(e) for e in log[:, :3].tolist()}) == len(log)  # one add a slot a warp step
+    if contiguous:
+        slots = np.where(ids < 0, ids + g, ids)
+        voted = np.logical_and(bitmap, pre_ok)
+        pairs = {(i // lanes_a_warp, int(slots[i])) for i in np.flatnonzero(voted)}
+        assert len(log) == len(pairs)
+    if name == "one slot for every lane":
+        assert len(log) == len(ids) // lanes_a_warp  # one atomic a warp, not one a vote
+
+
 def test_pad_to_multiple_is_byte_equal_to_the_reference():
     rng = np.random.default_rng(4)
     for n, multiple in [(10, 8), (16, 8), (1, 3), (0, 4), (37, 2)]:
@@ -176,6 +292,53 @@ def test_quorum_step_refuses_an_unpadded_batch(mesh8):
         make_quorum_step(mesh8, -1)
     with pytest.raises(ValueError, match="one type"):
         make_mesh(devices=["cpu", "meta"])
+
+
+def test_quorum_step_on_one_slice_takes_the_fused_tally_and_commit(monkeypatch):
+    """A one-slice mesh with no process group: the step calls the fused
+    tally-and-commit once and neither the tally nor the commit alone, and
+    returns what the two-call path (a two-slice mesh) returns, also when the
+    prechecks reject every lane."""
+    n, g = 16, 5
+    group_ids = np.random.default_rng(3).integers(-g, g + 2, n).astype(np.int32)
+    prepared = BV.prepare_packed(_signed_items(n, forge={2, 9}))
+    rejected = (*prepared[:6], np.zeros(n, bool))
+    two = make_mesh(devices=["cpu", "cpu"])
+    want = [make_quorum_step(two, g)(*p, group_ids, 2) for p in (prepared, rejected)]
+    calls = []
+
+    def fused(*args):
+        calls.append(args[-2:])
+        return real_fused(*args)
+
+    def refuse(*args):
+        raise AssertionError("a one-slice step called the tally or the commit alone")
+
+    real_fused = S.cuda_tally.quorum_tally_commit
+    monkeypatch.setattr(S.cuda_tally, "quorum_tally_commit", fused)
+    monkeypatch.setattr(S.cuda_tally, "quorum_tally", refuse)
+    monkeypatch.setattr(S.cuda_tally, "quorum_commit", refuse)
+    one = make_mesh(devices=["cpu"])
+    assert one.size == 1 and one.group is None
+    for p, w in zip((prepared, rejected), want):
+        got = make_quorum_step(one, g)(*p, group_ids, 2)
+        for a, b in zip(got, w):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert calls == [(g, 2), (g, 2)]
+    assert want[0][1].sum() > 0 and want[1][1].tolist() == [0] * g and want[1][2].tolist() == [False] * g
+
+
+def test_fused_tally_commit_plain_version_equals_the_reference():
+    bitmap, pre_ok, ids, g = _tally_case("seeded, wrap and drop")
+    want = _reference_tally(bitmap, pre_ok, ids, g)
+    for threshold in (0, 1, 43, 44, 130):
+        counts, committed = S.cuda_tally.quorum_tally_commit(
+            torch.from_numpy(bitmap), torch.from_numpy(pre_ok), torch.from_numpy(ids), g, threshold)
+        assert counts.dtype == torch.int32 and counts.tolist() == want.tolist()
+        assert committed.dtype == torch.bool and committed.tolist() == (want >= threshold).tolist()
+    with pytest.raises(ValueError, match="negative"):
+        S.cuda_tally.quorum_tally_commit(torch.from_numpy(bitmap), torch.from_numpy(pre_ok),
+                                         torch.from_numpy(ids), -1, 1)
 
 
 def _host_rejected_items():
