@@ -30,7 +30,11 @@ Phases (any failure exits non-zero and prints no result line):
    8192 and 65536 lanes and at one launch of each of 1, 8, 64, 256, 512,
    then 1024 to 262,144 lanes, the plain version at 8192, host prepare per
    item, and the bound (integer multiply-adds over the card's IMAD rate)
-   beside the multiply-adds the kernel's team issues.
+   beside the multiply-adds the kernel's team issues.  Host prepare at 8192
+   items, with the native ``h_batch`` (``native/hbatch.c``) and with the
+   pure-Python hash, µs per item, the two held equal array for array,
+   beside ``native_status()``; where this interpreter has ``Python.h`` the
+   native build must have succeeded.
 3m. The mxu kernel (``MOCHI_SKEW_IMPL=mxu``, ``verify_mxu.cu``, every
    field multiply's column reduction on the integer tensor cores, a team of
    four lanes a signature) on phase 3's corpus and on a partial last block:
@@ -189,9 +193,33 @@ Phases (any failure exits non-zero and prints no result line):
 12. Multi-process — ``python -m mochi_tpu_torch.parallel.multihost
    --backend nccl``, one process per visible card: each process's JSON line
    must equal the closed form for its world size.
+13. Verified recovery, WAL engine — phase 9's cluster (n = 64, quorum 43,
+   one shared ``CudaBatchVerifier``) with ``storage_dir`` and
+   ``storage_engine="wal"``: 4 SDK clients x 8 signed PUTs, then three
+   replicas restart in turn (``restart_replica``), each replaying its disk
+   with every stored grant signature (32 x 43) re-verified through the
+   card.  Before the third boots, one grant signature in its WAL is forged
+   (a crash image, re-framed with correct CRCs).  Each recovery's span must
+   hold comb launches; the first two convict nothing, the third exactly the
+   planted entry; every restarted store holds every acked value (the third
+   after a resync heals the convicted key from its peers), and every acked
+   key reads back with a 43-grant certificate.  Recorded per recovery:
+   seconds, grants re-verified per second, comb launches and lanes, the
+   card's idle share.
+13p. Verified recovery, paged engine — the same cluster on
+   ``storage_engine="paged"``, 2 clients x 8 PUTs: one replica pages its
+   store, a second generation of the same keys is committed and paged,
+   ``compact()`` merges the pages (re-verifying every surviving entry's
+   grants), and the replica restarts with ``MOCHI_PAGE_AUDIT=boot``, whose
+   audit re-verifies every paged entry.  The compaction's span and the
+   restart-and-audit span must hold comb launches, the compaction must
+   re-verify at least one grant an entry, nothing may be convicted, and
+   every second-generation value must be in the restarted store and read
+   back with a 43-grant certificate.
 
-Phases 5, 5m, 8, 8t, 8m, 8tm, 9, 9m, 9tm, 10 and 11 drive the main paths:
-each zeroes the launch counts just before it and reads them just after.
+Phases 5, 5m, 8, 8t, 8m, 8tm, 9, 9m, 9tm, 10, 11, 13 and 13p drive the
+main paths: each zeroes the launch counts just before it and reads them
+just after (13 and 13p around each recovery, compaction and audit).
 Every phase but 8t and 6tm-9tm runs the comb's default accumulation, the
 chain, and every phase but 3m-5m, 6m-9m and 6tm-9tm the default multiply,
 ``pad``.  On a machine with several
@@ -214,10 +242,13 @@ import hashlib
 import json
 import os
 import re
+import shutil
 import socket
 import statistics
 import subprocess
 import sys
+import sysconfig
+import tempfile
 import time
 import traceback
 from dataclasses import dataclass
@@ -236,6 +267,9 @@ CLIENTS, GRANTS, REQUESTS = 64, 43, 24  # n = 64 replicas, 2f + 1 grants, checks
 # PUTs each.  The host bounds it (the protocol's Python, 64 grant signatures
 # per write); sized to take a minute or two.
 CLUSTER_N, CLUSTER_CLIENTS, CLUSTER_WRITES = 64, 8, 16
+# Phases 13 and 13p: the cluster on the durable engines, SDK clients x
+# signed PUTs each (13p: two generations of them), cut in depth only.
+RECOVERY_CLIENTS, RECOVERY_PAGED_CLIENTS, RECOVERY_WRITES = 4, 2, 8
 # The cluster under MOCHI_SKEW_IMPL=mxu (phase 9m): the same cluster at a
 # cut depth, its general kernel being ~4x slower.
 CLUSTER_MXU_CLIENTS, CLUSTER_MXU_WRITES = 4, 4
@@ -1129,6 +1163,335 @@ async def drive_cluster(device: str, n: int, clients: int, writes: int, timeout_
     }
 
 
+async def _applied(replica, acked: dict, timeout_s: float = 120.0) -> None:
+    """Wait until ``replica`` has applied every acked (key, value).  A write
+    acks at 2f+1 grants, and with the SDK's early-quorum return a replica
+    outside that quorum may apply it later: its disk is read only after."""
+    loop = asyncio.get_running_loop()
+    deadline = loop.time() + timeout_s
+    while True:
+        missing = [k for k, v in acked.items() if getattr(replica.store._get(k), "value", None) != v]
+        if not missing:
+            return
+        if loop.time() > deadline:
+            raise AssertionError(f"{replica.server_id} never applied {len(missing)} acked writes: {missing[:5]}")
+        await asyncio.sleep(0.02)
+
+
+async def _commit(sdks, writes: int, tag: str, acked: dict, timeout_s: float) -> float:
+    """Each SDK client commits ``writes`` signed single-key PUTs at once
+    (keys ``rec-<client>-<k>``, values tagged ``tag``); returns the wall
+    seconds."""
+    from mochi_tpu_torch.client import TransactionBuilder
+
+    async def writer(c, sdk):
+        for k in range(writes):
+            key, value = f"rec-{c}-{k}", b"%s %d/%d " % (tag.encode(), c, k) + bytes(24)
+            await sdk.execute_write_transaction(TransactionBuilder().write(key, value).build())
+            acked[key] = value
+
+    t0 = time.perf_counter()
+    await asyncio.wait_for(asyncio.gather(*(writer(c, sdk) for c, sdk in enumerate(sdks))), timeout_s)
+    return time.perf_counter() - t0
+
+
+async def _read_back(sdk, acked: dict, quorum: int, timeout_s: float) -> List[str]:
+    """The acked keys that do not read back with their value and a
+    ``quorum``-grant certificate."""
+    from mochi_tpu_torch.client import TransactionBuilder
+
+    bad = []
+    for key, value in sorted(acked.items()):
+        res = await asyncio.wait_for(sdk.execute_read_transaction(TransactionBuilder().read(key).build()), timeout_s)
+        op = res.operations[0]
+        if op.value != value or op.current_certificate is None or len(op.current_certificate.grants) != quorum:
+            bad.append(key)
+    return bad
+
+
+def plant_forged_grant(directory: str, server_id: str):
+    """Forge one grant signature of the newest data commit in a replica's
+    newest WAL segment (a bit of S flipped), re-framing the records with
+    correct CRCs as an adversary would; returns (seq, key) of the entry."""
+    from mochi_tpu_torch.storage import wal
+
+    _index, path = wal.list_segments(directory)[-1]
+    with open(path, "rb") as fh:
+        data = fh.read()
+    start = wal.read_segment_header(data, server_id)
+    records = [[r.seq, r.rtype, r.body] for r in wal.scan_segment(data, server_id).records]
+    rec = next(r for r in reversed(records) if r[1] == wal.RT_COMMIT and r[2][0][0].startswith("rec-"))
+    mg_obj = next(iter(rec[2][2].values()))  # certificate: {server id: grant}; grant[3] = signature
+    sig = bytearray(mg_obj[3])
+    sig[32] ^= 1
+    mg_obj[3] = bytes(sig)
+    with open(path, "wb") as fh:
+        fh.write(data[:start] + b"".join(wal.encode_record(q, t, b) for q, t, b in records))
+    return rec[0], rec[2][0][0]
+
+
+class Spans:
+    """Launch counts per span of a phase: ``begin()`` zeroes the counts just
+    before a span and ``end(name)`` reads them just after, with the span's
+    seconds, the comb lanes launched and, on the card, the kernels' busy
+    share of it (``device``)."""
+
+    def __init__(self, device: str):
+        self.cuda = device != "cpu"
+        self.out: dict = {}
+
+    def begin(self) -> None:
+        if self.cuda:
+            import torch
+
+            torch.cuda.synchronize()
+            self._ref0 = torch.cuda.Event(enable_timing=True)
+            self._ref0.record()
+        _zero_counts()
+        self._t0 = time.perf_counter()
+
+    def end(self, name: str) -> dict:
+        out = {"seconds": time.perf_counter() - self._t0}
+        vlogs, clogs = _read_counts(out)
+        out["comb_lanes"] = {impl: sum(n for n, _, _ in log) for impl, log in clogs.items()}
+        out["comb_lane_counts"] = sorted({n for n, _, _ in clogs["chain"]})
+        if self.cuda:
+            import torch
+
+            torch.cuda.synchronize()
+            ref1 = torch.cuda.Event(enable_timing=True)
+            ref1.record()
+            ref1.synchronize()
+            out["device"] = device_busy(sum(vlogs.values(), []) + sum(clogs.values(), []), self._ref0, ref1)
+        out["grants_per_s"] = out["device_items"] / out["seconds"]
+        self.out[name] = out
+        return out
+
+
+async def drive_recovery(device: str, n: int, clients: int, writes: int, storage_dir: str, spans: Spans,
+                         restarts: int = 3, timeout_s: float = 600.0) -> dict:
+    """Phase 13: an n-replica ``VirtualCluster`` (rf = n) on the WAL engine
+    under ``storage_dir``, its replicas sharing ONE ``CudaBatchVerifier``;
+    ``clients`` SDK clients commit ``writes`` signed PUTs each, then
+    ``restarts`` replicas restart in turn, each recovering from its disk
+    with every stored grant signature re-verified through the verifier (one
+    span each).  Before the last one boots, one grant signature in its WAL
+    is forged: that entry alone must be convicted, and a resync then heals
+    the key from its peers.  Every restarted store must hold every acked
+    value, and every acked key must read back with a 2f+1-grant
+    certificate."""
+    from mochi_tpu_torch.storage import wal
+    from mochi_tpu_torch.testing import VirtualCluster
+    from mochi_tpu_torch.verifier.cuda import CudaBatchVerifier
+
+    verifier = CudaBatchVerifier(device=device)
+    acked: dict = {}
+    recoveries = []
+    async with VirtualCluster(n, rf=n, verifier_factory=lambda: verifier, storage_dir=storage_dir,
+                              storage_engine="wal") as vc:
+        quorum = vc.config.quorum
+        sdks = [vc.client() for _ in range(clients)]
+        wall = await _commit(sdks, writes, "value", acked, timeout_s)
+        for k in range(restarts):
+            sid = f"server-{k + 1}"
+            await _applied(vc.replica(sid), acked)
+            planted, before_boot = None, None
+            if k == restarts - 1:
+                # the disk image of a crash now (a graceful restart would
+                # snapshot and truncate the log), one grant forged in it
+                victim = vc.replica(sid)
+                await victim.storage.flush()
+                src = os.path.join(storage_dir, sid)
+                frozen = src + ".crash"
+                async with victim.storage._snapshot_lock:  # no snapshot renames a file mid-copy
+                    shutil.copytree(src, frozen)
+                planted = plant_forged_grant(frozen, sid)
+
+                def before_boot(_sid, src=src, frozen=frozen):
+                    shutil.rmtree(src)
+                    shutil.move(frozen, src)
+
+            spans.begin()
+            fresh = await vc.restart_replica(sid, before_boot=before_boot)
+            rec = spans.end(f"recovery_{k + 1}")
+            report = fresh.storage.replay_report()
+            rec.update(server_id=sid, replay_entries=report["entries"], convicted=report["convicted"],
+                       convictions=report["convictions"], replay_ms=report["ms"],
+                       planted=None if planted is None else {"seq": planted[0], "key": planted[1]},
+                       wal_segments=len(wal.list_segments(os.path.join(storage_dir, sid))))
+            rec["missing"] = sorted(key for key, v in acked.items() if getattr(fresh.store._get(key), "value", None) != v)
+            if planted is not None:
+                t0 = time.perf_counter()
+                rec["resync_advanced"] = await fresh.resync()
+                rec["resync_s"] = time.perf_counter() - t0
+                rec["missing_after_resync"] = sorted(
+                    key for key, v in acked.items() if getattr(fresh.store._get(key), "value", None) != v)
+            recoveries.append(rec)
+        t0 = time.perf_counter()
+        bad = await _read_back(sdks[0], acked, quorum, timeout_s)
+        read_wall = time.perf_counter() - t0
+    return {"replicas": n, "rf": n, "quorum": quorum, "engine": "wal", "clients": clients, "acked": len(acked),
+            "write_wall_s": wall, "txn_per_s": len(acked) / wall, "recoveries": recoveries,
+            "read_back_bad": bad, "read_wall_s": read_wall,
+            "fallback_batches": verifier.fallback_batches,
+            "reduced": f"depth: {clients} clients x {writes} PUTs, {restarts} restarts (widths uncut: n={n}, "
+                       f"quorum {quorum})"}
+
+
+def recovery_problems(rec: dict, launched: bool = True) -> List[str]:
+    """What phase 13 must not show: a recovery without comb launches in its
+    span (``launched``: on the card), a conviction on an honest disk, a
+    conviction of anything but the planted entry (or none of it), a
+    missing acked value, an acked key that does not read back, a fallback."""
+    problems = []
+    for r in rec["recoveries"]:
+        name = r["server_id"]
+        if launched and (r["comb_launches"].get("chain", 0) <= 0 or r["routing"]["comb_items"] <= 0):
+            problems.append(f"{name}: no comb launch in the recovery's span ({r['comb_launches']})")
+        planted = r["planted"]
+        if planted is None:
+            if r["convicted"] or r["missing"]:
+                problems.append(f"{name}: {r['convicted']} convicted, missing {r['missing'][:5]}")
+        else:
+            others = [c for c in r["convictions"] if (c["seq"], c["key"]) != (planted["seq"], planted["key"])]
+            signed = [c for c in r["convictions"] if "signature" in c["reason"]]
+            if others or not signed:
+                problems.append(f"{name}: convictions {r['convictions']} for the planted entry {planted}")
+            if r["missing"] != [planted["key"]] or r["missing_after_resync"]:
+                problems.append(f"{name}: missing {r['missing'][:5]}, after resync {r['missing_after_resync'][:5]}")
+    if rec["read_back_bad"] or rec["fallback_batches"]:
+        problems.append(f"read back wrong {rec['read_back_bad'][:5]}, fallbacks {rec['fallback_batches']}")
+    return problems
+
+
+async def drive_recovery_paged(device: str, n: int, clients: int, writes: int, storage_dir: str, spans: Spans,
+                               timeout_s: float = 600.0) -> dict:
+    """Phase 13p: the cluster of phase 13 on the paged engine.  One
+    replica pages its store, a second generation of the same keys is
+    committed and paged too, then ``compact()`` merges the pages (every
+    surviving entry's grant signatures re-verified: one span), and the
+    replica restarts with the boot audit on (``MOCHI_PAGE_AUDIT=boot``),
+    which re-verifies every paged entry (the restart and its audit: one
+    span).  The background compaction is left unarmed, so the explicit one
+    is the one measured.  Every second-generation value must be in the
+    restarted store and read back with a 2f+1-grant certificate."""
+    from mochi_tpu_torch.testing import VirtualCluster
+    from mochi_tpu_torch.verifier.cuda import CudaBatchVerifier
+
+    verifier = CudaBatchVerifier(device=device)
+    env0 = {k: os.environ.get(k) for k in ("MOCHI_PAGE_AUDIT", "MOCHI_PAGE_COMPACT_DEBT")}
+    os.environ.update(MOCHI_PAGE_AUDIT="boot", MOCHI_PAGE_COMPACT_DEBT="2")
+    try:
+        async with VirtualCluster(n, rf=n, verifier_factory=lambda: verifier, storage_dir=storage_dir,
+                                  storage_engine="paged") as vc:
+            quorum = vc.config.quorum
+            sdks = [vc.client() for _ in range(clients)]
+            victim = vc.replica("server-1")
+            acked: dict = {}
+            walls = []
+            for tag in ("first", "second"):
+                walls.append(await _commit(sdks, writes, tag, acked, timeout_s))
+                await _applied(victim, acked)
+                await victim.storage.flush()
+                await victim.storage.snapshot(victim.store)
+            before = victim.storage.stats()
+            spans.begin()
+            done = await victim.storage.compact()
+            comp = spans.end("compaction")
+            after = victim.storage.stats()
+            comp.update(result=done, pages_before=before["pages"]["count"], pages_after=after["pages"]["count"],
+                        debt_before=before["compaction"]["debt"], **after["compaction"],
+                        pages_convicted=after["pages"]["convicted"])
+            spans.begin()
+            fresh = await vc.restart_replica("server-1")
+            loop = asyncio.get_running_loop()
+            deadline = loop.time() + timeout_s
+            while fresh.storage.audits < 1:
+                if loop.time() > deadline:
+                    raise AssertionError("the boot audit never ran")
+                await asyncio.sleep(0.005)
+            audit = spans.end("restart_and_boot_audit")
+            st = fresh.storage.stats()
+            report = fresh.storage.replay_report()
+            audit.update(audits=st["audits"], audited_entries=st["audited_entries"],
+                         pages_convicted=st["pages"]["convicted"], convicted=report["convicted"],
+                         replay_entries=report["entries"], replay_ms=report["ms"], pages=st["pages"]["count"])
+            audit["missing"] = sorted(key for key, v in acked.items()
+                                      if getattr(fresh.store._get(key), "value", None) != v)
+            bad = await _read_back(sdks[0], acked, quorum, timeout_s)
+    finally:
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return {"replicas": n, "rf": n, "quorum": quorum, "engine": "paged", "clients": clients, "acked": len(acked),
+            "write_wall_s": walls, "compaction": comp, "audit": audit, "read_back_bad": bad,
+            "fallback_batches": verifier.fallback_batches,
+            "reduced": f"depth: {clients} clients x {writes} PUTs, two generations, one replica paged "
+                       f"(widths uncut: n={n}, quorum {quorum})"}
+
+
+def recovery_paged_problems(rec: dict, launched: bool = True) -> List[str]:
+    """What phase 13p must not show: no comb launch in the compaction's or
+    the audit's span (``launched``: on the card), fewer than one
+    re-verified grant an entry, a conviction, a missing second-generation
+    value, a key that does not read back, a fallback."""
+    problems = []
+    comp, audit = rec["compaction"], rec["audit"]
+    for name, span in (("compaction", comp), ("audit", audit)):
+        if launched and (span["comb_launches"].get("chain", 0) <= 0 or span["routing"]["comb_items"] <= 0):
+            problems.append(f"no comb launch in the {name}'s span ({span['comb_launches']})")
+    if comp["reverified"] < rec["acked"] or comp["pages_convicted"] or comp["debt"]:
+        problems.append(f"compaction: {comp}")
+    if audit["audited_entries"] < rec["acked"] or audit["pages_convicted"] or audit["convicted"]:
+        problems.append(f"audit: {audit}")
+    if audit["missing"] or rec["read_back_bad"] or rec["fallback_batches"]:
+        problems.append(f"missing {audit['missing'][:5]}, read back wrong {rec['read_back_bad'][:5]}, "
+                        f"fallbacks {rec['fallback_batches']}")
+    return problems
+
+
+def host_prepare_times(items, repeats: int = 5) -> dict:
+    """Phase 4's host prepare of ``items`` with the native ``h_batch`` and
+    with the pure-Python hash (median µs per item of ``repeats``), the two
+    results held equal array for array, and ``native_status()``.  Where
+    this interpreter has ``Python.h`` the native build must have
+    succeeded."""
+    from mochi_tpu_torch import native
+    from mochi_tpu_torch.crypto import batch_verify as BV
+
+    status = native.native_status()
+    has_python_h = os.path.exists(os.path.join(sysconfig.get_paths()["include"], "Python.h"))
+    out = {"items": len(items), "native_status": status, "python_h": has_python_h}
+    if has_python_h and not status["_hbatch"]["built"]:
+        raise AssertionError(f"Python.h is present but the native build failed: {status}")
+    hook = BV._hbatch
+
+    def timed():
+        times, arrays = [], None
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            arrays = BV.prepare_packed(items)
+            times.append(1e6 * (time.perf_counter() - t0) / len(items))
+        return statistics.median(times), arrays
+
+    try:
+        BV._hbatch = lambda: None
+        out["pure_us_per_item"], pure = timed()
+    finally:
+        BV._hbatch = hook
+    if status["_hbatch"]["built"]:
+        out["native_us_per_item"], mine = timed()
+        out["native_equals_pure"] = all(a.tobytes() == b.tobytes() for a, b in zip(mine, pure))
+        if not out["native_equals_pure"]:
+            raise AssertionError("the native prepare's arrays differ from the pure one's")
+    else:
+        out["native_us_per_item"] = None
+        out["native_off_because"] = {k: v["error"] for k, v in status.items()}
+    return out
+
+
 def _zero_counts():
     """Launch counts and traces zeroed just before a main-path phase."""
     from mochi_tpu_torch.crypto import batch_verify as BV
@@ -1371,6 +1734,8 @@ def run(args) -> dict:
         "cert43_verify_batch_ms": cert_ms, "cert43_launches": cert_launches,
     }
     print(f"[times] {res['times']}", flush=True)
+    res["host_prepare"] = host_prepare_times(flat[:CORPUS])
+    print(f"[times] host prepare: {res['host_prepare']}", flush=True)
 
     # 5. service: the main path of the general kernel
     svc, (vlogs, _) = _drive(lambda: drive_service(traffic, "cuda", secret), "service", res)
@@ -1914,6 +2279,25 @@ def run(args) -> dict:
     # 10-12. several cards: the sharded service, the quorum step, NCCL
     qres = sharded_phases(args.seed, res, traffic, signers, secret, dev, check_comb)
     q_tally = qres["tally"]
+
+    # 13, 13p. verified recovery from disk: the WAL engine, then the paged one
+    with tempfile.TemporaryDirectory(prefix="mochi-smoke-") as td:
+        spans = Spans("cuda")
+        res["recovery"] = rec = asyncio.run(drive_recovery(
+            "cuda", CLUSTER_N, RECOVERY_CLIENTS, RECOVERY_WRITES, os.path.join(td, "wal"), spans))
+        print(f"[recovery] {rec}", flush=True)
+        problems = recovery_problems(rec)
+        if problems:
+            raise AssertionError("; ".join(problems))
+        spans = Spans("cuda")
+        res["recovery_paged"] = recp = asyncio.run(drive_recovery_paged(
+            "cuda", CLUSTER_N, RECOVERY_PAGED_CLIENTS, RECOVERY_WRITES, os.path.join(td, "paged"), spans))
+        print(f"[recovery, paged] {recp}", flush=True)
+        problems = recovery_paged_problems(recp)
+        if problems:
+            raise AssertionError("; ".join(problems))
+    for r in rec["recoveries"] + [recp["compaction"], recp["audit"]]:
+        check_comb(r["comb_lane_counts"])
 
     res["kernels"] = [{
         "name": "ed25519_verify",

@@ -2,8 +2,9 @@
 
 Division of labour (as in the reference package):
 
-* **Host** — everything variable-length or cheap: SHA-512 of R||A||M
-  (hashlib), the mod-L reduction (python bignum), the RFC 8032 canonical
+* **Host** — everything variable-length or cheap: SHA-512 of R||A||M and
+  its mod-L reduction (one call of ``native/hbatch.c`` over the batch where
+  it is built, else hashlib and a Python bignum per item), the RFC 8032 canonical
   prechecks (lengths, y < p on the masked encoding, S < L), and packing
   into fixed-shape tensors (scalars as bytes).
 * **Device** — decode and the double-scalar multiply, one signature per
@@ -108,6 +109,13 @@ def _lt_l(words: np.ndarray) -> np.ndarray:
     return ~ge
 
 
+def _hbatch():
+    """The native batched-h module (None -> the hashlib path)."""
+    from ..native import get_hbatch
+
+    return get_hbatch()
+
+
 def prepare_packed(items: Sequence[VerifyItem]):
     """Host-side packing, array for array identical to the reference's:
     (y_a (n,17) int32, sign_a (n,) int32, y_r, sign_r, s_bytes (n,32) uint8,
@@ -152,23 +160,35 @@ def prepare_packed(items: Sequence[VerifyItem]):
     ok = _lt_p(_words_le(a_masked)) & _lt_p(_words_le(r_masked))
     ok &= _lt_l(_words_le(s_rows))
 
+    # h = SHA-512(R || A || M) mod L, ONLY for items that passed the
+    # prechecks (a flood of non-canonical signatures over big messages must
+    # not buy host hashing work; rejected lanes are masked by pre_ok
+    # regardless): one call of native/hbatch.c over the batch where it is
+    # built, else hashlib and a Python bignum per item.
     idx_arr = np.asarray(idx)
     ok_idx = idx_arr[ok]
     if len(ok_idx):
-        h_parts = []
-        for i in ok_idx:
-            it = items[i]
-            h_int = (
-                int.from_bytes(
-                    hashlib.sha512(
-                        bytes(it.signature[:32]) + bytes(it.public_key) + bytes(it.message)
-                    ).digest(),
-                    "little",
+        hb = _hbatch()
+        if hb is not None:
+            msgs = b"".join(bytes(items[i].message) for i in ok_idx)
+            lens = np.fromiter((len(items[i].message) for i in ok_idx), dtype=np.uint64, count=len(ok_idx))
+            h_cat = hb.h_batch(r_rows[ok].tobytes(), a_rows[ok].tobytes(), msgs, lens.tobytes())
+            h_bytes[ok_idx] = np.frombuffer(h_cat, dtype=np.uint8).reshape(-1, 32)
+        else:
+            h_parts = []
+            for i in ok_idx:
+                it = items[i]
+                h_int = (
+                    int.from_bytes(
+                        hashlib.sha512(
+                            bytes(it.signature[:32]) + bytes(it.public_key) + bytes(it.message)
+                        ).digest(),
+                        "little",
+                    )
+                    % F.L_INT
                 )
-                % F.L_INT
-            )
-            h_parts.append(h_int.to_bytes(32, "little"))
-        h_bytes[ok_idx] = np.frombuffer(b"".join(h_parts), dtype=np.uint8).reshape(-1, 32)
+                h_parts.append(h_int.to_bytes(32, "little"))
+            h_bytes[ok_idx] = np.frombuffer(b"".join(h_parts), dtype=np.uint8).reshape(-1, 32)
 
     y_a[idx_arr] = _bits_to_limbs(a_bits)
     y_r[idx_arr] = _bits_to_limbs(r_bits)

@@ -23,10 +23,15 @@ of crypto); production deployments install ``cryptography``.  The
 variable-time operations are confined to this module so the constant-time
 checker's scope stays meaningful everywhere else.
 
-The reference package also routes this module through a native-C engine
-(its ``native/``); the port has none yet, so the pure-Python engine below
-is what runs when the ``cryptography`` wheel is absent.  Verdicts are the
-same either way.
+Native-C engine: on hosts with a toolchain but no ``cryptography`` wheel,
+:func:`verify`, :func:`sign` and :func:`x25519` route through
+``native/hbatch.c`` — full Ed25519 verification (Straus ladder on 51-bit
+limbs, the same cofactorless check), deterministic RFC 8032 signing
+(byte-identical to this module and OpenSSL — the replica's own-grant
+re-sign-and-compare depends on that) and RFC 7748 X25519.  Differential
+suite: ``tests/test_torch_native.py``.  Key expansion and the curve math
+below stay pure Python: the fallback when no C toolchain exists, and the
+implementation the native engine is tested against.
 """
 
 from __future__ import annotations
@@ -285,10 +290,24 @@ def public_from_seed(seed: bytes) -> bytes:
     return _expand_seed(bytes(seed))[2]
 
 
+@lru_cache(maxsize=4096)
+def _native_sign_material(seed: bytes) -> Tuple[bytes, bytes, bytes]:
+    """(clamped scalar LE bytes, prefix, public) for the native signer —
+    the byte-form twin of _expand_seed's cached int expansion."""
+    a, prefix, pub = _expand_seed(seed)
+    return a.to_bytes(32, "little"), prefix, pub
+
+
 def sign(private_seed: bytes, message: bytes) -> bytes:
     """RFC 8032 §5.1.6 — bit-compatible with OpenSSL's deterministic sign
-    (the replica's own-grant re-sign-and-compare depends on determinism)."""
+    (the replica's own-grant re-sign-and-compare depends on determinism).
+    Routed through the native engine when built; the pure-Python path
+    below is the reference implementation it must match byte-for-byte."""
     seed = bytes(private_seed)
+    mod = _native_engine()
+    if mod is not None:
+        a_bytes, prefix, pub = _native_sign_material(seed)
+        return mod.sign_prepared(a_bytes, prefix, pub, bytes(message))
     a, prefix, pub = _expand_seed(seed)
     r = int.from_bytes(hashlib.sha512(prefix + message).digest(), "little") % _L
     r_bytes = _compress(_mul_base(r))
@@ -339,10 +358,39 @@ def _verify_cached(public_key: bytes, signature: bytes, h_digest: bytes) -> bool
     return ok
 
 
+# ------------------------------------------------------- native-C engine
+#
+# native/hbatch.c's verify_batch: the full cofactorless check in C, built at
+# first use with the system toolchain (as the codec's mcode.c and the
+# batched-h prepare).  None when no toolchain / MOCHI_NO_NATIVE=1 — the
+# pure-Python engine above then carries verification.
+
+_NATIVE_UNSET = object()
+_native = _NATIVE_UNSET
+
+
+def _native_engine():
+    global _native
+    if _native is _NATIVE_UNSET:
+        from ..native import get_hbatch
+
+        _native = get_hbatch()
+    return _native
+
+
 def has_native() -> bool:
-    """Whether :func:`verify` routes through a native-C engine (never, in
-    the port: ``native/`` is not ported yet)."""
-    return False
+    """Whether :func:`verify` routes through the native-C engine."""
+    return _native_engine() is not None
+
+
+# Same cache shape and key as _verify_cached (the two engines are verdict-
+# identical, but separate caches keep "which engine answered" honest for
+# the differential suite): 160 bytes per entry, and in-process clusters
+# dedup the rf-way re-check of identical certificate grants.
+@lru_cache(maxsize=4096)
+def _native_verify_cached(public_key: bytes, signature: bytes, h_digest: bytes) -> bool:
+    mod = _native_engine()
+    return mod.verify_batch(public_key, signature, mod.reduce512(h_digest)) == b"\x01"
 
 
 def verify(public_key: bytes, message: bytes, signature: bytes) -> bool:
@@ -351,6 +399,8 @@ def verify(public_key: bytes, message: bytes, signature: bytes) -> bool:
     public_key = bytes(public_key)
     signature = bytes(signature)
     h_digest = hashlib.sha512(signature[:32] + public_key + bytes(message)).digest()
+    if len(public_key) == 32 and len(signature) == 64 and _native_engine() is not None:
+        return _native_verify_cached(public_key, signature, h_digest)
     return _verify_cached(public_key, signature, h_digest)
 
 
@@ -370,6 +420,15 @@ def x25519(private_bytes: bytes, peer_public: bytes) -> bytes:
         raise ValueError("An X25519 private key is 32 bytes long")
     if len(peer_public) != 32:
         raise ValueError("An X25519 public key is 32 bytes long")
+    mod = _native_engine()
+    # hasattr-gated per call, not folded into _native_engine's own gate: a
+    # module with Ed25519 but no x25519 keeps the Ed25519 fast path while
+    # THIS function falls back to Python.
+    if mod is not None and hasattr(mod, "x25519"):
+        shared = mod.x25519(bytes(private_bytes), bytes(peer_public))
+        if not any(shared):
+            raise ValueError("X25519 shared secret is all zeros (small-order point)")
+        return shared
     k = int.from_bytes(bytes(private_bytes), "little")
     k &= (1 << 254) - 8
     k |= 1 << 254

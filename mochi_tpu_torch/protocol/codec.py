@@ -216,7 +216,26 @@ def _decode_env_py(data: bytes) -> "tuple[list, int]":
     return values, off6
 
 
-# The reference package binds a native codec here when one is built; the
-# port has no native/ yet, so the pure-Python codec (the readable spec of
-# the format, byte-identical on the wire) is the one in use.
-encode, decode, decode_env = _encode_py, _decode_py, _decode_env_py
+# Prefer the native codec (native/mcode.c: byte-identical, and tested
+# against this file in tests/test_torch_native.py); the pure-Python path stays
+# both as the fallback and as the readable spec of the format.
+def _bind():
+    from ..native import get_mcode
+
+    mod = get_mcode()
+    if mod is None:
+        return _encode_py, _decode_py, _decode_env_py
+    native_env = mod.decode_env
+
+    # The native decode_env takes the 8-element envelope only; a traced
+    # envelope (9 elements) goes to the pure-Python decoder.  The count
+    # byte after the list tag is a one-byte varint for both.
+    def decode_env_dispatch(data):
+        if len(data) >= 2 and data[1] == 0x09:
+            return _decode_env_py(data)
+        return native_env(data)
+
+    return mod.encode, mod.decode, decode_env_dispatch
+
+
+encode, decode, decode_env = _bind()

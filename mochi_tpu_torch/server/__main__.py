@@ -27,9 +27,17 @@ bounded graceful drain — stop accepting, finish admitted work, flush
 coalesced response writes (``MochiReplica.drain``) — before the close path,
 so a supervisor's TERM is deterministic instead of a mid-batch abort.
 
-Not part of this package yet: the admin HTTP shell (``--admin-port``),
-snapshots and durable storage (``--data-dir``, ``--storage-dir``) and the
-Byzantine fault-injection posture (``--byzantine``).
+Durable state: ``--storage-dir <root>`` gives each hosted replica a
+durable engine under ``<root>/<server-id>`` (``--storage-engine wal``, the
+default: WAL + whole-store snapshots; ``paged``: WAL tail + immutable value
+pages + a bounded resident cache), whose boot recovery re-verifies every
+stored grant signature through the replica's verifier before READY is
+printed; ``--wal-fsync`` sets its durability policy.  ``--data-dir`` keeps
+the older whole-store snapshot file per replica, every
+``--snapshot-interval`` seconds.
+
+Not part of this package yet: the admin HTTP shell (``--admin-port``) and
+the Byzantine fault-injection posture (``--byzantine``).
 """
 
 from __future__ import annotations
@@ -145,6 +153,20 @@ async def amain(args) -> None:
                 f"seed file does not match configured public key for {sid}"
             )
         info = config.servers[sid]
+        snapshot_path = None
+        if args.data_dir:
+            snapshot_path = str(Path(args.data_dir) / f"{sid}.snapshot")
+        storage = None
+        if args.storage_dir:
+            # Log-structured durable engine: WAL + snapshots (or pages)
+            # under <storage-dir>/<sid>; boot recovery replays through the
+            # verified path before READY is printed.
+            from ..storage import build_storage
+
+            storage = build_storage(
+                args.storage_dir, sid, fsync=args.wal_fsync,
+                engine=args.storage_engine,
+            )
         replica = MochiReplica(
             server_id=sid,
             config=config,
@@ -153,13 +175,17 @@ async def amain(args) -> None:
             require_client_auth=args.require_client_auth,
             host=args.host or info.host,
             port=info.port,
+            snapshot_path=snapshot_path,
+            snapshot_interval_s=args.snapshot_interval,
+            storage=storage,
             admission=args.admission != "off",
         )
         await replica.start()
         replicas.append(replica)
         if args.resync_on_boot:
-            # Replica state is in-memory (like the reference): after a restart,
-            # pull committed state from peers before serving (paper's UptoSpeed).
+            # Without durable storage replica state is in-memory (like the
+            # reference): after a restart, pull committed state from peers
+            # before serving (paper's UptoSpeed); with it, only the delta.
             advanced = await replica.resync()
             logging.info("boot resync: %d objects recovered", advanced)
         logging.info("replica %s serving on %s:%s", sid, replica.rpc.host, replica.bound_port)
@@ -226,6 +252,43 @@ def main(argv=None) -> None:
         "(register via the _CONFIG_CLIENT_<id> keyspace, "
         "MochiDBClient.register_client_key; admin-gated when "
         "config.admin_keys is set)",
+    )
+    parser.add_argument(
+        "--data-dir",
+        default=None,
+        help="persist whole-store state snapshots here (<dir>/<server-id>.snapshot)",
+    )
+    parser.add_argument(
+        "--snapshot-interval",
+        type=float,
+        default=30.0,
+        help="seconds between periodic snapshots (with --data-dir or "
+        "--storage-dir)",
+    )
+    parser.add_argument(
+        "--storage-dir",
+        default=None,
+        help="durable log-structured storage root (WAL + snapshots + "
+        "verified crash recovery under <dir>/<server-id>).  Orthogonal to "
+        "--data-dir's whole-store snapshots",
+    )
+    parser.add_argument(
+        "--storage-engine",
+        choices=("wal", "paged"),
+        default=None,
+        help="durable engine under --storage-dir (default: "
+        "MOCHI_STORAGE_ENGINE or 'wal'): wal = whole-store snapshots, "
+        "everything resident; paged = immutable self-certifying value pages "
+        "+ bounded resident cache, the keyspace can exceed RAM",
+    )
+    parser.add_argument(
+        "--wal-fsync",
+        choices=("always", "group", "off"),
+        default=None,
+        help="WAL durability policy (default: MOCHI_WAL_FSYNC or 'group'): "
+        "always = fsync before every ack (group-committed); group = ack "
+        "after the OS write (SIGKILL-safe), fsync on a background tick; "
+        "off = no fsync outside snapshot/close",
     )
     parser.add_argument(
         "--admission",

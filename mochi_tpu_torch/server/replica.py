@@ -121,12 +121,11 @@ CKPT_LEDGERS_MAX = 4096
 
 
 def _persistence():
-    """Snapshot persistence (the reference's ``server/persistence.py``) is
-    not part of this package yet: any path that needs it raises."""
-    raise NotImplementedError(
-        "snapshot persistence (server/persistence.py) is not ported to "
-        "mochi_tpu_torch yet; it lands with the storage slice"
-    )
+    """Snapshot persistence (``server/persistence.py``), imported where a
+    snapshot is loaded or written."""
+    from . import persistence
+
+    return persistence
 
 
 class MochiReplica:
@@ -167,8 +166,6 @@ class MochiReplica:
         # attempts fail typed and convicted, never silently.
         fast_path: Optional[bool] = None,
     ):
-        if snapshot_path:
-            _persistence()
         self.server_id = server_id
         self.config = config
         self.keypair = keypair

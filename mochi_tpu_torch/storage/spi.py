@@ -15,12 +15,28 @@ the engine behind it is swappable:
 * ``flush()`` — awaited by the replica at the batched-write2 seam BEFORE
   responses go out.
 
-Engines in this package: :class:`MemoryStorage` only — state lives and dies
-with the process, the reference's in-memory posture and the test-matrix
-default.  The durable engines of the JAX package (the WAL, snapshots and
-verified recovery of ``storage/durable.py``, the paged engine of
-``storage/paged.py``) are not ported yet: :func:`build_storage` refuses a
-storage directory rather than quietly running in memory.
+Engines:
+
+* :class:`MemoryStorage` — the default: state lives and dies with the
+  process, the reference's posture (and the right one for the in-process
+  test matrix).  Every hook is a no-op.
+* :class:`~mochi_tpu_torch.storage.durable.DurableStorage` — the
+  log-structured engine (WAL + snapshots + verified recovery), opted into via
+  ``MochiReplica(storage_dir=...)`` / ``--storage-dir``.
+* :class:`~mochi_tpu_torch.storage.paged.PagedStorage` — the paged engine
+  (WAL tail + immutable self-certifying value pages + bounded resident
+  cache), selected with ``MOCHI_STORAGE_ENGINE=paged`` / ``--storage-engine
+  paged`` once a storage dir is configured.
+
+Paging engines (``pager = True``) additionally serve the READ path:
+``DataStore._get`` calls ``fault_in(store, key)`` on a resident miss and
+``note_access(key)`` on a resident hit, so a keyspace larger than RAM
+stays addressable — values come back from disk on demand, re-checked
+per entry before adoption.
+
+Both durable engines re-verify every stored grant signature through the
+replica's verifier at recovery (and the paged one again at its audit and
+compaction): with ``CudaBatchVerifier`` that is the card's comb kernel.
 """
 
 from __future__ import annotations
@@ -113,14 +129,26 @@ def build_storage(
     metrics=None,
     engine: Optional[str] = None,
 ) -> StorageEngine:
-    """None -> the in-memory no-op engine.  A ``storage_dir`` asks for a
-    durable engine (``wal`` or ``paged``), which this package does not have
-    yet: that raises, naming the slice it belongs to."""
+    """``storage_dir`` -> a durable engine rooted at ``<dir>/<server_id>``
+    (per-replica isolation under one operator-supplied root); None -> the
+    in-memory no-op.  ``engine`` (or ``MOCHI_STORAGE_ENGINE``) picks which
+    durable engine: ``wal`` (default — whole-store snapshots, everything
+    resident) or ``paged`` (value pages + bounded resident cache)."""
     if not storage_dir:
         return MemoryStorage()
-    raise NotImplementedError(
-        f"durable storage (storage_dir={storage_dir!r}, engine "
-        f"{engine or 'wal'!r}) is not ported to mochi_tpu_torch yet: the WAL, "
-        "snapshot and paged engines land with the storage slice; run without "
-        "a storage directory (in-memory replicas)"
-    )
+    import os
+
+    engine = (engine or os.environ.get("MOCHI_STORAGE_ENGINE", "wal")).lower()
+    if engine not in STORAGE_ENGINES:
+        raise ValueError(
+            f"MOCHI_STORAGE_ENGINE must be one of {STORAGE_ENGINES}, "
+            f"got {engine!r}"
+        )
+    directory = os.path.join(storage_dir, server_id)
+    if engine == "paged":
+        from .paged import PagedStorage
+
+        return PagedStorage(directory, server_id, fsync=fsync, metrics=metrics)
+    from .durable import DurableStorage
+
+    return DurableStorage(directory, server_id, fsync=fsync, metrics=metrics)

@@ -11,9 +11,12 @@ per replica; a factory that returns the same instance every time shares one
 card-owning verifier among all replicas, and the cluster then closes that
 instance once.
 
+With ``storage_dir=`` every replica gets a durable engine under
+``<storage_dir>/<server_id>`` (``storage_engine``: ``wal`` or ``paged``), and
+:meth:`VirtualCluster.restart_replica` recovers it from disk.
+
 Not part of this package yet (each raises until its slice lands): network
-conditioning (``netsim=``), Byzantine replicas (``byzantine=``) and durable
-storage (``storage_dir=``).
+conditioning (``netsim=``) and Byzantine replicas (``byzantine=``).
 
 The external-cluster escape hatch (``MochiVirtualCluster.java:45-49``) is
 preserved via ``MOCHI_CLUSTER_CONFIG`` pointing at a properties/JSON file.
@@ -56,11 +59,19 @@ class VirtualCluster:
         admission: Optional[bool] = None,
         shed_lag_ms: Optional[float] = None,
         uds_dir: Optional[str] = None,
-        # Network conditioning, Byzantine fault injection and durable
-        # storage are later slices of this package: each raises when given.
+        # Network conditioning and Byzantine fault injection are later
+        # slices of this package: each raises when given.
         netsim=None,
         byzantine: Optional[Dict[str, object]] = None,
+        # Durable storage: every replica gets a durable engine rooted at
+        # <storage_dir>/<server_id> (WAL + snapshots + verified recovery),
+        # and restart_replica then recovers REAL state from disk instead of
+        # booting empty.  None (default): in-memory, the reference's
+        # posture.
         storage_dir: Optional[str] = None,
+        # Which durable engine a storage_dir gets: "wal" (default) or
+        # "paged" — None defers to MOCHI_STORAGE_ENGINE.
+        storage_engine: Optional[str] = None,
         # Session MAC fast path posture, threaded into every
         # replica AND every vc.client() SDK instance so one knob pins the
         # whole cluster.  None (default) defers to MOCHI_FAST_PATH.
@@ -69,14 +80,14 @@ class VirtualCluster:
         for name, given in (
             ("netsim", netsim is not None),
             ("byzantine", bool(byzantine)),
-            ("storage_dir", bool(storage_dir)),
         ):
             if given:
                 raise NotImplementedError(
                     f"VirtualCluster({name}=...) is not ported to mochi_tpu_torch "
-                    "yet: netsim, the Byzantine harnesses and durable storage "
-                    "land in later slices"
+                    "yet: netsim and the Byzantine harnesses land in later slices"
                 )
+        self.storage_dir = storage_dir
+        self.storage_engine = storage_engine
         self.n_servers = n_servers
         self.rf = rf
         self.verifier_factory = verifier_factory
@@ -166,6 +177,8 @@ class VirtualCluster:
             host=host,
             port=port,
             fast_path=self.fast_path,
+            storage_dir=self.storage_dir,
+            storage_engine=self.storage_engine,
             **kwargs,
         )
 
@@ -184,15 +197,20 @@ class VirtualCluster:
     async def restart_replica(
         self, server_id: str, resync: bool = False, before_boot=None
     ) -> MochiReplica:
-        """Kill a replica and boot a fresh one on the same port.  The fresh
-        replica starts EMPTY (in-memory, as in the reference) — the scenario
-        the resync protocol exists for; ``resync=True`` pulls its state
-        from peers.
+        """Kill a replica and boot a fresh one on the same port.  Without
+        ``storage_dir`` the fresh replica starts EMPTY (in-memory, as in
+        the reference) — the scenario the resync protocol exists for; with
+        it, boot recovers the replica's committed state from its WAL and
+        snapshot (or pages), re-verifying every stored grant signature
+        through the replica's verifier, and ``resync=True`` then only
+        ships the DELTA written since the crash.
 
         ``before_boot`` (sync or async callable, given ``server_id``) runs
         in the window after the old replica is down and before the fresh
-        one boots: where tests commit the writes the victim must catch up
-        on.  A verifier that other replicas share stays open."""
+        one boots: the seam where crash tests tamper with or restore
+        on-disk storage state, and where delta-resync tests commit the
+        writes the victim must catch up on.  A verifier that other
+        replicas share stays open."""
         old = self.replica(server_id)
         port = old.bound_port
         if old.verifier is not None and not any(

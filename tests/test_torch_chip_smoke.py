@@ -6,6 +6,7 @@ port's plain version, and its refusal to run without a card is pinned.
 """
 
 import asyncio
+import copy
 import os
 import shutil
 import subprocess
@@ -571,3 +572,107 @@ def test_cluster_tree_mxu_phase_rehearsal_on_cpu(monkeypatch):
     assert cs.cluster_mxu_problems(out, launched=False, kernel="tree_mxu") == []
     assert cs.cluster_mxu_problems(out, kernel="tree_mxu") == [
         f"the tree under mxu carried nothing: {out['comb_launches']}"]
+
+
+# ------------------------------------------- verified recovery (13, 13p)
+
+
+def test_host_prepare_times_native_and_pure_agree(signers):
+    """Phase 4's host prepare record: the native and the pure prepare give
+    the same arrays, each is timed, and native_status() rides along."""
+    flat, _ = cs.traffic_waves(cs.make_traffic(5, signers, clients=4, requests=2, grants=5))
+    out = cs.host_prepare_times(flat, repeats=2)
+    assert out["items"] == len(flat) and out["python_h"]
+    assert out["native_status"]["_hbatch"]["built"] and out["native_equals_pure"]
+    assert out["native_us_per_item"] > 0 and out["pure_us_per_item"] > 0
+
+
+def test_host_prepare_times_fail_when_python_h_is_there_but_the_build_is_not(signers, monkeypatch):
+    from mochi_tpu_torch import native
+
+    broken = {"_mcode": {"built": False, "error": "cc exit 1"}, "_hbatch": {"built": False, "error": "cc exit 1"}}
+    monkeypatch.setattr(native, "native_status", lambda: broken)
+    with pytest.raises(AssertionError, match="Python.h is present"):
+        cs.host_prepare_times([], repeats=1)
+
+
+def _recovery_record(**over):
+    span = {"comb_launches": {"chain": 2, "tree": 0, "chain_mxu": 0, "tree_mxu": 0},
+            "routing": {"comb_items": 129}}
+    honest = dict(copy.deepcopy(span), server_id="server-1", planted=None, convicted=0, convictions=[], missing=[])
+    planted = {"seq": 7, "key": "rec-1-2"}
+    tampered = dict(copy.deepcopy(span), server_id="server-3", planted=planted, convicted=2, missing=["rec-1-2"],
+                    missing_after_resync=[],
+                    convictions=[{"seq": 7, "key": "rec-1-2", "reason": "1 grant signature(s) failed re-verification"},
+                                 {"seq": 7, "key": "rec-1-2", "reason": "replayed commit did not advance state"}])
+    rec = {"recoveries": [honest, dict(copy.deepcopy(honest), server_id="server-2"), tampered], "read_back_bad": [],
+           "fallback_batches": 0}
+    rec.update(over)
+    return rec
+
+
+def test_recovery_check_flags_what_it_must():
+    """Phase 13's check: three recoveries with comb launches, the planted
+    entry alone convicted and healed by the resync, pass; a recovery with
+    no comb launch, a conviction on an honest disk, a conviction of
+    another entry or none of the planted one, a missing value and a bad
+    read-back are each flagged."""
+    good = _recovery_record()
+    assert cs.recovery_problems(good) == []
+    no_launch = copy.deepcopy(good)
+    no_launch["recoveries"][0]["comb_launches"]["chain"] = 0
+    assert len(cs.recovery_problems(no_launch)) == 1 and cs.recovery_problems(no_launch, launched=False) == []
+    honest_convicted = copy.deepcopy(good)
+    honest_convicted["recoveries"][1]["convicted"] = 1
+    assert len(cs.recovery_problems(honest_convicted)) == 1
+    other = copy.deepcopy(good)
+    other["recoveries"][2]["convictions"].append({"seq": 3, "key": "rec-0-0", "reason": "reordered"})
+    assert len(cs.recovery_problems(other)) == 1
+    unsigned = copy.deepcopy(good)
+    unsigned["recoveries"][2]["convictions"] = unsigned["recoveries"][2]["convictions"][1:]
+    assert len(cs.recovery_problems(unsigned)) == 1
+    unhealed = copy.deepcopy(good)
+    unhealed["recoveries"][2]["missing_after_resync"] = ["rec-1-2"]
+    assert len(cs.recovery_problems(unhealed)) == 1
+    assert len(cs.recovery_problems(dict(good, read_back_bad=["rec-0-1"]))) == 1
+
+
+def test_recovery_phase_rehearsal_on_cpu(tmp_path):
+    """Phase 13 at a small size (4 replicas, 2 clients x 2 PUTs): three
+    recoveries, each re-verifying every stored grant on the comb path's
+    plain version (no launch on the CPU), the planted forgery convicted
+    alone and healed by the resync, every key read back."""
+    spans = cs.Spans("cpu")
+    rec = asyncio.run(asyncio.wait_for(cs.drive_recovery("cpu", 4, 2, 2, str(tmp_path), spans), 300))
+    assert rec["acked"] == 4 and rec["quorum"] == 3 and rec["read_back_bad"] == []
+    assert [r["server_id"] for r in rec["recoveries"]] == ["server-1", "server-2", "server-3"]
+    for r in rec["recoveries"]:
+        assert r["routing"]["comb_items"] == r["device_items"] == 4 * 3, r
+        assert "device" not in r and r["grants_per_s"] > 0
+    assert [r["convicted"] for r in rec["recoveries"]] == [0, 0, 2]
+    assert rec["recoveries"][2]["missing"] == [rec["recoveries"][2]["planted"]["key"]]
+    assert cs.recovery_problems(rec, launched=False) == []
+    problems = cs.recovery_problems(rec)  # a card's launches asked for: none on the CPU
+    assert len(problems) == 3 and all("no comb launch" in p for p in problems)
+
+
+def test_recovery_paged_phase_rehearsal_on_cpu(tmp_path):
+    """Phase 13p at a small size: the compaction re-verifies every
+    surviving entry's grants, the boot audit every paged entry's, nothing
+    is convicted, every second-generation value is in the restarted store
+    and reads back; the environment is left as it was."""
+    env0 = dict(os.environ)
+    spans = cs.Spans("cpu")
+    rec = asyncio.run(asyncio.wait_for(cs.drive_recovery_paged("cpu", 4, 2, 2, str(tmp_path), spans), 300))
+    assert dict(os.environ) == env0
+    comp, audit = rec["compaction"], rec["audit"]
+    assert comp["result"] == {"pages": 2, "rewritten": 4} and comp["pages_after"] == 1 and comp["debt"] == 0
+    assert comp["reverified"] == comp["device_items"] == 4 * 3
+    assert audit["audits"] == 1 and audit["audited_entries"] == 4 and audit["device_items"] == 4 * 3
+    assert audit["missing"] == [] and rec["read_back_bad"] == []
+    assert cs.recovery_paged_problems(rec, launched=False) == []
+    assert len(cs.recovery_paged_problems(rec)) == 2
+    bad = copy.deepcopy(rec)
+    bad["audit"]["pages_convicted"] = 1
+    bad["compaction"]["reverified"] = 3
+    assert len(cs.recovery_paged_problems(bad, launched=False)) == 2

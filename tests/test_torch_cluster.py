@@ -129,8 +129,8 @@ def test_port_client_commits_against_reference_replicas():
     run(main())
 
 
-@pytest.mark.parametrize("kwargs", [{"netsim": object()}, {"byzantine": {"server-1": "silent"}},
-                                    {"storage_dir": "/nonexistent"}], ids=["netsim", "byzantine", "storage"])
+@pytest.mark.parametrize("kwargs", [{"netsim": object()}, {"byzantine": {"server-1": "silent"}}],
+                         ids=["netsim", "byzantine"])
 def test_unported_cluster_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="not ported"):
         VirtualCluster(4, rf=4, **kwargs)
