@@ -216,10 +216,41 @@ Phases (any failure exits non-zero and prints no result line):
    re-verify at least one grant an entry, nothing may be convicted, and
    every second-generation value must be in the restarted store and read
    back with a 43-grant certificate.
+14. A cluster of replica processes — phase 9's cluster (n = 64, rf = 64,
+   quorum 43) as ``ProcessCluster(64, rf=64, n_processes=4,
+   verifier="cuda", storage_dir=True, wal_fsync="group")``: four ``python
+   -m mochi_tpu_torch.server`` children of 16 replicas each, each child's
+   replicas sharing its own ``CudaBatchVerifier`` with the 64 identities
+   registered, and every replica serving its admin shell.  4 SDK clients in
+   this process commit signed PUTs under load; once 32 are acked every
+   child is SIGKILLed (no drain, no snapshot) and restarted, its boot replay
+   re-verifying every stored grant on the card before ``READY``.  Every
+   acked write must read back with a 43-grant certificate; every replica's
+   ``/status`` (over its admin port), before the kill and again after the
+   restart, must show a ``CudaBatchVerifier`` with 64 registered signers
+   and comb dispatches and routed items; every child must hold the card (a
+   card's device node among its open files, and one ``nvidia-smi`` compute
+   app a holder: inside a container ``nvidia-smi`` may not show this
+   machine's pids, and then the rows are counted); and every child must be
+   alive at the end.  Recorded: txn/s, write p50/p99, each child's CPU
+   seconds, boot and restart-to-``READY`` seconds, comb dispatches and
+   routed items, acked and lost counts, ``os.cpu_count()``.
+14s. The same cluster with ``verifier="service"``: one ``python -m
+   mochi_tpu_torch.verifier.service --backend cuda`` sidecar owns the card,
+   with the identities as its signers and its own admin port; 4 SDK clients
+   x 8 PUTs, every key read back with a 43-grant certificate.  The
+   service's ``/status`` must show comb dispatches, every replica's a
+   ``RemoteVerifier`` under the coalescer with no fallback batch, and the
+   service alone (of the children) must hold the card.  Recorded as 14,
+   with the service's requested items a second.
 
 Phases 5, 5m, 8, 8t, 8m, 8tm, 9, 9m, 9tm, 10, 11, 13 and 13p drive the
 main paths: each zeroes the launch counts just before it and reads them
 just after (13 and 13p around each recovery, compaction and audit).
+Phases 14 and 14s launch the kernels in other processes: their children's
+admin shells count those launches, and the ``kernels`` line counts this
+process's alone.  ``--only 14`` runs phases 1, 2, 14 and 14s and prints
+their records instead of the result lines.
 Every phase but 8t and 6tm-9tm runs the comb's default accumulation, the
 chain, and every phase but 3m-5m, 6m-9m and 6tm-9tm the default multiply,
 ``pad``.  On a machine with several
@@ -273,6 +304,10 @@ RECOVERY_CLIENTS, RECOVERY_PAGED_CLIENTS, RECOVERY_WRITES = 4, 2, 8
 # The cluster under MOCHI_SKEW_IMPL=mxu (phase 9m): the same cluster at a
 # cut depth, its general kernel being ~4x slower.
 CLUSTER_MXU_CLIENTS, CLUSTER_MXU_WRITES = 4, 4
+# Phases 14 and 14s: the cluster of phase 9 in replica processes (16 replicas
+# a process), SDK clients in this process; 14 SIGKILLs every process once
+# this many writes are acked, 14s commits a fixed number of PUTs a client.
+PROC_N, PROC_PROCESSES, PROC_CLIENTS, PROC_MIN_ACKED, PROC_SERVICE_WRITES = 64, 4, 4, 32, 8
 PARTIAL = 37  # lanes short of a full last block in the partial-block check
 NS_SLOTS, NS_VOTERS, NS_FORGED = 4, 64, 30  # the north-star quorum leg: slot 3 loses 30 votes
 MULTIHOST_LANES = 8  # lanes per process of the multi-process leg
@@ -1452,6 +1487,376 @@ def recovery_paged_problems(rec: dict, launched: bool = True) -> List[str]:
     return problems
 
 
+def free_port_range(n: int, lo: int = 20000, hi: int = 60000) -> int:
+    """The first port of ``n`` consecutive TCP ports that all bind free on
+    loopback now (the admin shells' range of a process cluster), searched
+    from a random start so that concurrent callers rarely meet."""
+    base = lo + int.from_bytes(os.urandom(4), "little") % (hi - lo - n)
+    for _ in range(hi - lo):
+        if base + n > hi:
+            base = lo
+        socks = []
+        try:
+            for port in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", port))
+            return base
+        except OSError:
+            base = port + 1
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError(f"no {n} consecutive free ports in [{lo}, {hi})")
+
+
+def admin_status(port: int, timeout_s: float = 30.0) -> dict:
+    """``GET /status`` of an admin shell on loopback, as JSON."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/status", timeout=timeout_s) as resp:
+        return json.loads(resp.read().decode())
+
+
+def compute_apps() -> List[List]:
+    """``nvidia-smi --query-compute-apps=pid,used_memory``: [pid, used
+    memory] of every process holding a compute context (none where there is
+    no ``nvidia-smi``).  Inside a container's pid namespace the pids may not
+    be this machine's: :func:`card_holders` then names the processes."""
+    if shutil.which("nvidia-smi") is None:
+        return []
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return [[int(f[0]), f[1].strip()] for f in (ln.split(",") for ln in out.splitlines())
+            if len(f) == 2 and f[0].strip().isdigit()]
+
+
+def holds_card(pid: int) -> bool:
+    """Whether process ``pid`` has a card's device node (``/dev/nvidia<N>``,
+    which a CUDA context opens) among its open files."""
+    fd_dir = f"/proc/{pid}/fd"
+    try:
+        names = os.listdir(fd_dir)
+    except OSError:
+        return False
+    for name in names:
+        try:
+            if re.fullmatch(r"/dev/nvidia\d+", os.readlink(os.path.join(fd_dir, name))):
+                return True
+        except OSError:
+            continue
+    return False
+
+
+def card_view(pids: dict) -> dict:
+    """Who holds the card now: ``nvidia-smi``'s compute apps, whether its
+    pids are this machine's (this process's own is among them), and for
+    this process and each of ``pids`` (name -> pid) :func:`holds_card`."""
+    apps = compute_apps()
+    return {"compute_apps": apps, "smi_pids_are_ours": os.getpid() in [a[0] for a in apps],
+            "parent_holds_card": holds_card(os.getpid()),
+            "holds_card": {name: holds_card(pid) for name, pid in pids.items()}}
+
+
+def card_problems(view: dict, pids: dict, holders: List[str], phase: str) -> List[str]:
+    """The card must be held by exactly ``holders`` of ``pids`` (and this
+    process, where it does): each of them, and none of the others, with a
+    card's device node open; ``nvidia-smi`` listing their pids where its
+    pids are ours, else as many compute apps as there are holders."""
+    problems = []
+    wrong = {name: held for name, held in view["holds_card"].items() if held != (name in holders)}
+    if wrong:
+        problems.append(f"{phase}: card held {wrong}, expected by {holders} alone")
+    smi = [a[0] for a in view["compute_apps"]]
+    if view["smi_pids_are_ours"]:
+        listed = {name for name, pid in pids.items() if pid in smi}
+        if listed != set(holders):
+            problems.append(f"{phase}: nvidia-smi lists {sorted(listed)} of {pids}, expected {holders}")
+    elif len(smi) != len(holders) + view["parent_holds_card"]:
+        problems.append(f"{phase}: nvidia-smi lists {len(smi)} compute apps, expected "
+                        f"{len(holders) + view['parent_holds_card']} ({holders} and this process)")
+    return problems
+
+
+def verifier_view(st: dict) -> dict:
+    """The verifier section of a replica's or the service's ``/status``,
+    cut to what phase 14 checks: the composition's types from the top
+    down, the comb registry's size and the comb counters (of the innermost
+    verifier that has them) and the remote fallbacks."""
+    v = st["verifier"]
+    view = {"types": [], "registered_signers": None, "dispatches": 0, "comb_items": 0, "ladder_items": 0,
+            "fallback_batches": 0}
+    while v is not None:
+        view["types"].append(v["type"])
+        view["fallback_batches"] += v.get("fallback_batches", 0)
+        if "comb" in v:
+            view["registered_signers"] = v["comb"]["registered_signers"]
+            view["dispatches"] = v["comb"]["device_dispatches_process_total"]
+            view["comb_items"] = v["comb"]["items_comb_routed_process_total"]
+            view["ladder_items"] = v["comb"]["items_ladder_routed_process_total"]
+        v = v.get("inner")
+    return view
+
+
+async def process_statuses(pc) -> dict:
+    """Every replica's ``/status`` over its admin port, cut by
+    :func:`verifier_view` and grouped by the child that hosts it:
+    ``{proc-i: {"pid": p, "replicas": {server id: view}}}``."""
+    loop = asyncio.get_running_loop()
+    views = await asyncio.gather(*(loop.run_in_executor(None, admin_status, pc.admin_port(sid))
+                                   for sid in pc.config.servers))
+    out: dict = {}
+    for sid, st in zip(pc.config.servers, views):
+        if st["server_id"] != sid:
+            raise AssertionError(f"admin port of {sid} answered for {st['server_id']}")
+        sp = pc.process_for(sid)
+        out.setdefault(sp.name, {"pid": sp.pid, "replicas": {}})["replicas"][sid] = verifier_view(st)
+    return out
+
+
+async def _load(sdks, acked: dict, write_s: List[float], tag: str) -> None:
+    """Each SDK client commits signed single-key PUTs until cancelled or a
+    write fails (a write in flight at a crash is indeterminate: only the
+    ones that returned are acked)."""
+    from mochi_tpu_torch.client import TransactionBuilder
+
+    async def writer(c, sdk):
+        for k in range(1 << 30):
+            key, value = f"{tag}-{c}-{k}", b"%s %d/%d " % (tag.encode(), c, k) + bytes(24)
+            t = time.perf_counter()
+            try:
+                await sdk.execute_write_transaction(TransactionBuilder().write(key, value).build())
+            except Exception:
+                return
+            write_s.append(time.perf_counter() - t)
+            acked[key] = value
+
+    await asyncio.gather(*(writer(c, sdk) for c, sdk in enumerate(sdks)))
+
+
+async def drive_process_cluster(verifier: str, n: int, processes: int, clients: int, min_acked: int,
+                                ready_timeout_s: float = 600.0, timeout_s: float = 600.0) -> dict:
+    """Phase 14: ``ProcessCluster(n, rf=n, n_processes=processes,
+    verifier=verifier)`` on the WAL engine (``wal_fsync="group"``) with the
+    admin shells on; ``clients`` SDK clients in this process commit signed
+    PUTs under load, and once ``min_acked`` are acked every child is
+    SIGKILLed (no drain, no snapshot) and restarted, its boot replay
+    re-verifying every stored grant before READY.  Every replica's
+    ``/status`` is read before the kill and again after the restart, before
+    any new write; then every acked key is read back."""
+    from mochi_tpu_torch.testing import ProcessCluster
+
+    base = free_port_range(n * processes)
+    pc = ProcessCluster(n, rf=n, n_processes=processes, verifier=verifier, storage_dir=True, wal_fsync="group",
+                        admin_base_port=base, ready_timeout_s=ready_timeout_s)
+    t0 = time.perf_counter()
+    async with pc:
+        boot_s = time.perf_counter() - t0
+        quorum = pc.config.quorum
+        sdks = [pc.client(timeout_s=120.0) for _ in range(clients)]
+        acked: dict = {}
+        write_s: List[float] = []
+        t0 = time.perf_counter()
+        load = asyncio.ensure_future(_load(sdks, acked, write_s, "p14"))
+        deadline = t0 + timeout_s
+        while len(acked) < min_acked:
+            if load.done() or time.perf_counter() > deadline:
+                load.cancel()
+                raise AssertionError(f"only {len(acked)} writes acked before the load stopped: "
+                                     f"{[sp.log_tail(400) for sp in pc.processes]}")
+            await asyncio.sleep(0.05)
+        before = await process_statuses(pc)
+        cpu_before = pc.cpu_seconds()
+        pids_before = {sp.name: sp.pid for sp in pc.processes}
+        card_before = card_view(pids_before)
+        t_kill = time.perf_counter()
+        n_acked, wall = len(acked), t_kill - t0
+        for sp in pc.processes:
+            pc.kill_replica(sp.server_ids[0])
+        await asyncio.sleep(1.0)  # a write that returns now was acked before the kill: it stays acked
+        load.cancel()
+        try:
+            await load
+        except asyncio.CancelledError:
+            pass
+        for sdk in sdks:
+            await sdk.close()
+        acked_at_kill = dict(acked)
+        t0 = time.perf_counter()
+        await asyncio.gather(*(pc.restart_replica(sp.server_ids[0]) for sp in pc.processes))
+        restart_s = time.perf_counter() - t0
+        after = await process_statuses(pc)
+        pids_after = {sp.name: sp.pid for sp in pc.processes}
+        card_after = card_view(pids_after)
+        reader = pc.client(timeout_s=120.0)
+        t0 = time.perf_counter()
+        lost = await _read_back(reader, acked_at_kill, quorum, timeout_s)
+        read_wall = time.perf_counter() - t0
+        pc.check_alive()
+        cpu_end = pc.cpu_seconds()
+        ready = {name: list(s) for name, s in pc.ready_seconds.items()}
+    summary = {phase: {name: _child_summary(child) for name, child in st.items()}
+               for phase, st in (("before_kill", before), ("after_restart", after))}
+    return {
+        "replicas": n, "rf": n, "f": (n - 1) // 3, "quorum": quorum, "processes": processes, "verifier": verifier,
+        "clients": clients, "os_cpu_count": os.cpu_count(), "boot_s": boot_s,
+        "ready_s_first_boot": {name: s[0] for name, s in ready.items()},
+        "restart_to_ready_s": {name: s[-1] for name, s in ready.items()}, "restart_wall_s": restart_s,
+        "acked_at_kill": n_acked, "acked": len(acked_at_kill), "lost": len(lost), "lost_keys": lost[:10],
+        "read_back": len(acked_at_kill), "read_wall_s": read_wall,
+        "write_wall_s": wall, "txn_per_s": n_acked / wall,
+        "write_p50_ms": 1e3 * _pct(write_s, 0.5), "write_p99_ms": 1e3 * _pct(write_s, 0.99),
+        "cpu_seconds_before_kill": cpu_before, "cpu_seconds_after_restart_and_read": cpu_end,
+        "pids_before_kill": pids_before, "pids_after_restart": pids_after,
+        "card_before_kill": card_before, "card_after_restart": card_after,
+        "parent_pid": os.getpid(), "status": summary, "min_acked": min_acked,
+        "reduced": f"depth: {clients} clients until {min_acked} PUTs acked, one SIGKILL of every process "
+                   f"(widths uncut: n={n}, quorum {quorum}, {processes} processes of {n // processes} replicas)",
+    }
+
+
+def _child_summary(child: dict) -> dict:
+    """One child's replicas' verifier views, summed up: the distinct types
+    and registry sizes, the least comb counters and the total fallbacks."""
+    views = list(child["replicas"].values())
+    return {
+        "pid": child["pid"], "replicas": len(views),
+        "types": sorted({"/".join(v["types"]) for v in views}),
+        "registered_signers": sorted({v["registered_signers"] for v in views}, key=str),
+        "dispatches": min(v["dispatches"] for v in views), "comb_items": min(v["comb_items"] for v in views),
+        "ladder_items": min(v["ladder_items"] for v in views),
+        "fallback_batches": sum(v["fallback_batches"] for v in views),
+    }
+
+
+def process_problems(rec: dict, on_card: bool = True) -> List[str]:
+    """What phase 14 must not show: fewer acked writes than asked for, an
+    acked write that does not read back with a 2f+1-grant certificate, and
+    (``on_card``) a child whose replicas do not all show a
+    ``CudaBatchVerifier`` with every replica identity registered and comb
+    dispatches and routed items, before the kill or after the restart, or
+    a child that does not hold the card (:func:`card_problems`)."""
+    problems = []
+    if rec["acked"] < rec.get("min_acked", 1) or rec["lost"]:
+        problems.append(f"{rec['acked']} acked, {rec['lost']} lost: {rec['lost_keys']}")
+    if not on_card:
+        return problems
+    for phase, children in rec["status"].items():
+        for name, ch in children.items():
+            if (ch["types"] != ["CudaBatchVerifier"] or ch["registered_signers"] != [rec["replicas"]]
+                    or ch["dispatches"] <= 0 or ch["comb_items"] <= 0):
+                problems.append(f"{phase}, {name}: {ch}")
+    for phase in ("before_kill", "after_restart"):
+        pids = rec[f"pids_{phase}"]
+        problems += card_problems(rec[f"card_{phase}"], pids, sorted(pids), phase)
+    return problems
+
+
+async def drive_process_service(service_backend: str, n: int, processes: int, clients: int, writes: int,
+                                ready_timeout_s: float = 600.0, timeout_s: float = 600.0) -> dict:
+    """Phase 14s: ``ProcessCluster(n, rf=n, n_processes=processes,
+    verifier="service")``, the sidecar on ``--backend service_backend``
+    with the replica identities as its signers and its own admin port;
+    ``clients`` SDK clients x ``writes`` signed PUTs, every key read back.
+    Every replica's ``/status`` and the service's are read after."""
+    from mochi_tpu_torch.testing import ProcessCluster
+
+    base = free_port_range(n * processes + 1)
+    pc = ProcessCluster(n, rf=n, n_processes=processes, verifier="service", service_backend=service_backend,
+                        admin_base_port=base, ready_timeout_s=ready_timeout_s)
+    loop = asyncio.get_running_loop()
+    t0 = time.perf_counter()
+    async with pc:
+        boot_s = time.perf_counter() - t0
+        quorum = pc.config.quorum
+        sdks = [pc.client(timeout_s=120.0) for _ in range(clients)]
+        acked: dict = {}
+        write_s: List[float] = []
+        svc0 = await loop.run_in_executor(None, admin_status, pc.service_admin_port)
+        t0 = time.perf_counter()
+
+        async def writer(c, sdk):
+            from mochi_tpu_torch.client import TransactionBuilder
+
+            for k in range(writes):
+                key, value = f"p14s-{c}-{k}", b"p14s %d/%d " % (c, k) + bytes(24)
+                t = time.perf_counter()
+                await sdk.execute_write_transaction(TransactionBuilder().write(key, value).build())
+                write_s.append(time.perf_counter() - t)
+                acked[key] = value
+
+        await asyncio.wait_for(asyncio.gather(*(writer(c, sdk) for c, sdk in enumerate(sdks))), timeout_s)
+        wall = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        bad = await _read_back(sdks[0], acked, quorum, timeout_s)
+        read_wall = time.perf_counter() - t1
+        svc1 = await loop.run_in_executor(None, admin_status, pc.service_admin_port)
+        span = time.perf_counter() - t0
+        statuses = await process_statuses(pc)
+        pids = {sp.name: sp.pid for sp in pc.processes}
+        service_pid = pc.service_process.pid
+        card = card_view(dict(pids, **{"verifier-service": service_pid}))
+        pc.check_alive()
+        cpu = pc.cpu_seconds()
+        ready = {name: s[0] for name, s in pc.ready_seconds.items()}
+    svc = verifier_view(svc1)
+    return {
+        "replicas": n, "rf": n, "quorum": quorum, "processes": processes, "service_backend": service_backend,
+        "clients": clients, "os_cpu_count": os.cpu_count(), "boot_s": boot_s, "ready_s": ready,
+        "acked": len(acked), "read_back_bad": bad, "read_wall_s": read_wall,
+        "write_wall_s": wall, "txn_per_s": len(acked) / wall,
+        "write_p50_ms": 1e3 * _pct(write_s, 0.5), "write_p99_ms": 1e3 * _pct(write_s, 0.99),
+        "service": dict(svc, requests=svc1["requests"] - svc0["requests"], items=svc1["items"] - svc0["items"],
+                        items_per_s=(svc1["items"] - svc0["items"]) / span, span_s=span),
+        "replica_status": {name: _child_summary(child) for name, child in statuses.items()},
+        "cpu_seconds": cpu, "pids": pids, "service_pid": service_pid, "card": card,
+        "parent_pid": os.getpid(),
+        "reduced": f"depth: {clients} clients x {writes} PUTs (widths uncut: n={n}, quorum {quorum}, "
+                   f"{processes} processes of {n // processes} replicas)",
+    }
+
+
+def process_service_problems(rec: dict, on_card: bool = True) -> List[str]:
+    """What phase 14s must not show: an acked key that does not read back
+    with a 2f+1-grant certificate, a replica whose verifier is not a
+    ``RemoteVerifier`` under the coalescer or that fell back to local
+    verification, and (``on_card``) a service without comb dispatches, or
+    a card held by anything but the service (:func:`card_problems`)."""
+    problems = []
+    if rec["read_back_bad"]:
+        problems.append(f"read back wrong: {rec['read_back_bad'][:5]}")
+    for name, ch in rec["replica_status"].items():
+        if ch["types"] != ["CoalescingVerifier/RemoteVerifier"] or ch["fallback_batches"]:
+            problems.append(f"{name}: {ch}")
+    if not on_card:
+        return problems
+    if rec["service"]["dispatches"] <= 0 or rec["service"]["comb_items"] <= 0:
+        problems.append(f"service without comb dispatches: {rec['service']}")
+    pids = dict(rec["pids"], **{"verifier-service": rec["service_pid"]})
+    return problems + card_problems(rec["card"], pids, ["verifier-service"], "with the service")
+
+
+def process_phases(res: dict) -> None:
+    """Phases 14 and 14s on the card (see the module docstring); raises on
+    what :func:`process_problems` or :func:`process_service_problems`
+    finds."""
+    smi = _nvidia_smi("name,power.limit")
+    res["processes"] = rec = asyncio.run(drive_process_cluster(
+        "cuda", PROC_N, PROC_PROCESSES, PROC_CLIENTS, PROC_MIN_ACKED))
+    rec["nvidia_smi"] = smi
+    print(f"[processes] {rec}", flush=True)
+    problems = process_problems(rec)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    res["processes_service"] = rec = asyncio.run(drive_process_service(
+        "cuda", PROC_N, PROC_PROCESSES, PROC_CLIENTS, PROC_SERVICE_WRITES))
+    rec["nvidia_smi"] = smi
+    print(f"[processes, service] {rec}", flush=True)
+    problems = process_service_problems(rec)
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
 def host_prepare_times(items, repeats: int = 5) -> dict:
     """Phase 4's host prepare of ``items`` with the native ``h_batch`` and
     with the pure-Python hash (median µs per item of ``repeats``), the two
@@ -1653,6 +2058,10 @@ def run(args) -> dict:
                               check=True)
         res[f"sass_{name}"] = sass_counts(sass.stdout)
         print(f"[build] sass {name}: {res[f'sass_{name}']}", flush=True)
+
+    if args.only == "14":
+        process_phases(res)
+        return res
 
     # 3. kernel vs plain on the card
     rng = np.random.default_rng(args.seed)
@@ -2299,6 +2708,9 @@ def run(args) -> dict:
     for r in rec["recoveries"] + [recp["compaction"], recp["audit"]]:
         check_comb(r["comb_lane_counts"])
 
+    # 14, 14s. a cluster of replica processes: the card in every child, then a sidecar that owns it
+    process_phases(res)
+
     res["kernels"] = [{
         "name": "ed25519_verify",
         "route": "cuda",
@@ -2681,6 +3093,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="also write every result as JSON here")
+    ap.add_argument("--only", choices=("14",), default=None,
+                    help="run only the device and build phases and phase 14 (with 14s), print their "
+                         "records and no result line")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -2696,6 +3111,9 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)
+    if args.only:
+        print(json.dumps({k: res[k] for k in ("processes", "processes_service")}))
+        return 0
     print(json.dumps({"kernels": res["kernels"]}))
     print(res["device"]["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": res["device"]["name"],

@@ -36,8 +36,12 @@ printed; ``--wal-fsync`` sets its durability policy.  ``--data-dir`` keeps
 the older whole-store snapshot file per replica, every
 ``--snapshot-interval`` seconds.
 
-Not part of this package yet: the admin HTTP shell (``--admin-port``) and
-the Byzantine fault-injection posture (``--byzantine``).
+Operator surface: ``--admin-port P`` serves the HTTP admin shell
+(``/status``, ``/metrics``, ``/metrics.prom``, ``/trace``; hosted replica i
+on port P + i), bound to loopback unless ``--admin-host`` widens it.
+
+Not part of this package yet: the Byzantine fault-injection posture
+(``--byzantine``), which lands with the Byzantine harnesses.
 """
 
 from __future__ import annotations
@@ -145,8 +149,9 @@ async def amain(args) -> None:
         except (NotImplementedError, RuntimeError):
             pass  # non-unix / nested-loop environments
     replicas = []
+    admins = []
     shared: dict = {}
-    for sid, seed_file in zip(server_ids, seed_files):
+    for i, (sid, seed_file) in enumerate(zip(server_ids, seed_files)):
         keypair = keypair_from_seed(bytes.fromhex(Path(seed_file).read_text().strip()))
         if keypair.public_key != config.public_keys.get(sid):
             raise SystemExit(
@@ -178,7 +183,13 @@ async def amain(args) -> None:
             snapshot_path=snapshot_path,
             snapshot_interval_s=args.snapshot_interval,
             storage=storage,
-            admission=args.admission != "off",
+            # explicit --admission wins; the deprecated --shed-lag-ms alias
+            # only applies when the new flag was not passed; default on
+            admission=(
+                args.admission == "on"
+                if args.admission is not None
+                else (args.shed_lag_ms is None or args.shed_lag_ms > 0)
+            ),
         )
         await replica.start()
         replicas.append(replica)
@@ -188,6 +199,17 @@ async def amain(args) -> None:
             # before serving (paper's UptoSpeed); with it, only the delta.
             advanced = await replica.resync()
             logging.info("boot resync: %d objects recovered", advanced)
+        if args.admin_port is not None:
+            from ..admin import AdminServer
+
+            # Deliberately NOT args.host: --host 0.0.0.0 opens the replica
+            # protocol port, but the unauthenticated admin endpoints stay on
+            # loopback unless --admin-host explicitly widens them.  Hosted
+            # replica i serves its shell on --admin-port + i.
+            admin = AdminServer(replica, host=args.admin_host, port=args.admin_port + i)
+            await admin.start()
+            admins.append(admin)
+            logging.info("admin shell for %s on port %s", sid, admin.bound_port)
         logging.info("replica %s serving on %s:%s", sid, replica.rpc.host, replica.bound_port)
         # Machine-readable readiness probe (one line per hosted replica).
         print(f"READY {sid} {replica.bound_port}", flush=True)
@@ -199,6 +221,8 @@ async def amain(args) -> None:
             *(r.drain(args.drain_timeout) for r in replicas),
             return_exceptions=True,
         )
+        for admin in admins:
+            await admin.close()
         closed = []
         for replica in replicas:
             await replica.close()
@@ -239,6 +263,19 @@ def main(argv=None) -> None:
         default=None,
         help="hex shared secret MAC-authenticating the remote verifier RPC "
         "(must match the service's --secret-file)",
+    )
+    parser.add_argument(
+        "--admin-port",
+        type=int,
+        default=None,
+        help="serve the HTTP admin shell (/status, /metrics, /metrics.prom, "
+        "/trace) on this port (hosted replica i gets port+i)",
+    )
+    parser.add_argument(
+        "--admin-host",
+        default="127.0.0.1",
+        help="bind host for the admin shell (kept separate from --host so a "
+        "wide replica bind does not expose the unauthenticated admin API)",
     )
     parser.add_argument(
         "--resync-on-boot",
@@ -293,11 +330,19 @@ def main(argv=None) -> None:
     parser.add_argument(
         "--admission",
         choices=("on", "off"),
-        default="on",
+        default=None,  # unset: the deprecated --shed-lag-ms alias may apply
         help="overload admission control (deterministic load signal: "
         "dispatch pressure + verify occupancy + send-queue pressure — "
         "server/admission.py): shed new Write1s with typed OVERLOADED + "
-        "retry-after once load exceeds the MOCHI_SHED_* high-water marks",
+        "retry-after once load exceeds the MOCHI_SHED_* high-water marks "
+        "(default on)",
+    )
+    parser.add_argument(
+        "--shed-lag-ms",
+        type=float,
+        default=None,
+        help="DEPRECATED alias for --admission (the wall-clock lag signal "
+        "is retired): 0 maps to off, any positive value to on",
     )
     parser.add_argument(
         "--drain-timeout",

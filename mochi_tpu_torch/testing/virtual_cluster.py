@@ -15,8 +15,10 @@ With ``storage_dir=`` every replica gets a durable engine under
 ``<storage_dir>/<server_id>`` (``storage_engine``: ``wal`` or ``paged``), and
 :meth:`VirtualCluster.restart_replica` recovers it from disk.
 
-Not part of this package yet (each raises until its slice lands): network
-conditioning (``netsim=``) and Byzantine replicas (``byzantine=``).
+``netsim=`` (a :class:`~mochi_tpu_torch.netsim.NetSim`) conditions every
+replica's peer links and every ``vc.client()``'s links.  Not part of this
+package yet: Byzantine replicas (``byzantine=`` raises until the Byzantine
+harnesses land).
 
 The external-cluster escape hatch (``MochiVirtualCluster.java:45-49``) is
 preserved via ``MOCHI_CLUSTER_CONFIG`` pointing at a properties/JSON file.
@@ -59,9 +61,14 @@ class VirtualCluster:
         admission: Optional[bool] = None,
         shed_lag_ms: Optional[float] = None,
         uds_dir: Optional[str] = None,
-        # Network conditioning and Byzantine fault injection are later
-        # slices of this package: each raises when given.
+        # Network conditioning (mochi_tpu_torch.netsim.NetSim): a topology
+        # spec — e.g. NetSim.mesh(seed=8, rtt_ms=13, jitter_ms=1) for "full
+        # mesh, 13 ms ± 1 ms RTT" — threaded into every replica's peer pool
+        # and every vc.client() SDK instance, with the event schedule armed
+        # at cluster start.  None (default): unconditioned loopback.
         netsim=None,
+        # Byzantine fault injection is a later slice of this package: it
+        # raises when given.
         byzantine: Optional[Dict[str, object]] = None,
         # Durable storage: every replica gets a durable engine rooted at
         # <storage_dir>/<server_id> (WAL + snapshots + verified recovery),
@@ -77,15 +84,12 @@ class VirtualCluster:
         # whole cluster.  None (default) defers to MOCHI_FAST_PATH.
         fast_path: Optional[bool] = None,
     ):
-        for name, given in (
-            ("netsim", netsim is not None),
-            ("byzantine", bool(byzantine)),
-        ):
-            if given:
-                raise NotImplementedError(
-                    f"VirtualCluster({name}=...) is not ported to mochi_tpu_torch "
-                    "yet: netsim and the Byzantine harnesses land in later slices"
-                )
+        if byzantine:
+            raise NotImplementedError(
+                "VirtualCluster(byzantine=...) is not ported to mochi_tpu_torch "
+                "yet: the Byzantine harnesses land in a later slice"
+            )
+        self.netsim = netsim
         self.storage_dir = storage_dir
         self.storage_engine = storage_engine
         self.n_servers = n_servers
@@ -130,6 +134,9 @@ class VirtualCluster:
                 else ClusterConfig.from_properties(text)
             )
             return self
+
+        if self.netsim is not None:
+            self.netsim.ensure_started()  # arm the link-event schedule at t=0
 
         server_ids = [f"server-{i}" for i in range(self.n_servers)]
         self.keypairs = {sid: generate_keypair() for sid in server_ids}
@@ -176,6 +183,7 @@ class VirtualCluster:
             require_client_auth=self.require_client_auth,
             host=host,
             port=port,
+            netsim=self.netsim,
             fast_path=self.fast_path,
             storage_dir=self.storage_dir,
             storage_engine=self.storage_engine,
@@ -186,6 +194,15 @@ class VirtualCluster:
         assert self.config is not None, "cluster not started"
         if self.fast_path is not None:
             kwargs.setdefault("fast_path", self.fast_path)
+        if self.netsim is not None and "netsim" not in kwargs:
+            kwargs["netsim"] = self.netsim
+        if kwargs.get("netsim") is not None:
+            # Stable sequential labels (client-0, client-1, ...), not the
+            # per-run uuid client_id: link RNG streams are seeded from the
+            # (seed, src, dst) triple, and determinism requires the labels
+            # to be identical run over run — also for callers passing
+            # their own netsim= explicitly.
+            kwargs.setdefault("netsim_label", f"client-{len(self._clients)}")
         client = MochiDBClient(config=self.config, **kwargs)
         self.client_keys[client.client_id] = client.keypair.public_key
         self._clients.append(client)
@@ -259,6 +276,8 @@ class VirtualCluster:
         # card-owning CudaBatchVerifier) among every replica
         for verifier in verifiers:
             await verifier.close()
+        if self.netsim is not None:
+            self.netsim.close()  # cancel schedule timers + in-flight frames
         if self._owns_uds_dir and self.uds_dir is not None:
             import functools
             import shutil

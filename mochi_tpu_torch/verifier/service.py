@@ -28,8 +28,9 @@ rejects unMAC'd requests; a client with a secret rejects unMAC'd responses
 
 Run:  ``python -m mochi_tpu_torch.verifier.service --port 18200 [--secret-file f]``
 (on the card; ``--backend cuda-sharded`` splits every batch over all the
-visible cards; ``--backend cpu`` verifies on the host instead).  The HTTP
-status endpoint (``--admin-port``) is not part of this package yet.
+visible cards; ``--backend cpu`` verifies on the host instead).
+``--admin-port`` serves :meth:`VerifierService.status` as JSON over loopback
+HTTP (``/status``; ``/metrics.prom`` the same counters as Prometheus samples).
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import time
 from pathlib import Path
 from typing import List, Optional, Sequence
 
+from ..admin.http import HttpJsonServer
 from ..cluster.config import ServerInfo
 from ..crypto import session as session_crypto
 from ..net.transport import RpcServer, _Connection, new_msg_id
@@ -123,7 +125,9 @@ class VerifierService:
         return self.rpc.bound_port
 
     def status(self) -> dict:
-        """Operational counters for the one process that owns the device."""
+        """Operational counters for the one process that owns the device
+        (served over HTTP via ``--admin-port``; the replica-side analog is
+        the admin shell's ``/metrics``)."""
         return {
             "service_id": SERVICE_ID,
             "requests": self.requests,
@@ -304,11 +308,53 @@ async def amain(args) -> None:
         host=args.host, port=args.port, verifier=verifier, secret=secret
     )
     await service.start()
+    admin = None
+    if args.admin_port is not None:
+        admin = ServiceAdminServer(service, port=args.admin_port)
+        await admin.start()
     print(f"READY {SERVICE_ID} {service.bound_port}", flush=True)
     try:
         await asyncio.Event().wait()
     finally:
+        if admin is not None:
+            await admin.close()
         await service.close()
+
+
+class ServiceAdminServer(HttpJsonServer):
+    """Loopback HTTP status endpoint for the standalone service: /status
+    (and /) serve :meth:`VerifierService.status` as JSON.  Reuses the
+    admin shell's hardened transport loop (read timeouts, header drain)."""
+
+    def __init__(self, service: VerifierService, host: str = "127.0.0.1", port: int = 0):
+        super().__init__(host, port)
+        self.service = service
+
+    def _route(self, path: str):
+        import json as _json
+
+        if path in ("/", "/status", "/metrics"):
+            return 200, "application/json", _json.dumps(self.service.status())
+        if path == "/metrics.prom":
+            # Flatten the status counters into Prometheus samples (numeric
+            # leaves only), same exposition family as the replica shell.
+            def walk(prefix, obj, out):
+                for k, v in obj.items():
+                    key = f"{prefix}_{k}" if prefix else str(k)
+                    if isinstance(v, dict):
+                        walk(key, v, out)
+                    elif isinstance(v, bool):
+                        out.append((key, int(v)))
+                    elif isinstance(v, (int, float)):
+                        out.append((key, v))
+
+            samples: list = []
+            walk("", self.service.status(), samples)
+            body = "".join(
+                f'mochi_verifier_service{{name="{k}"}} {v}\n' for k, v in samples
+            )
+            return 200, "text/plain; version=0.0.4", body
+        return 404, "application/json", '{"error": "not found"}'
 
 
 def main(argv=None) -> None:
@@ -338,6 +384,12 @@ def main(argv=None) -> None:
         "known signers, usually the cluster's replica identities; their "
         "signatures take the comb kernel (every other key the general "
         "kernel)",
+    )
+    parser.add_argument(
+        "--admin-port",
+        type=int,
+        default=None,
+        help="serve service counters as JSON over loopback HTTP (0 = ephemeral)",
     )
     parser.add_argument("--log-level", default="INFO")
     args = parser.parse_args(argv)

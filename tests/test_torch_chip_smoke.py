@@ -676,3 +676,138 @@ def test_recovery_paged_phase_rehearsal_on_cpu(tmp_path):
     bad["audit"]["pages_convicted"] = 1
     bad["compaction"]["reverified"] = 3
     assert len(cs.recovery_paged_problems(bad, launched=False)) == 2
+
+
+def _card(holders, smi_ours: bool = False, parent: bool = True, pids=None):
+    """A card view: ``holders`` have the device node open, and nvidia-smi
+    lists one row a holder (and the parent), with pids ours or all 1."""
+    pids = pids or {}
+    rows = [[pids.get(name, 1) if smi_ours else 1, "3048 MiB"] for name in holders] + [[4242 if smi_ours else 1,
+                                                                                          "3048 MiB"]] * parent
+    return {"compute_apps": rows, "smi_pids_are_ours": smi_ours, "parent_holds_card": parent,
+            "holds_card": {name: name in holders for name in pids}}
+
+
+def _process_record(**over):
+    """A phase-14 record that passes: 4 children, 44 acked, none lost,
+    every child a CudaBatchVerifier with 64 signers and comb dispatches
+    before the kill and after the restart, each holding the card."""
+    child = {"pid": 0, "replicas": 16, "types": ["CudaBatchVerifier"], "registered_signers": [64],
+             "dispatches": 16, "comb_items": 30272, "ladder_items": 0, "fallback_batches": 0}
+    names = [f"proc-{i}" for i in range(4)]
+    before, after = {n: 10 + i for i, n in enumerate(names)}, {n: 20 + i for i, n in enumerate(names)}
+    rec = {"replicas": 64, "acked": 44, "min_acked": 32, "lost": 0, "lost_keys": [],
+           "status": {phase: {n: dict(copy.deepcopy(child), pid=pids[n]) for n in names}
+                      for phase, pids in (("before_kill", before), ("after_restart", after))},
+           "pids_before_kill": before, "pids_after_restart": after,
+           "card_before_kill": _card(names, pids=before), "card_after_restart": _card(names, pids=after)}
+    rec.update(over)
+    return rec
+
+
+def test_process_phase_check_flags_what_it_must():
+    """Phase 14's check: the passing record passes (nvidia-smi's pids ours
+    or not); a lost write, too few acked writes, a child without comb
+    dispatches (before the kill or after the restart), a child that is not
+    a CudaBatchVerifier or lacks the signers, and a child that does not hold
+    the card (by its open device node, or missing from nvidia-smi's rows)
+    are each flagged; on the CPU only the writes are held."""
+    good = _process_record()
+    assert cs.process_problems(good) == []
+    ours = _process_record()
+    for phase in ("before_kill", "after_restart"):
+        ours[f"card_{phase}"] = _card(sorted(ours[f"pids_{phase}"]), smi_ours=True, pids=ours[f"pids_{phase}"])
+    assert cs.process_problems(ours) == []
+    lost = _process_record(lost=1, lost_keys=["p14-0-3"])
+    assert len(cs.process_problems(lost)) == 1 and len(cs.process_problems(lost, on_card=False)) == 1
+    assert len(cs.process_problems(_process_record(acked=31))) == 1
+    for phase in ("before_kill", "after_restart"):
+        idle = copy.deepcopy(good)
+        idle["status"][phase]["proc-2"]["dispatches"] = 0
+        assert len(cs.process_problems(idle)) == 1 and cs.process_problems(idle, on_card=False) == []
+    cpu = copy.deepcopy(good)
+    cpu["status"]["after_restart"]["proc-1"]["types"] = ["CpuVerifier"]
+    assert len(cs.process_problems(cpu)) == 1
+    unsigned = copy.deepcopy(good)
+    unsigned["status"]["before_kill"]["proc-0"]["registered_signers"] = [0]
+    assert len(cs.process_problems(unsigned)) == 1
+    no_fd = copy.deepcopy(good)
+    no_fd["card_after_restart"]["holds_card"]["proc-3"] = False
+    assert len(cs.process_problems(no_fd)) == 1
+    short = copy.deepcopy(good)
+    short["card_before_kill"]["compute_apps"].pop()
+    assert len(cs.process_problems(short)) == 1
+    unlisted = copy.deepcopy(ours)
+    unlisted["card_before_kill"]["compute_apps"][0][0] = 99999
+    assert len(cs.process_problems(unlisted)) == 1
+
+
+def _service_record(**over):
+    """A phase-14s record that passes: every replica child a RemoteVerifier
+    under the coalescer without fallbacks, the service with comb
+    dispatches, and the service alone holding the card."""
+    child = {"pid": 0, "replicas": 16, "types": ["CoalescingVerifier/RemoteVerifier"],
+             "registered_signers": [None], "dispatches": 0, "comb_items": 0, "ladder_items": 0,
+             "fallback_batches": 0}
+    pids = {f"proc-{i}": 30 + i for i in range(4)}
+    rec = {"read_back_bad": [], "replica_status": {n: dict(copy.deepcopy(child), pid=p) for n, p in pids.items()},
+           "service": {"types": ["CachingVerifier", "CudaBatchVerifier"], "dispatches": 32, "comb_items": 1376},
+           "pids": pids, "service_pid": 29,
+           "card": _card(["verifier-service"], pids=dict(pids, **{"verifier-service": 29}))}
+    rec.update(over)
+    return rec
+
+
+def test_process_service_phase_check_flags_what_it_must():
+    """Phase 14s's check: the passing record passes; a key that does not
+    read back, a replica with a local fallback, a replica not on the
+    service, a service without comb dispatches, and a replica child that
+    holds the card (by its device node, by an extra nvidia-smi row, or by
+    its pid in nvidia-smi's list) are each flagged."""
+    good = _service_record()
+    assert cs.process_service_problems(good) == []
+    assert len(cs.process_service_problems(_service_record(read_back_bad=["p14s-0-1"]))) == 1
+    fallback = copy.deepcopy(good)
+    fallback["replica_status"]["proc-2"]["fallback_batches"] = 1
+    assert len(cs.process_service_problems(fallback)) == 1
+    assert len(cs.process_service_problems(fallback, on_card=False)) == 1
+    inline = copy.deepcopy(good)
+    inline["replica_status"]["proc-0"]["types"] = ["CpuVerifier"]
+    assert len(cs.process_service_problems(inline)) == 1
+    idle = copy.deepcopy(good)
+    idle["service"]["dispatches"] = 0
+    assert len(cs.process_service_problems(idle)) == 1 and cs.process_service_problems(idle, on_card=False) == []
+    held = copy.deepcopy(good)
+    held["card"]["holds_card"]["proc-1"] = True
+    assert len(cs.process_service_problems(held)) == 1
+    extra = copy.deepcopy(good)
+    extra["card"]["compute_apps"].append([1, "3048 MiB"])
+    assert len(cs.process_service_problems(extra)) == 1
+    pids = dict(good["pids"], **{"verifier-service": 29})
+    listed = copy.deepcopy(good)
+    listed["card"] = _card(["verifier-service", "proc-3"], smi_ours=True, pids=pids)
+    listed["card"]["holds_card"]["proc-3"] = False  # seen by nvidia-smi alone
+    assert len(cs.process_service_problems(listed)) == 1
+
+
+def test_process_phases_rehearsal_on_cpu():
+    """Phases 14 and 14s at a small size on the CPU (4 replicas in 2
+    processes, ``--verifier cpu`` and a ``--backend cpu`` sidecar): the
+    SIGKILL of every process loses no acked write, every key reads back,
+    every replica's admin shell answers for it, and the checks pass but for
+    the card's parts."""
+    rec = asyncio.run(asyncio.wait_for(cs.drive_process_cluster("cpu", 4, 2, 2, 6, ready_timeout_s=120,
+                                                                timeout_s=120), 240))
+    assert rec["acked"] >= 6 and rec["lost"] == 0 and rec["read_back"] == rec["acked"]
+    assert sorted(rec["restart_to_ready_s"]) == ["proc-0", "proc-1"]
+    assert rec["pids_before_kill"] != rec["pids_after_restart"]
+    for phase in ("before_kill", "after_restart"):
+        assert {ch["replicas"] for ch in rec["status"][phase].values()} == {2}
+        assert {tuple(ch["types"]) for ch in rec["status"][phase].values()} == {("CpuVerifier",)}
+    assert cs.process_problems(rec, on_card=False) == []
+    assert cs.process_problems(rec)  # no card here: the card's checks fail
+    svc = asyncio.run(asyncio.wait_for(cs.drive_process_service("cpu", 4, 2, 2, 2, ready_timeout_s=120,
+                                                                 timeout_s=120), 240))
+    assert svc["acked"] == 4 and svc["read_back_bad"] == [] and svc["service"]["items"] > 0
+    assert cs.process_service_problems(svc, on_card=False) == []
+    assert cs.process_service_problems(svc)

@@ -18,7 +18,7 @@ from mochi_tpu.testing import VirtualCluster as JCluster
 from mochi_tpu_torch.client import MochiDBClient, TransactionBuilder
 from mochi_tpu_torch.cluster.config import ClusterConfig
 from mochi_tpu_torch.crypto import batch_verify as BV
-from mochi_tpu_torch.testing import VirtualCluster
+from mochi_tpu_torch.testing import ProcessCluster, VirtualCluster
 from mochi_tpu_torch.verifier.cuda import CudaBatchVerifier
 from mochi_tpu_torch.verifier.spi import verifier_stats
 
@@ -129,8 +129,9 @@ def test_port_client_commits_against_reference_replicas():
     run(main())
 
 
-@pytest.mark.parametrize("kwargs", [{"netsim": object()}, {"byzantine": {"server-1": "silent"}}],
-                         ids=["netsim", "byzantine"])
-def test_unported_cluster_options_raise(kwargs):
+@pytest.mark.parametrize("cluster", [VirtualCluster, ProcessCluster], ids=["byzantine", "process-byzantine"])
+def test_unported_cluster_options_raise(cluster):
+    """Byzantine replicas wait for their harnesses in both clusters
+    (``netsim=`` is ported: ``tests/test_torch_netsim.py``)."""
     with pytest.raises(NotImplementedError, match="not ported"):
-        VirtualCluster(4, rf=4, **kwargs)
+        cluster(4, rf=4, byzantine={"server-1": "silent"})
