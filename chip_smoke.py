@@ -243,14 +243,50 @@ Phases (any failure exits non-zero and prints no result line):
    ``RemoteVerifier`` under the coalescer with no fallback batch, and the
    service alone (of the children) must hold the card.  Recorded as 14,
    with the service's requested items a second.
+15. Live adversaries at full width — phase 9's cluster (n = 64, quorum 43,
+   one shared ``CudaBatchVerifier``) with f = 21 live Byzantine replicas
+   (``VirtualCluster(byzantine=...)``: 6 ``forge-cert``, 5 ``equivocate``,
+   5 ``stale-replay``, 5 ``silent``).  4 honest SDK clients write 4 keys of
+   their own twice each (8 signed PUTs a client; the SDK's default 10 s
+   request timeout) while a ``byzantine_client("partial-write2")`` commits
+   8 keys of its own at one replica each; an ``InvariantChecker`` over the
+   honest replicas samples throughout and its ``final_check`` runs last.
+   Then every acked key is read back, the adversary's keys and 4 honest
+   keys are nudged to 4 honest replicas (a resync from every peer, which
+   must take the adversary's minority commits and refuse forge-cert's
+   entries, their grants' signatures garbage), the equivocation probe
+   presents both conflicting grants of each equivocator to those 4, and the
+   forged-grant probe sends them a certificate of 43 grants, one of a
+   forge-cert replica with the transaction's hash and a garbage signature.
+   Required: no violation; every acked write read back with a 43-grant
+   certificate; every equivocator convicted on every probed replica; the
+   forged certificate refused with BAD_CERTIFICATE everywhere, with comb
+   launches in its span; ``bad-grant`` suspicion against every forge-cert
+   replica and ``grant-conflict`` against a stale-replay one; no fallback;
+   each kernel equal to its plain version at every lane count it launched.
+15p. Adversaries across processes — ``ProcessCluster(64, rf=64,
+   n_processes=4, verifier="cuda", byzantine=...)`` with 7 ``silent``, 7
+   ``forge-cert`` and 7 ``equivocate`` replicas carried by ``--byzantine``
+   in the children; 4 clients x 8 PUTs, every key read back with a 43-grant
+   certificate; every honest replica's ``/status`` must show a
+   ``CudaBatchVerifier`` with comb dispatches, every child must hold the
+   card (phase 14's check) and be alive at the end.
+15s. Seeded scenarios — ``run_scenario(seed, verifier="cuda")`` and then
+   ``verifier="cpu"`` for seeds 0, 7, 3 and 62 of the soak profile (a
+   Byzantine replica, a Byzantine client, a durable crash-restart, a
+   partition): no violation or harness error, the two runs' canonical
+   records equal (sha256 recorded), kernel launches and no fallback in
+   every ``"cuda"`` run.
 
-Phases 5, 5m, 8, 8t, 8m, 8tm, 9, 9m, 9tm, 10, 11, 13 and 13p drive the
-main paths: each zeroes the launch counts just before it and reads them
-just after (13 and 13p around each recovery, compaction and audit).
-Phases 14 and 14s launch the kernels in other processes: their children's
-admin shells count those launches, and the ``kernels`` line counts this
-process's alone.  ``--only 14`` runs phases 1, 2, 14 and 14s and prints
-their records instead of the result lines.
+Phases 5, 5m, 8, 8t, 8m, 8tm, 9, 9m, 9tm, 10, 11, 13, 13p, 15 and 15s
+drive the main paths: each zeroes the launch counts just before it and
+reads them just after (13 and 13p around each recovery, compaction and
+audit; 15s around each run).  Phases 14, 14s and 15p launch the kernels in
+other processes: their children's admin shells count those launches, and
+the ``kernels`` line counts this process's alone.  ``--only 14`` runs
+phases 1, 2, 14 and 14s, ``--only 15`` phases 1, 2, 15, 15p and 15s (without
+the corpora, so without the kernel-vs-plain checks), and each prints their
+records instead of the result lines.
 Every phase but 8t and 6tm-9tm runs the comb's default accumulation, the
 chain, and every phase but 3m-5m, 6m-9m and 6tm-9tm the default multiply,
 ``pad``.  On a machine with several
@@ -308,6 +344,23 @@ CLUSTER_MXU_CLIENTS, CLUSTER_MXU_WRITES = 4, 4
 # a process), SDK clients in this process; 14 SIGKILLs every process once
 # this many writes are acked, 14s commits a fixed number of PUTs a client.
 PROC_N, PROC_PROCESSES, PROC_CLIENTS, PROC_MIN_ACKED, PROC_SERVICE_WRITES = 64, 4, 4, 32, 8
+# Phase 15: the cluster of phase 9 with f = 21 live Byzantine replicas
+# (server-1 upward, in this order); honest SDK clients write keys of their
+# own sweeps times each (the second sweep moves the epochs, which the
+# stale-replay replicas' grants then trail), a Byzantine client commits
+# keys of its own at one replica each, and the probes go to the first
+# honest replicas.
+ADV_N, ADV_CLIENTS, ADV_KEYS, ADV_SWEEPS, ADV_BYZ_WRITES, ADV_PROBED = 64, 4, 4, 2, 8, 4
+ADV_STRATEGIES = (("forge-cert", 6), ("equivocate", 5), ("stale-replay", 5), ("silent", 5))
+RESYNC_HONEST_KEYS = 4  # honest keys nudged with the adversary's in phase 15
+# Phase 15p: the adversaries in replica processes (phase 14's layout).
+ADV_PROC_PROCESSES, ADV_PROC_CLIENTS, ADV_PROC_WRITES = 4, 4, 8
+ADV_PROC_STRATEGIES = (("silent", 7), ("forge-cert", 7), ("equivocate", 7))
+# Phase 15s: seeds of the scenario engine's soak profile whose drawn specs
+# cover the Byzantine-replica (0), Byzantine-client (7), durable
+# crash-restart (3) and partition (62) families (tier-1 holds the same seeds
+# against the JAX package under the CPU verifier).
+SCENARIO_SEEDS = (0, 7, 3, 62)
 PARTIAL = 37  # lanes short of a full last block in the partial-block check
 NS_SLOTS, NS_VOTERS, NS_FORGED = 4, 64, 30  # the north-star quorum leg: slot 3 loses 30 votes
 MULTIHOST_LANES = 8  # lanes per process of the multi-process leg
@@ -1598,15 +1651,15 @@ def verifier_view(st: dict) -> dict:
     return view
 
 
-async def process_statuses(pc) -> dict:
-    """Every replica's ``/status`` over its admin port, cut by
-    :func:`verifier_view` and grouped by the child that hosts it:
-    ``{proc-i: {"pid": p, "replicas": {server id: view}}}``."""
+async def process_statuses(pc, sids=None) -> dict:
+    """Every replica's (or each of ``sids``') ``/status`` over its admin
+    port, cut by :func:`verifier_view` and grouped by the child that hosts
+    it: ``{proc-i: {"pid": p, "replicas": {server id: view}}}``."""
     loop = asyncio.get_running_loop()
-    views = await asyncio.gather(*(loop.run_in_executor(None, admin_status, pc.admin_port(sid))
-                                   for sid in pc.config.servers))
+    sids = list(pc.config.servers) if sids is None else list(sids)
+    views = await asyncio.gather(*(loop.run_in_executor(None, admin_status, pc.admin_port(sid)) for sid in sids))
     out: dict = {}
-    for sid, st in zip(pc.config.servers, views):
+    for sid, st in zip(sids, views):
         if st["server_id"] != sid:
             raise AssertionError(f"admin port of {sid} answered for {st['server_id']}")
         sp = pc.process_for(sid)
@@ -1857,6 +1910,448 @@ def process_phases(res: dict) -> None:
         raise AssertionError("; ".join(problems))
 
 
+def byzantine_map(counts) -> dict:
+    """{server id: strategy} for ``counts`` ((strategy, how many), ...):
+    server-1 upward in order, server-0 left honest."""
+    out, i = {}, 1
+    for strategy, k in counts:
+        for _ in range(k):
+            out[f"server-{i}"] = strategy
+            i += 1
+    return out
+
+
+def _comb_launch_counts() -> dict:
+    """The comb kernels' launch counts now, keyed by kernel (read, not
+    zeroed: a span inside a phase is the difference of two readings)."""
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    return dict(CC.launches)
+
+
+async def drive_adversaries(device: str, n: int, byz_counts, clients: int, keys: int, sweeps: int,
+                            byz_writes: int, probed: int, honest_nudged: int = RESYNC_HONEST_KEYS,
+                            sdk_timeout_s: float = 10.0, timeout_s: float = 600.0) -> dict:
+    """Phase 15: ``VirtualCluster(n, rf=n)`` with ONE shared
+    ``CudaBatchVerifier(device)`` and live Byzantine replicas
+    (``byzantine_map(byz_counts)``).  ``clients`` honest SDK clients write
+    ``keys`` keys of their own ``sweeps`` times each while a
+    ``byzantine_client("partial-write2")`` commits ``byz_writes`` keys of
+    its own at one replica each; an ``InvariantChecker`` over the honest
+    replicas samples throughout.  Then: every acked key read back; the
+    adversary's keys and ``honest_nudged`` honest ones nudged to ``probed``
+    honest replicas (a resync from every peer, forge-cert's forged entries
+    included); the equivocation
+    probe (both conflicting grants of each equivocator presented to the
+    ``probed`` replicas); the forged-grant probe (a 2f+1-grant certificate
+    holding one forge-cert grant with the transaction's hash and a garbage
+    signature, sent to the same replicas, comb launches counted over its
+    span); ``final_check``.  ``sdk_timeout_s`` is every client's request
+    timeout (the SDK's default: a silent replica costs each client one
+    handshake timeout per failure TTL).  Returns the record;
+    :func:`adversary_problems` says what it must not show."""
+    from dataclasses import replace
+
+    from mochi_tpu_torch.client import TransactionBuilder
+    from mochi_tpu_torch.protocol import (FailType, RequestFailedFromServer, Write1OkFromServer, Write1ToServer,
+                                          Write2ToServer, WriteCertificate, transaction_hash)
+    from mochi_tpu_torch.testing import InvariantChecker, VirtualCluster
+    from mochi_tpu_torch.verifier.cuda import CudaBatchVerifier
+
+    byz = byzantine_map(byz_counts)
+    verifier = CudaBatchVerifier(device=device)
+    t0 = time.perf_counter()
+    async with VirtualCluster(n, rf=n, verifier_factory=lambda: verifier, byzantine=byz) as vc:
+        boot_s = time.perf_counter() - t0
+        quorum = vc.config.quorum
+        honest = [r.server_id for r in vc.honest_replicas()]
+        probed_ids = honest[:probed]
+        checker = InvariantChecker(vc.honest_replicas(), sorted(byz))
+        checker.start(0.05)
+        sdks = [vc.client(timeout_s=sdk_timeout_s) for _ in range(clients)]
+        adversary = vc.byzantine_client("partial-write2", seed=15, timeout_s=sdk_timeout_s)
+        acked: dict = {}
+        write_s: List[float] = []
+        partial: List[bool] = []
+
+        async def writer(c, sdk):
+            for s in range(sweeps):
+                for k in range(keys):
+                    key, value = f"adv-{c}-{k}", b"adv %d/%d/%d " % (c, k, s) + bytes(24)
+                    t = time.perf_counter()
+                    await sdk.execute_write_transaction(TransactionBuilder().write(key, value).build())
+                    write_s.append(time.perf_counter() - t)
+                    acked[key] = (sdk, value)
+                    checker.record_ack(key, value)
+
+        async def attack():
+            # at once: each waits out the silent replicas' Write1s
+            partial.extend(await asyncio.gather(*(adversary.partial_write2(f"advbyz-{i}", b"byz %d " % i + bytes(24))
+                                                  for i in range(byz_writes))))
+
+        t0 = time.perf_counter()
+        await asyncio.wait_for(asyncio.gather(*(writer(c, sdk) for c, sdk in enumerate(sdks)), attack()),
+                               timeout_s)
+        wall = time.perf_counter() - t0
+        bad: List[str] = []
+        read_s: List[float] = []
+
+        async def reader(sdk):
+            for key, (owner, value) in sorted(acked.items()):
+                if owner is not sdk:
+                    continue
+                t = time.perf_counter()
+                res = await sdk.execute_read_transaction(TransactionBuilder().read(key).build())
+                read_s.append(time.perf_counter() - t)
+                op = res.operations[0]
+                cert = op.current_certificate
+                if op.value != value or cert is None or len(cert.grants) != quorum:
+                    bad.append(key)
+
+        t0 = time.perf_counter()
+        await asyncio.wait_for(asyncio.gather(*(reader(sdk) for sdk in sdks)), timeout_s)
+        read_wall = time.perf_counter() - t0
+
+        # a resync: the probed replicas are nudged for the adversary's
+        # minority commits and for honest_nudged honest keys, and pull
+        # them from every peer, verifying what they are sent (forge-cert's
+        # entries carry garbage signatures)
+        byz_keys = [f"advbyz-{i}" for i, ok in enumerate(partial) if ok]
+        nudged = byz_keys + sorted(acked)[:honest_nudged]
+        prober = sdks[0]
+        t0 = time.perf_counter()
+        await asyncio.gather(*(prober._send_nudge(pid, set(nudged)) for pid in probed_ids))
+        healed = False
+        while time.perf_counter() - t0 < 60.0:
+            workers = [vc.replica(pid)._sync_worker for pid in probed_ids]
+            healed = all(getattr(vc.replica(pid).store._get(k), "exists", False)
+                         for pid in probed_ids for k in byz_keys)
+            if healed and all(w is not None and w.done() for w in workers):
+                break
+            await asyncio.sleep(0.05)
+        resync_s = time.perf_counter() - t0
+        resync = {pid: {k: vc.replica(pid).metrics.counters.get(f"replica.{k}", 0)
+                        for k in ("sync-nudges", "resync-applied", "resync-bad-certificate")}
+                  for pid in probed_ids}
+
+        # the equivocation probe: two conflicting transactions' grants from
+        # each equivocator, presented to the probed honest replicas
+        equivocators = [sid for sid, st in byz.items() if st == "equivocate"]
+        probe_errors: List[str] = []
+        for sid in equivocators:
+            key = f"eqprobe-{sid}"
+            txns = [TransactionBuilder().write(key, v).build() for v in (b"A", b"B")]
+            grants = []
+            for i, txn in enumerate(txns):
+                env = prober._envelope(Write1ToServer(prober.client_id, prober._write1_transaction(txn), 77,
+                                                      transaction_hash(txn)), f"eq-w1-{sid}-{i}")
+                resp = await prober.pool.send_and_receive(vc.config.servers[sid], env)
+                if not isinstance(resp.payload, Write1OkFromServer):
+                    probe_errors.append(f"{sid} answered {type(resp.payload).__name__} to Write1 {i}")
+                    break
+                grants.append(resp.payload.multi_grant)
+            if len(grants) < 2:
+                continue
+            if len({next(iter(mg.grants.values())).timestamp for mg in grants}) != 1:
+                probe_errors.append(f"{sid} granted the two transactions at different timestamps")
+            for pid in probed_ids:
+                for i, (txn, mg) in enumerate(zip(txns, grants)):
+                    env = prober._envelope(Write2ToServer(WriteCertificate({sid: mg}), txn), f"eq-w2-{sid}-{pid}-{i}")
+                    await prober.pool.send_and_receive(vc.config.servers[pid], env)
+        convictions = {pid: {sid: vc.replica(pid).byzantine_stats()["equivocations"].get(sid, 0)
+                             for sid in equivocators} for pid in probed_ids}
+
+        # the forged-grant probe: 2f grants of honest replicas and one of a
+        # forge-cert replica, that one with the transaction's own hash and
+        # the garbage signature its strategy made
+        forger = next(sid for sid, st in byz.items() if st == "forge-cert")
+        txn = TransactionBuilder().write("forgeprobe", b"forged probe " + bytes(24)).build()
+        h = transaction_hash(txn)
+        blind = prober._write1_transaction(txn)
+        cert_grants = {}
+        for sid in honest[:quorum - 1] + [forger]:
+            env = prober._envelope(Write1ToServer(prober.client_id, blind, 123, h), f"fg-w1-{sid}")
+            resp = await prober.pool.send_and_receive(vc.config.servers[sid], env)
+            if not isinstance(resp.payload, Write1OkFromServer):
+                probe_errors.append(f"{sid} answered {type(resp.payload).__name__} to the forged probe's Write1")
+                continue
+            cert_grants[sid] = resp.payload.multi_grant
+        mg = cert_grants.get(forger)
+        forged_zero_hash = mg is not None and all(g.transaction_hash == b"\x00" * 64 for g in mg.grants.values())
+        if mg is not None:
+            cert_grants[forger] = replace(mg, grants={k: replace(g, transaction_hash=h) for k, g in mg.grants.items()})
+        before = _comb_launch_counts()
+        t0 = time.perf_counter()
+        answers = []
+        for pid in probed_ids:
+            env = prober._envelope(Write2ToServer(WriteCertificate(cert_grants), txn), f"fg-w2-{pid}")
+            answers.append((await prober.pool.send_and_receive(vc.config.servers[pid], env)).payload)
+        forged_span_s = time.perf_counter() - t0
+        after = _comb_launch_counts()
+        forged_refused = [isinstance(a, RequestFailedFromServer) and a.fail_type == FailType.BAD_CERTIFICATE
+                          for a in answers]
+
+        await checker.final_check(sdks[0])
+        await checker.stop()
+        report = checker.report()
+        suspicion: dict = {}
+        for sdk in sdks:
+            for sid, kinds in sdk.suspicion_stats().items():
+                for kind, count in kinds.items():
+                    suspicion.setdefault(sid, {}).setdefault(kind, 0)
+                    suspicion[sid][kind] += count
+        dropped = sum(vc.replica(pid).metrics.counters.get("replica.dropped-grants", 0) for pid in honest)
+    return {
+        "replicas": n, "rf": n, "f": (n - 1) // 3, "quorum": quorum, "byzantine": byz,
+        "byzantine_counts": dict(byz_counts), "honest": len(honest), "probed": probed_ids, "clients": clients,
+        "keys_per_client": keys, "sweeps": sweeps,
+        "boot_s": boot_s, "writes": len(write_s), "acked": len(acked), "read_back": len(read_s),
+        "read_back_bad": bad, "write_wall_s": wall, "txn_per_s": len(write_s) / wall,
+        "write_p50_ms": 1e3 * _pct(write_s, 0.5), "write_p99_ms": 1e3 * _pct(write_s, 0.99),
+        "read_wall_s": read_wall, "read_p50_ms": 1e3 * _pct(read_s, 0.5),
+        "sdk_timeout_s": sdk_timeout_s,
+        "adversary_client": dict(adversary.stats, partial_commits_acked=sum(partial), attempts=len(partial)),
+        "resync": {"adversary_keys": len(byz_keys), "honest_keys": len(nudged) - len(byz_keys),
+                   "healed": healed, "seconds": resync_s, "by_replica": resync},
+        "convictions": convictions, "probe_errors": probe_errors,
+        "forged_probe": {"refused": forged_refused, "answers": [type(a).__name__ for a in answers],
+                         "forger_grant_had_zero_hash": forged_zero_hash, "grants": len(cert_grants),
+                         "comb_launches": {k: after[k] - before.get(k, 0) for k in after},
+                         "seconds": forged_span_s},
+        "dropped_grants_on_honest": dropped, "suspicion": suspicion,
+        "invariants": {"ok": report["ok"], "violations": report["violations"][:10],
+                       "samples": report.get("samples"), "acked_writes": report.get("acked_writes")},
+        "batches_flushed": verifier.batches_flushed, "items_verified": verifier.items_verified,
+        "fallback_batches": verifier.fallback_batches, "crossover_batches": verifier.backend.crossover_batches,
+        "reduced": f"depth: {clients} clients x {keys} keys x {sweeps} sweeps, {byz_writes} partial writes "
+                   f"(widths uncut: n={n}, quorum {quorum}, {len(byz)} Byzantine replicas)",
+    }
+
+
+def adversary_problems(rec: dict, launched: bool = True) -> List[str]:
+    """What phase 15 must not show: an invariant violation, an acked write
+    that does not read back with a 2f+1-grant certificate, an equivocator
+    not convicted on every probed replica, a forged-grant certificate not
+    refused with the typed bad-certificate answer (or, ``launched``, no comb
+    launch in its span), no ``bad-grant`` suspicion against a forge-cert
+    replica or no ``grant-conflict`` against every stale-replay one, a
+    nudged replica that did not take the adversary's commits or refused no
+    forged sync entry, a fallback, and (``launched``) no comb launch in
+    the phase."""
+    problems = []
+    if not rec["invariants"]["ok"]:
+        problems.append(f"invariant violations: {rec['invariants']['violations']}")
+    if rec["read_back_bad"] or rec["acked"] != rec["clients"] * rec["keys_per_client"]:
+        problems.append(f"{rec['acked']} acked, read back wrong: {rec['read_back_bad'][:5]}")
+    if rec["probe_errors"]:
+        problems.append(f"probes: {rec['probe_errors'][:5]}")
+    unconvicted = {pid: [sid for sid, c in by.items() if c < 1] for pid, by in rec["convictions"].items()}
+    if any(unconvicted.values()) or not rec["convictions"]:
+        problems.append(f"equivocators not convicted: {unconvicted}")
+    fp = rec["forged_probe"]
+    if not fp["refused"] or not all(fp["refused"]) or fp["grants"] != rec["quorum"]:
+        problems.append(f"forged-grant probe not refused with BAD_CERTIFICATE: {fp}")
+    if launched and sum(fp["comb_launches"].values()) <= 0:
+        problems.append(f"no comb launch in the forged-grant probe's span: {fp['comb_launches']}")
+    byz, sus = rec["byzantine"], rec["suspicion"]
+    no_bad_grant = [sid for sid, st in byz.items() if st == "forge-cert" and sus.get(sid, {}).get("bad-grant", 0) <= 0]
+    if no_bad_grant:
+        problems.append(f"no bad-grant suspicion against {no_bad_grant}")
+    stale = [sid for sid, st in byz.items() if st == "stale-replay"]
+    if stale and not any(sus.get(sid, {}).get("grant-conflict", 0) > 0 for sid in stale):
+        problems.append(f"no grant-conflict suspicion against any of {stale}")
+    rs = rec["resync"]
+    if not rs["healed"] or any(r["resync-bad-certificate"] <= 0 for r in rs["by_replica"].values()):
+        problems.append(f"resync: {rs}")
+    if rec["fallback_batches"] or rec["crossover_batches"]:
+        problems.append(f"fallbacks {rec['fallback_batches']}, crossovers {rec['crossover_batches']}")
+    if launched and (rec["comb_launches"].get("chain", 0) <= 0 or rec["routing"]["comb_items"] <= 0):
+        problems.append(f"the comb kernel carried nothing: {rec['comb_launches']}, {rec['routing']}")
+    return problems
+
+
+async def drive_adversary_processes(verifier: str, n: int, processes: int, byz_counts, clients: int, writes: int,
+                                    sdk_timeout_s: float = 10.0, ready_timeout_s: float = 600.0,
+                                    timeout_s: float = 600.0) -> dict:
+    """Phase 15p: ``ProcessCluster(n, rf=n, n_processes=processes,
+    verifier=verifier, byzantine=byzantine_map(byz_counts))`` with the admin
+    shells on, the adversaries carried by ``--byzantine`` in the children;
+    ``clients`` SDK clients x ``writes`` signed PUTs, every key read back.
+    Every honest replica's ``/status`` is read after, and who holds the
+    card.  ``sdk_timeout_s`` is every client's request timeout (as in
+    :func:`drive_adversaries`)."""
+    from mochi_tpu_torch.client import TransactionBuilder
+    from mochi_tpu_torch.testing import ProcessCluster
+
+    byz = byzantine_map(byz_counts)
+    base = free_port_range(n * processes)
+    pc = ProcessCluster(n, rf=n, n_processes=processes, verifier=verifier, byzantine=byz, admin_base_port=base,
+                        ready_timeout_s=ready_timeout_s)
+    t0 = time.perf_counter()
+    async with pc:
+        boot_s = time.perf_counter() - t0
+        quorum = pc.config.quorum
+        honest = [sid for sid in pc.config.servers if sid not in byz]
+        sdks = [pc.client(timeout_s=sdk_timeout_s) for _ in range(clients)]
+        acked: dict = {}
+        write_s: List[float] = []
+
+        async def writer(c, sdk):
+            for k in range(writes):
+                key, value = f"p15-{c}-{k}", b"p15 %d/%d " % (c, k) + bytes(24)
+                t = time.perf_counter()
+                await sdk.execute_write_transaction(TransactionBuilder().write(key, value).build())
+                write_s.append(time.perf_counter() - t)
+                acked[key] = value
+
+        t0 = time.perf_counter()
+        await asyncio.wait_for(asyncio.gather(*(writer(c, sdk) for c, sdk in enumerate(sdks))), timeout_s)
+        wall = time.perf_counter() - t0
+        bad = await _read_back(sdks[0], acked, quorum, timeout_s)
+        statuses = await process_statuses(pc, honest)
+        pids = {sp.name: sp.pid for sp in pc.processes}
+        card = card_view(pids)
+        alive = [sp.name for sp in pc.processes if sp.proc is not None and sp.proc.returncode is None]
+        pc.check_alive()
+        cpu = pc.cpu_seconds()
+        ready = {name: s[0] for name, s in pc.ready_seconds.items()}
+        hosted = {sp.name: sorted(sid for sid in sp.server_ids if sid in byz) for sp in pc.processes}
+    return {
+        "replicas": n, "rf": n, "f": (n - 1) // 3, "quorum": quorum, "processes": processes, "verifier": verifier,
+        "byzantine_counts": dict(byz_counts), "byzantine_by_process": hosted, "clients": clients,
+        "os_cpu_count": os.cpu_count(), "boot_s": boot_s, "ready_s": ready,
+        "sdk_timeout_s": sdk_timeout_s, "acked": len(acked), "expected": clients * writes, "read_back_bad": bad, "write_wall_s": wall,
+        "txn_per_s": len(acked) / wall, "write_p50_ms": 1e3 * _pct(write_s, 0.5),
+        "write_p99_ms": 1e3 * _pct(write_s, 0.99),
+        "status": {name: _child_summary(child) for name, child in statuses.items()},
+        "cpu_seconds": cpu, "pids": pids, "card": card, "alive": alive, "parent_pid": os.getpid(),
+        "reduced": f"depth: {clients} clients x {writes} PUTs (widths uncut: n={n}, quorum {quorum}, "
+                   f"{processes} processes of {n // processes} replicas, {len(byz)} Byzantine)",
+    }
+
+
+def adversary_process_problems(rec: dict, on_card: bool = True) -> List[str]:
+    """What phase 15p must not show: a missing ack or an acked key that does
+    not read back with a 2f+1-grant certificate, a child not alive at the
+    end, and (``on_card``) an honest replica whose ``/status`` does not
+    show a ``CudaBatchVerifier`` with comb dispatches and routed items, or
+    a child that does not hold the card (:func:`card_problems`)."""
+    problems = []
+    if rec["acked"] != rec["expected"] or rec["read_back_bad"]:
+        problems.append(f"{rec['acked']} of {rec['expected']} acked, read back wrong {rec['read_back_bad'][:5]}")
+    if len(rec["alive"]) != rec["processes"]:
+        problems.append(f"alive at the end: {rec['alive']}")
+    if not on_card:
+        return problems
+    for name, ch in rec["status"].items():
+        if ch["types"] != ["CudaBatchVerifier"] or ch["dispatches"] <= 0 or ch["comb_items"] <= 0:
+            problems.append(f"{name}: {ch}")
+    return problems + card_problems(rec["card"], rec["pids"], sorted(rec["pids"]), "15p")
+
+
+def run_scenarios(seeds, postures=("cuda", "cpu")) -> dict:
+    """Phase 15s: ``run_scenario(seed, verifier=posture)`` for each seed
+    and posture, the launch counts zeroed just before each run and read
+    just after.  Per run: the verdict, the sha256 of ``canonical_bytes()``,
+    the launches and the shared verifier's counters."""
+    from mochi_tpu_torch.testing.scenario import draw_spec, run_scenario
+
+    out: dict = {"seeds": list(seeds), "postures": list(postures), "runs": {}}
+    logs: dict = {}
+    for seed in seeds:
+        spec = draw_spec(seed)
+        runs = out["runs"][str(seed)] = {"families": spec.fault_families(), "durable": spec.durable,
+                                         "backend": spec.backend, "n_servers": spec.n_servers,
+                                         "spec_hash": spec.spec_hash()}
+        for posture in postures:
+            _zero_counts()
+            t0 = time.perf_counter()
+            res = run_scenario(seed, verifier=posture)
+            rec = {"seconds": time.perf_counter() - t0, "ok": res.ok, "error": res.error,
+                   "violations": res.violations[:5], "acked": len(res.acked),
+                   "canonical_sha256": hashlib.sha256(res.canonical_bytes()).hexdigest(),
+                   "verifier": res.info.get("verifier"), "hiccups": len(res.info.get("hiccups", []))}
+            logs[(seed, posture)] = _read_counts(rec)
+            runs[posture] = rec
+            print(f"[scenarios] seed {seed} {posture}: ok {res.ok}, {rec['acked']} acked, "
+                  f"sha256 {rec['canonical_sha256'][:16]}, comb {rec['comb_launches']}, "
+                  f"verify {rec['verify_launches']}, {rec['seconds']:.1f} s", flush=True)
+    return out, logs
+
+
+def scenario_problems(rec: dict, launched: bool = True) -> List[str]:
+    """What phase 15s must not show: a violation or harness error, a seed
+    whose canonical record differs between the postures, and (``launched``)
+    a ``"cuda"`` run without a kernel launch or with a fallback batch."""
+    problems = []
+    for seed, runs in rec["runs"].items():
+        for posture in rec["postures"]:
+            r = runs[posture]
+            if not r["ok"]:
+                problems.append(f"seed {seed} {posture}: error {r['error']}, violations {r['violations']}")
+        shas = {runs[p]["canonical_sha256"] for p in rec["postures"]}
+        if len(shas) != 1:
+            problems.append(f"seed {seed}: canonical records differ between postures {shas}")
+        if launched and "cuda" in runs:
+            r = runs["cuda"]
+            if sum(r["comb_launches"].values()) + r["verify_launches"] <= 0:
+                problems.append(f"seed {seed}: no kernel launch under 'cuda'")
+            v = r["verifier"] or {}
+            if v.get("fallback_batches", 0) or v.get("crossover_batches", 0):
+                problems.append(f"seed {seed}: fallback batches {r['verifier']}")
+    return problems
+
+
+def adversary_phases(res: dict, check_comb=None, check_verify=None) -> dict:
+    """Phases 15, 15p and 15s on the card (see the module docstring);
+    raises on what :func:`adversary_problems`,
+    :func:`adversary_process_problems` or :func:`scenario_problems` finds.
+    ``check_comb(lane_counts)`` and ``check_verify(lane_counts)`` (the full
+    run's) hold the comb and the general kernel against their plain
+    versions at every lane count phases 15 and 15s launched.  Returns the
+    general (``pad``) and comb (``chain``) launches of phase 15 and of the
+    ``"cuda"`` runs of 15s, by phase."""
+    smi = _nvidia_smi("name,power.limit")
+    rec, logs = _drive(lambda: drive_adversaries("cuda", ADV_N, ADV_STRATEGIES, ADV_CLIENTS, ADV_KEYS,
+                                                 ADV_SWEEPS, ADV_BYZ_WRITES, ADV_PROBED), "adversaries", res)
+    rec["nvidia_smi"] = smi
+    vlogs, clogs = logs
+    if check_comb is not None:
+        check_comb(n for n, _, _ in clogs["chain"])
+        check_verify(n for n, _, _ in vlogs["pad"])
+        rec["comb_lane_counts_checked_vs_plain"] = sorted({n for n, _, _ in clogs["chain"]})
+        rec["verify_lane_counts_checked_vs_plain"] = sorted({n for n, _, _ in vlogs["pad"]})
+    problems = adversary_problems(rec)
+    if _other_comb_launches(rec, "chain") or rec["verify_mxu_launches"]:
+        problems.append(f"adversaries: comb launches {rec['comb_launches']}, mxu {rec['verify_mxu_launches']}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    res["adversary_processes"] = rec = asyncio.run(drive_adversary_processes(
+        "cuda", ADV_N, ADV_PROC_PROCESSES, ADV_PROC_STRATEGIES, ADV_PROC_CLIENTS, ADV_PROC_WRITES))
+    rec["nvidia_smi"] = smi
+    print(f"[adversary processes] {rec}", flush=True)
+    problems = adversary_process_problems(rec)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    res["scenarios"], slogs = run_scenarios(SCENARIO_SEEDS)
+    res["scenarios"]["nvidia_smi"] = smi
+    for (seed, posture), (sv, sc) in slogs.items():
+        if posture == "cuda":
+            if check_comb is not None:
+                check_comb(n for n, _, _ in sc["chain"])
+                check_verify(n for n, _, _ in sv["pad"])
+    if check_comb is not None:
+        res["scenarios"]["comb_lane_counts_checked_vs_plain"] = sorted(
+            {n for (seed, posture), (_, sc) in slogs.items() if posture == "cuda" for n, _, _ in sc["chain"]})
+    print(f"[scenarios] {res['scenarios']}", flush=True)
+    problems = scenario_problems(res["scenarios"])
+    if problems:
+        raise AssertionError("; ".join(problems))
+    cuda_runs = [runs["cuda"] for runs in res["scenarios"]["runs"].values()]
+    return {"15": {"pad": res["adversaries"]["verify_launches"], "chain": res["adversaries"]["comb_launches"]["chain"]},
+            "15s": {"pad": sum(r["verify_launches"] for r in cuda_runs),
+                    "chain": sum(r["comb_launches"]["chain"] for r in cuda_runs)}}
+
 def host_prepare_times(items, repeats: int = 5) -> dict:
     """Phase 4's host prepare of ``items`` with the native ``h_batch`` and
     with the pure-Python hash (median µs per item of ``repeats``), the two
@@ -2061,6 +2556,9 @@ def run(args) -> dict:
 
     if args.only == "14":
         process_phases(res)
+        return res
+    if args.only == "15":
+        adversary_phases(res)
         return res
 
     # 3. kernel vs plain on the card
@@ -2711,13 +3209,24 @@ def run(args) -> dict:
     # 14, 14s. a cluster of replica processes: the card in every child, then a sidecar that owns it
     process_phases(res)
 
+    # 15, 15p, 15s. live Byzantine replicas and a Byzantine client, across
+    # processes too, then seeded scenarios under both verifier postures
+    def check_verify(lane_counts):
+        """The general kernel against its plain version at each lane count
+        a main path launched that was not checked yet."""
+        for n in sorted(set(lane_counts) - set(checked)):
+            checked[n] = check_kernel_vs_plain([t[:n] for t in big_t], big[6][:n], flat_want[:n])
+
+    adv = adversary_phases(res, check_comb, check_verify)
+
     res["kernels"] = [{
         "name": "ed25519_verify",
         "route": "cuda",
         "source": "mochi_tpu_torch/csrc/verify.cu",
         "design": "a team of 4 lanes a signature (csrc/verify25519.cuh), [S]B by the basepoint comb",
         "replaces": "mochi_tpu/crypto/pallas_verify.py:132",
-        "launches": svc["verify_launches"],
+        "launches": svc["verify_launches"] + adv["15"]["pad"] + adv["15s"]["pad"],
+        "launches_by_phase": {"5": svc["verify_launches"], "15": adv["15"]["pad"], "15s": adv["15s"]["pad"]},
         "max_abs_err": max([max_abs_err, *checked.values()]),
         "ms": ms_8k,
         "ms_65536": ms_64k,
@@ -2752,7 +3261,9 @@ def run(args) -> dict:
         "design": f"a team of {ca['team']} lanes a signature, one a warp (csrc/comb_team.cuh), "
                   "the last also decoding R",
         "replaces": "mochi_tpu/crypto/comb.py:512",
-        "launches": cl["comb_launches"]["chain"],
+        "launches": cl["comb_launches"]["chain"] + adv["15"]["chain"] + adv["15s"]["chain"],
+        "launches_by_phase": {"9": cl["comb_launches"]["chain"], "15": adv["15"]["chain"],
+                              "15s": adv["15s"]["chain"]},
         "max_abs_err": max(ccheck.values()),
         "ms": c8k,
         "ms_65536": c64k,
@@ -3093,9 +3604,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="also write every result as JSON here")
-    ap.add_argument("--only", choices=("14",), default=None,
-                    help="run only the device and build phases and phase 14 (with 14s), print their "
-                         "records and no result line")
+    ap.add_argument("--only", choices=("14", "15"), default=None,
+                    help="run only the device and build phases and phase 14 (with 14s) or 15 (with 15p "
+                         "and 15s), print their records and no result line")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -3112,7 +3623,9 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)
     if args.only:
-        print(json.dumps({k: res[k] for k in ("processes", "processes_service")}))
+        keys = {"14": ("processes", "processes_service"),
+                "15": ("adversaries", "adversary_processes", "scenarios")}[args.only]
+        print(json.dumps({k: res[k] for k in keys}, default=str))
         return 0
     print(json.dumps({"kernels": res["kernels"]}))
     print(res["device"]["nvidia_smi"])

@@ -40,8 +40,9 @@ Operator surface: ``--admin-port P`` serves the HTTP admin shell
 (``/status``, ``/metrics``, ``/metrics.prom``, ``/trace``; hosted replica i
 on port P + i), bound to loopback unless ``--admin-host`` widens it.
 
-Not part of this package yet: the Byzantine fault-injection posture
-(``--byzantine``), which lands with the Byzantine harnesses.
+Fault injection (testing only): ``--byzantine <server-id>=<strategy>`` hosts
+that replica as a ``ByzantineReplica`` (``testing/byzantine.py``); the
+strategy is validated before the replica binds a port.
 """
 
 from __future__ import annotations
@@ -134,6 +135,23 @@ async def amain(args) -> None:
         )
     if len(set(server_ids)) != len(server_ids):
         raise SystemExit(f"duplicate --server-id in {server_ids}")
+    byzantine = {}
+    for spec in args.byzantine or ():
+        sid, sep, strategy = spec.partition("=")
+        if not sep or not strategy:
+            raise SystemExit(f"--byzantine wants <server-id>=<strategy>, got {spec!r}")
+        if sid not in server_ids:
+            raise SystemExit(f"--byzantine {spec!r}: {sid} is not hosted here")
+        byzantine[sid] = strategy
+    if byzantine:
+        # validate every strategy before any hosted replica binds a port
+        from ..testing.byzantine import make_strategy
+
+        for strategy in byzantine.values():
+            try:
+                make_strategy(strategy)
+            except ValueError as exc:
+                raise SystemExit(f"--byzantine: {exc}") from None
     # Graceful SIGTERM/SIGINT: drain first — stop accepting, finish admitted
     # work, flush coalesced writes (bounded by --drain-timeout) — then the
     # close path: peer/RPC teardown and the UDS socket unlink.  Installed
@@ -172,7 +190,18 @@ async def amain(args) -> None:
                 args.storage_dir, sid, fsync=args.wal_fsync,
                 engine=args.storage_engine,
             )
-        replica = MochiReplica(
+        replica_cls = MochiReplica
+        replica_kwargs = {}
+        if sid in byzantine:
+            # Fault-injection posture (testing/process_cluster drives this
+            # for cross-process adversarial scenarios).
+            from ..testing.byzantine import ByzantineReplica
+
+            replica_cls = ByzantineReplica
+            replica_kwargs = dict(
+                strategy=byzantine[sid], strategy_seed=sum(sid.encode())
+            )
+        replica = replica_cls(
             server_id=sid,
             config=config,
             keypair=keypair,
@@ -190,6 +219,7 @@ async def amain(args) -> None:
                 if args.admission is not None
                 else (args.shed_lag_ms is None or args.shed_lag_ms > 0)
             ),
+            **replica_kwargs,
         )
         await replica.start()
         replicas.append(replica)
@@ -343,6 +373,16 @@ def main(argv=None) -> None:
         default=None,
         help="DEPRECATED alias for --admission (the wall-clock lag signal "
         "is retired): 0 maps to off, any positive value to on",
+    )
+    parser.add_argument(
+        "--byzantine",
+        action="append",
+        default=None,
+        metavar="SID=STRATEGY",
+        help="FAULT INJECTION (testing only): host the named replica as a "
+        "ByzantineReplica running the given attack strategy (equivocate | "
+        "forge-cert | stale-replay | silent | storm | session-attack) — see "
+        "mochi_tpu_torch/testing/byzantine.py",
     )
     parser.add_argument(
         "--drain-timeout",

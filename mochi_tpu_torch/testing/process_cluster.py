@@ -51,9 +51,10 @@ With ``admin_base_port`` every child serves the admin shell: process ``pi``'s
 (:meth:`admin_port`), and the sidecar on ``admin_base_port + n_processes *
 n_servers`` (:attr:`service_admin_port`).
 
-Not part of this package yet: Byzantine replicas and clients
-(``byzantine=`` and :meth:`byzantine_client` raise until the Byzantine
-harnesses land).
+``byzantine=`` ({server id: strategy name}) hosts the mapped replicas as
+live adversaries (``--byzantine sid=strategy`` in the hosting child), and
+:meth:`byzantine_client` wraps an SDK client in a hostile coordinator —
+the cross-process twins of ``VirtualCluster``'s.
 """
 
 from __future__ import annotations
@@ -159,7 +160,10 @@ class ProcessCluster:
         # thrash).  The client process is left unpinned so the
         # scheduler can fill the remaining capacity.
         pin_cores: bool = False,
-        # Byzantine fault injection: a later slice of this package.
+        # Byzantine fault injection across a REAL process boundary:
+        # {server_id: strategy name} forwarded to the hosting child as
+        # ``--byzantine sid=strategy`` (testing/byzantine.py catalog) —
+        # the cross-process twin of VirtualCluster(byzantine=...).
         byzantine: Optional[Dict[str, str]] = None,
         # Durable storage across the REAL process boundary: True roots a
         # per-replica WAL+snapshot engine inside the cluster tmpdir (lives
@@ -174,11 +178,6 @@ class ProcessCluster:
         # child's MOCHI_STORAGE_ENGINE (or "wal")
         storage_engine: Optional[str] = None,
     ):
-        if byzantine:
-            raise NotImplementedError(
-                "ProcessCluster(byzantine=...) is not ported to mochi_tpu_torch "
-                "yet: the Byzantine harnesses land in a later slice"
-            )
         if n_processes is None:
             n_processes = min(n_servers, os.cpu_count() or 1)
         if not 1 <= n_processes <= n_servers:
@@ -204,6 +203,7 @@ class ProcessCluster:
         self.storage_dir = storage_dir
         self.wal_fsync = wal_fsync
         self.storage_engine = storage_engine
+        self.byzantine: Dict[str, str] = dict(byzantine or {})
         # resolved at start(): True -> <tmpdir>/storage, str -> that path
         self.storage_root: Optional[str] = None
         self._extra_env = dict(env or {})
@@ -226,6 +226,11 @@ class ProcessCluster:
         self._tmpdir = tempfile.TemporaryDirectory(prefix="mochi-pc-")
         out = self._tmpdir.name
         server_ids = [f"server-{i}" for i in range(self.n_servers)]
+        if self.byzantine:
+            # in the parent: spares a spawn-and-crash cycle
+            from .byzantine import check_byzantine_map
+
+            check_byzantine_map(self.byzantine, server_ids)
         self.keypairs = {sid: generate_keypair() for sid in server_ids}
         if self.uds:
             paths = {sid: os.path.join(out, sid + ".sock") for sid in server_ids}
@@ -304,6 +309,9 @@ class ProcessCluster:
                 for sid in group:
                     argv += ["--server-id", sid]
                     argv += ["--seed-file", os.path.join(out, f"{sid}.seed")]
+                for sid in group:
+                    if sid in self.byzantine:
+                        argv += ["--byzantine", f"{sid}={self.byzantine[sid]}"]
                 argv += [
                     "--verifier", replica_verifier,
                     "--admission", "on" if self.admission else "off",
@@ -393,10 +401,12 @@ class ProcessCluster:
         return client
 
     def byzantine_client(self, strategy: str = "withhold", seed: int = 0, **kwargs):
-        raise NotImplementedError(
-            "ProcessCluster.byzantine_client is not ported to mochi_tpu_torch "
-            "yet: the Byzantine harnesses land in a later slice"
-        )
+        """Byzantine CLIENT over the real process boundary: same wrapper as
+        ``VirtualCluster.byzantine_client`` — the children see validly
+        signed hostile traffic arriving over real sockets."""
+        from .byzantine_client import ByzantineClient
+
+        return ByzantineClient(self.client(**kwargs), strategy=strategy, seed=seed)
 
     def admin_port(self, server_id: str) -> int:
         """The admin shell port of ``server_id`` (needs ``admin_base_port``)."""

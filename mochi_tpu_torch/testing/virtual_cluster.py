@@ -16,9 +16,10 @@ With ``storage_dir=`` every replica gets a durable engine under
 :meth:`VirtualCluster.restart_replica` recovers it from disk.
 
 ``netsim=`` (a :class:`~mochi_tpu_torch.netsim.NetSim`) conditions every
-replica's peer links and every ``vc.client()``'s links.  Not part of this
-package yet: Byzantine replicas (``byzantine=`` raises until the Byzantine
-harnesses land).
+replica's peer links and every ``vc.client()``'s links.  ``byzantine=``
+boots the mapped replicas as live adversaries (``testing/byzantine.py``),
+and :meth:`VirtualCluster.byzantine_client` wraps an SDK client in a hostile
+coordinator (``testing/byzantine_client.py``).
 
 The external-cluster escape hatch (``MochiVirtualCluster.java:45-49``) is
 preserved via ``MOCHI_CLUSTER_CONFIG`` pointing at a properties/JSON file.
@@ -67,8 +68,13 @@ class VirtualCluster:
         # and every vc.client() SDK instance, with the event schedule armed
         # at cluster start.  None (default): unconditioned loopback.
         netsim=None,
-        # Byzantine fault injection is a later slice of this package: it
-        # raises when given.
+        # Byzantine fault injection (testing/byzantine.py): {server_id:
+        # strategy} where strategy is a catalog name ("equivocate",
+        # "forge-cert", "stale-replay", "silent", "storm",
+        # "session-attack") or an AttackStrategy instance.  Mapped replicas
+        # boot as ByzantineReplica — the honest runtime with the strategy
+        # spliced into its batch seams — and KEEP the strategy across
+        # restart_replica (an adversary does not reform on reboot).
         byzantine: Optional[Dict[str, object]] = None,
         # Durable storage: every replica gets a durable engine rooted at
         # <storage_dir>/<server_id> (WAL + snapshots + verified recovery),
@@ -84,12 +90,8 @@ class VirtualCluster:
         # whole cluster.  None (default) defers to MOCHI_FAST_PATH.
         fast_path: Optional[bool] = None,
     ):
-        if byzantine:
-            raise NotImplementedError(
-                "VirtualCluster(byzantine=...) is not ported to mochi_tpu_torch "
-                "yet: the Byzantine harnesses land in a later slice"
-            )
         self.netsim = netsim
+        self.byzantine: Dict[str, object] = dict(byzantine or {})
         self.storage_dir = storage_dir
         self.storage_engine = storage_engine
         self.n_servers = n_servers
@@ -139,6 +141,10 @@ class VirtualCluster:
             self.netsim.ensure_started()  # arm the link-event schedule at t=0
 
         server_ids = [f"server-{i}" for i in range(self.n_servers)]
+        if self.byzantine:
+            from .byzantine import check_byzantine_map
+
+            check_byzantine_map(self.byzantine, server_ids)
         self.keypairs = {sid: generate_keypair() for sid in server_ids}
 
         def host_for(sid: str) -> str:
@@ -173,8 +179,10 @@ class VirtualCluster:
     def _new_replica(
         self, sid: str, config: ClusterConfig, host: str, port: int, **kwargs
     ) -> MochiReplica:
-        """Construct one replica."""
-        return MochiReplica(
+        """Construct one replica — honest, or a ByzantineReplica when the
+        ``byzantine`` map names this server (seeded per server id so each
+        adversary's decisions are deterministic run over run)."""
+        common = dict(
             server_id=sid,
             config=config,
             keypair=self.keypairs[sid],
@@ -189,6 +197,20 @@ class VirtualCluster:
             storage_engine=self.storage_engine,
             **kwargs,
         )
+        strategy = self.byzantine.get(sid)
+        if strategy is None:
+            return MochiReplica(**common)
+        from .byzantine import ByzantineReplica
+
+        return ByzantineReplica(
+            strategy=strategy,
+            strategy_seed=sum(sid.encode()),
+            **common,
+        )
+
+    def honest_replicas(self) -> List[MochiReplica]:
+        """The replicas the safety invariants constrain (testing/invariants)."""
+        return [r for r in self.replicas if r.server_id not in self.byzantine]
 
     def client(self, **kwargs) -> MochiDBClient:
         assert self.config is not None, "cluster not started"
@@ -207,6 +229,16 @@ class VirtualCluster:
         self.client_keys[client.client_id] = client.keypair.public_key
         self._clients.append(client)
         return client
+
+    def byzantine_client(self, strategy: str = "withhold", seed: int = 0, **kwargs):
+        """A Byzantine CLIENT (testing/byzantine_client.py) wrapping a real
+        SDK instance from :meth:`client` — real keypair, real sessions,
+        registered like any client — so its hostile traffic is validly
+        authenticated.  Composable with the ``byzantine={...}`` replica
+        adversaries in the same cluster."""
+        from .byzantine_client import ByzantineClient
+
+        return ByzantineClient(self.client(**kwargs), strategy=strategy, seed=seed)
 
     def replica(self, server_id: str) -> MochiReplica:
         return next(r for r in self.replicas if r.server_id == server_id)
@@ -241,7 +273,8 @@ class VirtualCluster:
             result = before_boot(server_id)
             if inspect.isawaitable(result):
                 await result
-        # same endpoint the config advertises (UDS path or TCP host)
+        # same endpoint the config advertises (UDS path or TCP host); a
+        # byzantine-mapped server comes back byzantine (fresh strategy state)
         fresh = self._new_replica(
             server_id,
             self.config,

@@ -131,7 +131,14 @@ def test_port_client_commits_against_reference_replicas():
 
 @pytest.mark.parametrize("cluster", [VirtualCluster, ProcessCluster], ids=["byzantine", "process-byzantine"])
 def test_unported_cluster_options_raise(cluster):
-    """Byzantine replicas wait for their harnesses in both clusters
-    (``netsim=`` is ported: ``tests/test_torch_netsim.py``)."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cluster(4, rf=4, byzantine={"server-1": "silent"})
+    """Both clusters take ``byzantine=`` now (``tests/test_torch_byzantine_live.py``,
+    ``netsim=`` in ``tests/test_torch_netsim.py``); what they still refuse,
+    at ``start()`` and before any replica binds or process spawns, is a map
+    naming a server outside the cluster or an unknown strategy."""
+    kwargs = {"verifier": "cpu"} if cluster is ProcessCluster else {}
+    for byz, match in (({"server-9": "silent"}, "unknown servers"),
+                       ({"server-1": "nope"}, "unknown byzantine strategy")):
+        c = cluster(4, rf=4, byzantine=byz, **kwargs)
+        with pytest.raises(ValueError, match=match):
+            asyncio.run(c.start())
+        assert not getattr(c, "replicas", None) and not getattr(c, "processes", None)

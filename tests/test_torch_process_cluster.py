@@ -6,8 +6,8 @@ transaction spanning two shards commits atomically over two processes;
 it still commits with one owning replica SIGKILLed between grant assembly
 and the Write2 dispatch; and it aborts on both shards when one shard has
 lost its quorum.  Added: the same seeded writes through a process cluster
-of each package read back the same map; ``byzantine=`` is refused until the
-Byzantine harnesses land; and the default ``verifier="cuda"`` fails at boot
+of each package read back the same map; a Byzantine map or client strategy
+the harnesses do not know is refused; and the default ``verifier="cuda"`` fails at boot
 where there is no card, with the child's own words, instead of verifying on
 the CPU.  Every child here runs ``--verifier cpu``, which imports no torch.
 """
@@ -198,14 +198,26 @@ def test_same_seeded_writes_read_back_the_same_map_in_both_packages(monkeypatch,
 
 @pytest.mark.parametrize("how", ["constructor", "client"])
 def test_byzantine_postures_are_refused(how):
-    """``byzantine=`` and ``byzantine_client()`` raise until the Byzantine
-    harnesses are ported; the constructor refuses before any process starts."""
+    """What the Byzantine postures refuse: ``byzantine=`` with an unknown
+    strategy fails ``start()`` before any process spawns, and
+    ``byzantine_client()`` an unknown client strategy, while a known one
+    wraps a real SDK client of the running cluster."""
     if how == "constructor":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ProcessCluster(4, rf=4, verifier="cpu", byzantine={"server-1": "silent"})
-    else:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ProcessCluster(4, rf=4, verifier="cpu").byzantine_client("withhold")
+        pc = ProcessCluster(4, rf=4, verifier="cpu", byzantine={"server-1": "nope"})
+        with pytest.raises(ValueError, match="unknown byzantine strategy"):
+            asyncio.run(pc.start())
+        assert pc.processes == []
+        return
+
+    async def body():
+        async with ProcessCluster(4, rf=4, n_processes=1, verifier="cpu") as pc:
+            with pytest.raises(ValueError, match="unknown byzantine client strategy"):
+                pc.byzantine_client("nope")
+            byz = pc.byzantine_client("withhold", seed=3)
+            assert byz.strategy == "withhold" and byz.client_id == byz.client.client_id
+            assert byz.client.config is pc.config
+
+    asyncio.run(asyncio.wait_for(body(), timeout=120))
 
 
 def test_cuda_children_fail_at_boot_without_a_card():
