@@ -277,16 +277,42 @@ Phases (any failure exits non-zero and prints no result line):
    partition): no violation or harness error, the two runs' canonical
    records equal (sha256 recorded), kernel launches and no fallback in
    every ``"cuda"`` run.
+16. Live reconfiguration — phase 9's cluster (n = 64, quorum 43, one
+   shared ``CudaBatchVerifier``, the identities registered): 4 SDK clients
+   x 4 signed PUTs; then ``server-64`` (the key of ``member_seed(--seed)``)
+   boots with the shared verifier and an admin client commits
+   ``evolve(..., rf=65)`` (f 21, quorum 43) and the cluster converges
+   (every member's resync from its peers over, the member's pull of every
+   key too): the registry must reach generation 65 with the member at
+   index 64 and, once the next comb launch has run, a 128 x 576-row
+   ``radix25`` table; 4 x 4 PUTs.  The
+   probes: a certificate of 42 old members' grants and the member's, the
+   member's signature altered, goes to 4 old members and must be refused
+   with BAD_CERTIFICATE by each; unaltered it must be accepted by each;
+   each span must hold comb launches and no general-kernel item (launch
+   or router count).  Then ``server-62`` and ``server-63`` leave (``rf=63``,
+   f 20, quorum 41), the cluster converges, and 4 x 4 PUTs commit.  Every acked key must read back
+   with the certificate of its stage (43 grants, 41 after the remove), the
+   retired replicas' config must not list them, the registry's table must
+   hold its rows, and nothing may fall back.  The comb kernel is held
+   against its plain version at every lane count the phase launched, at a
+   128-signer table whose index 64 is the member's key (lane 0 and about
+   one lane in 56 under it), and the general kernel as in phase 9.
+   Recorded per stage: seconds, commit and converge seconds, txn/s, write
+   p50/p99, each kernel's launches and lanes, the router's counts, the
+   card's idle share, the host milliseconds of each table the registry
+   builds, and the members whose grants the read-back certificates hold.
 
-Phases 5, 5m, 8, 8t, 8m, 8tm, 9, 9m, 9tm, 10, 11, 13, 13p, 15 and 15s
+Phases 5, 5m, 8, 8t, 8m, 8tm, 9, 9m, 9tm, 10, 11, 13, 13p, 15, 15s and 16
 drive the main paths: each zeroes the launch counts just before it and
 reads them just after (13 and 13p around each recovery, compaction and
-audit; 15s around each run).  Phases 14, 14s and 15p launch the kernels in
+audit; 15s around each run; 16 also marks each stage without zeroing).  Phases 14, 14s and 15p launch the kernels in
 other processes: their children's admin shells count those launches, and
-the ``kernels`` line counts this process's alone.  ``--only 14`` runs
-phases 1, 2, 14 and 14s, ``--only 15`` phases 1, 2, 15, 15p and 15s (without
-the corpora, so without the kernel-vs-plain checks), and each prints their
-records instead of the result lines.
+the ``kernels`` line counts this process's alone (phase 16's launches
+are in its record, not in that line).  ``--only 14`` runs phases 1, 2, 14
+and 14s, ``--only 15`` phases 1, 2, 15, 15p and 15s, ``--only 16`` phases 1,
+2 and 16 (without the corpora, so without the kernel-vs-plain checks), and
+each prints their records instead of the result lines.
 Every phase but 8t and 6tm-9tm runs the comb's default accumulation, the
 chain, and every phase but 3m-5m, 6m-9m and 6tm-9tm the default multiply,
 ``pad``.  On a machine with several
@@ -316,6 +342,7 @@ import subprocess
 import sys
 import sysconfig
 import tempfile
+import threading
 import time
 import traceback
 from dataclasses import dataclass
@@ -332,8 +359,9 @@ BIG = 65536  # lanes of the larger timed launch
 CLIENTS, GRANTS, REQUESTS = 64, 43, 24  # n = 64 replicas, 2f + 1 grants, checks per client
 # The cluster phase: 64 replicas (rf = 64, f = 21), SDK clients x signed
 # PUTs each.  The host bounds it (the protocol's Python, 64 grant signatures
-# per write); sized to take a minute or two.
-CLUSTER_N, CLUSTER_CLIENTS, CLUSTER_WRITES = 64, 8, 16
+# per write); cut to half a minute or so, as phase 16's two convergences
+# take several minutes of the script's time limit.
+CLUSTER_N, CLUSTER_CLIENTS, CLUSTER_WRITES = 64, 8, 8
 # Phases 13 and 13p: the cluster on the durable engines, SDK clients x
 # signed PUTs each (13p: two generations of them), cut in depth only.
 RECOVERY_CLIENTS, RECOVERY_PAGED_CLIENTS, RECOVERY_WRITES = 4, 2, 8
@@ -361,6 +389,10 @@ ADV_PROC_STRATEGIES = (("silent", 7), ("forge-cert", 7), ("equivocate", 7))
 # crash-restart (3) and partition (62) families (tier-1 holds the same seeds
 # against the JAX package under the CPU verifier).
 SCENARIO_SEEDS = (0, 7, 3, 62)
+# Phase 16: phase 9's cluster reconfigured live: SDK clients x signed PUTs in
+# each stage (before, after adding member n, after removing the last
+# RECONF_REMOVED of the first n), the probes sent to the first old members.
+RECONF_N, RECONF_CLIENTS, RECONF_WRITES, RECONF_PROBED, RECONF_REMOVED = 64, 4, 4, 4, 2
 PARTIAL = 37  # lanes short of a full last block in the partial-block check
 NS_SLOTS, NS_VOTERS, NS_FORGED = 4, 64, 30  # the north-star quorum leg: slot 3 loses 30 votes
 MULTIHOST_LANES = 8  # lanes per process of the multi-process leg
@@ -395,20 +427,28 @@ class Signer:
     mixed_pub: bytes  # A + T8: the public key with a small-order component
 
 
-def make_signers(rng: np.random.Generator, n: int) -> List[Signer]:
+def signer_from_seed(seed: bytes, rng: np.random.Generator) -> Signer:
+    """The signer of an RFC 8032 ``seed`` (its key is ``keys.keypair_from_seed(seed)``'s),
+    with nonces drawn from ``rng``."""
     from mochi_tpu_torch.crypto import hostfallback as hf
 
-    t8 = hf._decompress(ORDER8_ENC)
-    out = []
-    for _ in range(n):
-        a, _prefix, pub = hf._expand_seed(rng.bytes(32))
-        nonces = []
-        for _ in range(NONCES_PER_SIGNER):
-            r = int.from_bytes(rng.bytes(40), "little") % (L - 1) + 1
-            nonces.append((r, hf._compress(hf._mul_base(r))))
-        mixed = hf._compress(hf._pt_add(hf._decompress(pub), t8))
-        out.append(Signer(a, pub, nonces, mixed))
-    return out
+    a, _prefix, pub = hf._expand_seed(seed)
+    nonces = []
+    for _ in range(NONCES_PER_SIGNER):
+        r = int.from_bytes(rng.bytes(40), "little") % (L - 1) + 1
+        nonces.append((r, hf._compress(hf._mul_base(r))))
+    mixed = hf._compress(hf._pt_add(hf._decompress(pub), hf._decompress(ORDER8_ENC)))
+    return Signer(a, pub, nonces, mixed)
+
+
+def make_signers(rng: np.random.Generator, n: int) -> List[Signer]:
+    return [signer_from_seed(rng.bytes(32), rng) for _ in range(n)]
+
+
+def member_seed(seed: int) -> bytes:
+    """The Ed25519 seed of the member phase 16 adds: the kernel-vs-plain
+    check's registry holds the same key at the same index (64)."""
+    return hashlib.sha256(b"chip smoke member %d" % seed).digest()
 
 
 def _below(rng: np.random.Generator, n: int) -> int:
@@ -1392,6 +1432,7 @@ async def drive_recovery(device: str, n: int, clients: int, writes: int, storage
                 src = os.path.join(storage_dir, sid)
                 frozen = src + ".crash"
                 async with victim.storage._snapshot_lock:  # no snapshot renames a file mid-copy
+                    # mochi-lint: disable=async-blocking -- a crash image is one instant: no replica coroutine may append while its files are copied
                     shutil.copytree(src, frozen)
                 planted = plant_forged_grant(frozen, sid)
 
@@ -1679,6 +1720,8 @@ async def _load(sdks, acked: dict, write_s: List[float], tag: str) -> None:
             t = time.perf_counter()
             try:
                 await sdk.execute_write_transaction(TransactionBuilder().write(key, value).build())
+            except asyncio.CancelledError:
+                raise
             except Exception:
                 return
             write_s.append(time.perf_counter() - t)
@@ -2352,6 +2395,438 @@ def adversary_phases(res: dict, check_comb=None, check_verify=None) -> dict:
             "15s": {"pad": sum(r["verify_launches"] for r in cuda_runs),
                     "chain": sum(r["comb_launches"]["chain"] for r in cuda_runs)}}
 
+
+def _mark(cuda: bool) -> dict:
+    """Cumulative launch counts, trace lengths and router counts at one
+    point of a phase that :func:`_drive` zeroed once, just before it (read,
+    never zeroed: a stage is the difference of two marks); on the card,
+    after a synchronize, an event on the current stream."""
+    from mochi_tpu_torch.crypto import batch_verify as BV
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+    from mochi_tpu_torch.crypto import cuda_verify as CV
+
+    m = {"t": time.perf_counter(), "verify": dict(CV.launches), "comb": dict(CC.launches),
+         "vlog": {k: len(v or ()) for k, v in CV.launch_logs.items()},
+         "clog": {k: len(v or ()) for k, v in CC.launch_logs.items()},
+         "routing": BV.comb_routing_counts(), "items": BV.device_item_count(), "event": None}
+    if cuda:
+        import torch
+
+        torch.cuda.synchronize()
+        m["event"] = torch.cuda.Event(enable_timing=True)
+        m["event"].record()
+    return m
+
+
+def _stage(m0: dict, m1: dict) -> dict:
+    """What ran between two marks: seconds, launches and lanes of each
+    kernel, the lane counts launched, the router's items and, on the card,
+    the kernels' busy share of the span (``device``)."""
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+    from mochi_tpu_torch.crypto import cuda_verify as CV
+
+    vlog = {k: list((CV.launch_logs[k] or [])[m0["vlog"][k]:m1["vlog"][k]]) for k in m1["vlog"]}
+    clog = {k: list((CC.launch_logs[k] or [])[m0["clog"][k]:m1["clog"][k]]) for k in m1["clog"]}
+    out = {
+        "seconds": m1["t"] - m0["t"],
+        "verify_launches": m1["verify"]["pad"] - m0["verify"]["pad"],
+        "verify_mxu_launches": m1["verify"]["mxu"] - m0["verify"]["mxu"],
+        "comb_launches": {k: m1["comb"][k] - m0["comb"][k] for k in m1["comb"]},
+        "verify_lanes": sum(n for n, _, _ in vlog["pad"]),
+        "comb_lanes": {k: sum(n for n, _, _ in log) for k, log in clog.items()},
+        "verify_lane_counts": sorted({n for n, _, _ in vlog["pad"]}),
+        "comb_lane_counts": sorted({n for n, _, _ in clog["chain"]}),
+        "routing": {k: m1["routing"][k] - m0["routing"][k] for k in m1["routing"]},
+        "device_items": m1["items"] - m0["items"],
+    }
+    if m0["event"] is not None:
+        import torch
+
+        torch.cuda.synchronize()  # a launch logged after m1's synchronize has finished too
+        out["device"] = device_busy(sum(vlog.values(), []) + sum(clog.values(), []), m0["event"], m1["event"])
+    return out
+
+
+def _watch_tables(reg) -> list:
+    """Records each device table ``reg.device_table`` builds (a capacity or
+    layout not cached yet, or rows the cached one lacks): the host
+    milliseconds of the call that built it (the 17 x 15 rows, the radix
+    conversion, the upload and its synchronize), its rows, layout and
+    generation.  A call that found the table built by another thread's
+    call is not a build."""
+    built: list = []
+    build, rows_locked = reg.device_table, reg._host_table_locked
+    local = threading.local()
+
+    def host_rows(gen):
+        local.built = True  # only a build reads the registry's rows
+        return rows_locked(gen)
+
+    def device_table(*args, **kwargs):
+        local.built = False
+        t0 = time.perf_counter()
+        tab = build(*args, **kwargs)
+        if local.built:
+            built.append({"ms": 1e3 * (time.perf_counter() - t0), "rows": int(tab.shape[0]),
+                          "layout": kwargs.get("layout"), "generation": reg.generation})
+        return tab
+
+    reg._host_table_locked = host_rows
+    reg.device_table = device_table
+    return built
+
+
+def _table_rows(reg) -> dict:
+    """Rows of the largest device table cached in each layout."""
+    out: dict = {}
+    for (_device, _cap, layout), (tab, _rows) in list(reg._dev_tables.items()):
+        out[layout] = max(out.get(layout, 0), int(tab.shape[0]))
+    return out
+
+
+async def drive_reconfig(device: str, n: int, clients: int, writes: int, probed: int, removed: int, seed: bytes,
+                         sdk_timeout_s: float = 30.0, timeout_s: float = 600.0) -> dict:
+    """Phase 16: ``VirtualCluster(n, rf=n)`` with ONE shared
+    ``CudaBatchVerifier(device)``, reconfigured live by an admin SDK client.
+    Stage ``before``: ``clients`` SDK clients x ``writes`` signed PUTs.
+    ``add``: ``server-<n>`` (the key of ``seed``) boots with the shared
+    verifier and ``reconfigure_cluster(evolve(..., rf=n + 1))`` installs it
+    everywhere, which registers its key at index n (the registry's table
+    doubles at the next comb launch); once the cluster has converged (every
+    member's background resync over, the new member's pull of every key
+    too), fresh clients commit as many PUTs.  The probes: a certificate of
+    2f old members' grants and the new member's goes to ``probed`` old
+    members, first with the new member's signature altered (one bit of S),
+    then as it is.  ``remove``: the last ``removed`` of the first n leave
+    (``rf`` = the members left) and, once the cluster has converged, fresh
+    clients commit as many PUTs.  Then every acked key is read back.  Each
+    stage is a span between two marks; the tables the registry builds are
+    timed.  Returns the record;
+    :func:`reconfig_problems` says what it must not show."""
+    import torch
+
+    from mochi_tpu_torch.client import TransactionBuilder
+    from mochi_tpu_torch.crypto.keys import keypair_from_seed
+    from mochi_tpu_torch.protocol import (FailType, RequestFailedFromServer, Write1OkFromServer, Write1ToServer,
+                                          Write2AnsFromServer, Write2ToServer, WriteCertificate, transaction_hash)
+    from mochi_tpu_torch.server.replica import MochiReplica
+    from mochi_tpu_torch.testing import VirtualCluster
+    from mochi_tpu_torch.verifier.cuda import CudaBatchVerifier
+
+    cuda = device != "cpu"
+    verifier = CudaBatchVerifier(device=device)
+    reg = verifier.backend.registry
+    built = _watch_tables(reg)
+    acked: dict = {}  # key -> (value, stage)
+    stages: dict = {}
+    quorums: dict = {}
+    kp = keypair_from_seed(seed)
+    new_id = f"server-{n}"
+    gone = [f"server-{i}" for i in range(n - removed, n)]
+    t0 = time.perf_counter()
+    async with VirtualCluster(n, rf=n, verifier_factory=lambda: verifier) as vc:
+        boot_s = time.perf_counter() - t0
+        admin = vc.client(timeout_s=sdk_timeout_s)
+        old_ids = [f"server-{i}" for i in range(n)]
+
+        async def put(stage: str) -> dict:
+            quorums[stage] = vc.config.quorum
+            sdks = [vc.client(timeout_s=sdk_timeout_s) for _ in range(clients)]
+            write_s: List[float] = []
+
+            async def writer(c, sdk):
+                for k in range(writes):
+                    key, value = f"rc-{stage}-{c}-{k}", b"%s %d/%d " % (stage.encode(), c, k) + bytes(24)
+                    t = time.perf_counter()
+                    await sdk.execute_write_transaction(TransactionBuilder().write(key, value).build())
+                    write_s.append(time.perf_counter() - t)
+                    acked[key] = (value, stage)
+
+            t = time.perf_counter()
+            await asyncio.wait_for(asyncio.gather(*(writer(c, sdk) for c, sdk in enumerate(sdks))), timeout_s)
+            wall = time.perf_counter() - t
+            return {"writes": len(write_s), "write_wall_s": wall, "txn_per_s": len(write_s) / wall,
+                    "write_p50_ms": 1e3 * _pct(write_s, 0.5), "write_p99_ms": 1e3 * _pct(write_s, 0.99),
+                    "f": vc.config.f, "quorum": vc.config.quorum, "members": len(vc.config.servers),
+                    "installed": sum(r.config.configstamp == vc.config.configstamp for r in vc.replicas
+                                     if r.server_id in vc.config.servers)}
+
+        async def reconfigure(cfg, joining=None) -> dict:
+            """Commit ``cfg``, then wait for the cluster to converge: every
+            replica, retired ones too, has installed it (early quorum acks
+            before the last apply) and every member's background resync
+            (each pulls what its digests say differs from every peer) has
+            ended; ``joining``, which booted with ``cfg`` and so kicks no
+            resync of its own, pulls every key meanwhile."""
+            t = time.perf_counter()
+            await asyncio.wait_for(admin.reconfigure_cluster(cfg), timeout_s)
+            commit_s = time.perf_counter() - t
+            vc.config = cfg
+
+            async def converged():
+                while any(r.config.configstamp < cfg.configstamp
+                          or (r._sync_worker is not None and not r._sync_worker.done()) for r in vc.replicas):
+                    await asyncio.sleep(0.05)
+
+            pulled = await asyncio.wait_for(asyncio.gather(converged(), *([joining.resync()] if joining else [])),
+                                            timeout_s)
+            out = {"commit_s": commit_s, "converge_s": time.perf_counter() - t}
+            if joining is not None:
+                out["member_keys_pulled"] = pulled[1]
+            return out
+
+        b0, m = len(built), _mark(cuda)
+        rec = await put("before")
+        stages["before"] = dict(_stage(m, _mark(cuda)), **rec, generation=reg.generation,
+                                table_rows=_table_rows(reg), table_builds=built[b0:])
+
+        # add: the member boots with the shared verifier, then the admin commits it
+        b0, m = len(built), _mark(cuda)
+        newcomer = MochiReplica(server_id=new_id, config=vc.config, keypair=kp, client_public_keys=vc.client_keys,
+                                host=vc.host, port=0, verifier=verifier)
+        await newcomer.start()
+        servers = {r.server_id: f"{vc.host}:{r.bound_port}" for r in vc.replicas}
+        servers[new_id] = f"{vc.host}:{newcomer.bound_port}"
+        grown = vc.config.evolve(servers, public_keys={new_id: kp.public_key}, rf=len(servers))
+        newcomer.config = grown
+        newcomer.store.config = grown
+        vc.replicas.append(newcomer)
+        vc.keypairs[new_id] = kp
+        reconfigured = await reconfigure(grown, joining=newcomer)
+        registered = {"generation": reg.generation, "new_member_index": reg.index_of(kp.public_key)}
+        rec = await put("add")
+        # quiet before the probes: every member has applied every write of
+        # the stage, so no client handshake of the stage is still in flight
+        t = time.perf_counter()
+        for r in vc.replicas:
+            await _applied(r, {k: v for k, (v, stage) in acked.items() if stage == "add"}, timeout_s)
+        stages["add"] = dict(_stage(m, _mark(cuda)), **rec, **registered, **reconfigured,
+                             settle_s=time.perf_counter() - t, table_rows=_table_rows(reg),
+                             table_builds=built[b0:])
+
+        # the probes: 2f old members' grants and the new member's, altered
+        # then not, each Write2 on a MAC session (no client signature to verify)
+        prober = vc.client(timeout_s=sdk_timeout_s)
+        probed_ids = old_ids[:probed]
+        voters = old_ids[:grown.quorum - 1] + [new_id]
+        for sid in voters:
+            await asyncio.wait_for(prober._ensure_session(sid, grown.servers[sid]), timeout_s)
+        txn = TransactionBuilder().write("rc-probe", b"reconfig probe " + bytes(24)).build()
+        h = transaction_hash(txn)
+        blind = prober._write1_transaction(txn)
+        grants: dict = {}
+        probe_errors: List[str] = [f"no session with {sid}" for sid in voters if sid not in prober._sessions]
+        for sid in voters:
+            env = prober._envelope(Write1ToServer(prober.client_id, blind, 161, h), f"rc-w1-{sid}", sid)
+            resp = await asyncio.wait_for(prober.pool.send_and_receive(grown.servers[sid], env), timeout_s)
+            if isinstance(resp.payload, Write1OkFromServer):
+                grants[sid] = resp.payload.multi_grant
+            else:
+                probe_errors.append(f"{sid} answered {type(resp.payload).__name__} to the probe's Write1")
+        altered = dict(grants)
+        if grants.get(new_id) is not None and grants[new_id].signature:
+            sig = bytearray(grants[new_id].signature)
+            sig[32] ^= 1  # S's low bit: R and the encoding stay well formed
+            altered[new_id] = grants[new_id].with_signature(bytes(sig))
+
+        async def present(cert: dict, tag: str):
+            b0, m = len(built), _mark(cuda)
+            answers = []
+            for pid in probed_ids:
+                env = prober._envelope(Write2ToServer(WriteCertificate(cert), txn), f"rc-w2-{tag}-{pid}", pid)
+                resp = await asyncio.wait_for(prober.pool.send_and_receive(grown.servers[pid], env), timeout_s)
+                answers.append(resp.payload)
+            return answers, dict(_stage(m, _mark(cuda)), table_builds=built[b0:])
+
+        refused, stages["probe_altered"] = await present(altered, "altered")
+        accepted, stages["probe_valid"] = await present(grants, "valid")
+
+        # remove: the last `removed` of the first n leave
+        b0, m = len(built), _mark(cuda)
+        shrunk_servers = {sid: info.url for sid, info in vc.config.servers.items() if sid not in gone}
+        reconfigured = await reconfigure(vc.config.evolve(shrunk_servers, rf=len(shrunk_servers)))
+        rec = await put("remove")
+        stages["remove"] = dict(_stage(m, _mark(cuda)), **rec, **reconfigured,
+                                retired_still_listed=[sid for sid in gone if sid in vc.replica(sid).config.servers],
+                                table_builds=built[b0:])
+
+        # every acked key, read back with the certificate of its stage
+        b0, m = len(built), _mark(cuda)
+        reader = vc.client(timeout_s=sdk_timeout_s)
+        bad: List[str] = []
+        with_member: dict = {}
+        signers: dict = {}  # stage -> indices of the members whose grants its certificates hold
+        read_s: List[float] = []
+        for key, (value, stage) in sorted(acked.items()):
+            t = time.perf_counter()
+            res = await asyncio.wait_for(reader.execute_read_transaction(TransactionBuilder().read(key).build()),
+                                         timeout_s)
+            read_s.append(time.perf_counter() - t)
+            op = res.operations[0]
+            cert = op.current_certificate
+            if op.value != value or cert is None or len(cert.grants) != quorums[stage]:
+                bad.append(key)
+                continue
+            signers.setdefault(stage, set()).update(int(sid.split("-")[1]) for sid in cert.grants)
+            if new_id in cert.grants:
+                with_member[stage] = with_member.get(stage, 0) + 1
+        stages["read_back"] = dict(_stage(m, _mark(cuda)), reads=len(read_s), read_p50_ms=1e3 * _pct(read_s, 0.5),
+                                   table_builds=built[b0:])
+    # the registry's own table at its final capacity (on the card the one
+    # the launches read), against its 17 x 15 rows
+    here = torch.device("cuda", torch.cuda.current_device()) if cuda else torch.device("cpu")
+    table = reg.device_table(here, layout="radix25")
+    table_mismatch = check_table_radix(table, torch.from_numpy(reg.host_table()))
+    return {
+        "replicas": n, "member": new_id, "removed": gone, "clients": clients, "writes_per_client": writes,
+        "boot_s": boot_s, "stages": stages, "quorums": quorums, "acked": len(acked),
+        "expected": 3 * clients * writes, "read_back_bad": bad, "new_member_grants_in_read_back": with_member,
+        "certificate_signers": {stage: sorted(ids) for stage, ids in signers.items()},
+        "probe": {"grants": len(grants), "probed": probed_ids, "errors": probe_errors,
+                  "altered_refused": [isinstance(a, RequestFailedFromServer) and a.fail_type == FailType.BAD_CERTIFICATE
+                                      for a in refused],
+                  "valid_accepted": [isinstance(a, Write2AnsFromServer) for a in accepted],
+                  "answers": {"altered": [type(a).__name__ for a in refused],
+                              "valid": [type(a).__name__ for a in accepted]}},
+        "generation": reg.generation, "registered_signers": len(reg),
+        "table_layout": "radix25" if cuda else "fe17", "table_rows_not_equal_to_host": table_mismatch,
+        "radix25_rows": int(table.shape[0]),
+        "batches_flushed": verifier.batches_flushed, "items_verified": verifier.items_verified,
+        "fallback_batches": verifier.fallback_batches, "crossover_batches": verifier.backend.crossover_batches,
+        "reduced": f"depth: {clients} clients x {writes} PUTs a stage, 3 stages (widths uncut: n={n} -> {n + 1} "
+                   f"-> {n + 1 - removed})",
+    }
+
+
+def reconfig_problems(rec: dict, launched: bool = True) -> List[str]:
+    """What phase 16 must not show: a registry generation, member index or
+    table size other than the add's (the table's rows at the capacity of n
+    before and of n + 1 after, in the layout the launches read), a member
+    not installed everywhere or a retired replica still listing itself, a
+    quorum other than 2f + 1 of each stage's members, a missing ack or an
+    acked key that does not read back with the certificate of its stage, a
+    probe whose altered certificate was not refused with BAD_CERTIFICATE on
+    every probed replica or whose valid one was not accepted, a probe span
+    whose router sent an item to the general kernel (or, ``launched``, that
+    holds no comb launch or a general one), the registry's table not
+    holding its rows, a fallback, and (``launched``) no comb launch in the
+    add stage."""
+    from mochi_tpu_torch.crypto.comb import ROWS_PER_SIGNER, SignerRegistry
+
+    problems = []
+    n, st = rec["replicas"], rec["stages"]
+    rows = lambda g: SignerRegistry._capacity_for(g) * ROWS_PER_SIGNER  # noqa: E731
+    layout = rec["table_layout"]
+    if st["before"]["generation"] != n or st["before"]["table_rows"].get(layout) != rows(n):
+        problems.append(f"before the add: generation {st['before']['generation']}, tables {st['before']['table_rows']}")
+    add = st["add"]
+    if add["generation"] != n + 1 or add["new_member_index"] != n or add["table_rows"].get(layout) != rows(n + 1):
+        problems.append(f"after the add: generation {add['generation']}, index {add['new_member_index']}, "
+                        f"tables {add['table_rows']}")
+    for name in ("before", "add", "remove"):
+        s = st[name]
+        if s["installed"] != s["members"] or s["quorum"] != 2 * s["f"] + 1 or s["f"] != (s["members"] - 1) // 3:
+            problems.append(f"{name}: {s['installed']} of {s['members']} installed, f {s['f']}, quorum {s['quorum']}")
+    if st["add"]["members"] != n + 1 or st["remove"]["members"] != n + 1 - len(rec["removed"]):
+        problems.append(f"members {st['add']['members']} after the add, {st['remove']['members']} after the remove")
+    if st["remove"]["retired_still_listed"]:
+        problems.append(f"retired replicas still list themselves: {st['remove']['retired_still_listed']}")
+    if rec["read_back_bad"] or rec["acked"] != rec["expected"]:
+        problems.append(f"{rec['acked']} of {rec['expected']} acked, read back wrong: {rec['read_back_bad'][:5]}")
+    pr = rec["probe"]
+    if (pr["errors"] or pr["grants"] != st["add"]["quorum"] or len(pr["altered_refused"]) != len(pr["probed"])
+            or not all(pr["altered_refused"]) or len(pr["valid_accepted"]) != len(pr["probed"])
+            or not all(pr["valid_accepted"])):
+        problems.append(f"probe: {pr}")
+    for name in ("probe_altered", "probe_valid"):
+        s = st[name]
+        if s["routing"]["ladder_items"] or s["routing"]["comb_items"] <= 0:
+            problems.append(f"{name}: router {s['routing']}")
+        if launched and (s["comb_launches"]["chain"] <= 0 or s["verify_launches"]):
+            problems.append(f"{name}: comb launches {s['comb_launches']}, general {s['verify_launches']}")
+    if rec["table_rows_not_equal_to_host"]:
+        problems.append(f"{rec['table_rows_not_equal_to_host']} table entries differ from the registry's rows")
+    if rec["fallback_batches"] or rec["crossover_batches"]:
+        problems.append(f"fallbacks {rec['fallback_batches']}, crossovers {rec['crossover_batches']}")
+    if launched and st["add"]["comb_launches"]["chain"] <= 0:
+        problems.append(f"no comb launch after the add: {st['add']['comb_launches']}")
+    return problems
+
+
+def member_comb_check(seed: int, signers: List[Signer], dev, n_items: int = CORPUS):
+    """Phase 16's kernel-vs-plain check at the grown table: a registry of
+    ``signers`` (phase 3's 64) and the member phase 16 adds (its key at
+    index 64) pads to 128 signers, the table the grown cluster launches
+    with; an ``n_items``-lane comb corpus over the 65 keys, ordered so that
+    lane 0 and about one lane in 56 are under index 64.  Returns
+    (check(lane_counts), which holds the comb kernel against its plain
+    version at each lane count not checked yet, {lanes: max abs err}, the
+    table's record)."""
+    import torch
+
+    from mochi_tpu_torch.crypto import batch_verify as BV
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    member = signer_from_seed(member_seed(seed), np.random.default_rng(seed + 16))
+    reg = comb.SignerRegistry(dev)
+    reg.register_all([s.pub for s in signers] + [member.pub])
+    table25 = reg.device_table(dev, layout="radix25")
+    table = reg.device_table(dev, layout=CC.table_layout(dev, *CC.switches()))  # the card's: table25
+    table15 = torch.from_numpy(reg.host_table()).to(dev)
+    items, want, kinds = make_comb_corpus(seed + 16, n_items, signers + [member])
+    ours = [i for i, it in enumerate(items) if it.public_key == member.pub]
+    rest = [i for i, it in enumerate(items) if it.public_key != member.pub]
+    spread = {i: k / len(ours) for k, i in enumerate(ours)}
+    spread.update({i: (k + 0.5) / len(rest) for k, i in enumerate(rest)})
+    order = sorted(range(len(items)), key=spread.__getitem__)
+    items, want = [items[i] for i in order], [want[i] for i in order]
+    prep = BV.prepare_packed(items)
+    kidx = np.asarray([reg.index_of(it.public_key) for it in items], dtype=np.int32)
+    lanes = CC.from_prepared(kidx, prep, dev)
+    big_lanes = [torch.cat([t] * -(-BIG // len(items))) for t in lanes]
+    checked: dict = {}
+
+    def check(lane_counts):
+        for n in sorted(set(lane_counts) - set(checked)):
+            checked[n] = _check_comb_at(n, table, table15, lanes, big_lanes, prep[6], want)
+
+    check([1, PARTIAL, len(items)])
+    info = {"registered": len(reg), "member_index": reg.index_of(member.pub), "table_rows": int(table25.shape[0]),
+            "table_entries_not_equal_to_host_rows": check_table_radix(table25, table15),
+            "member_lanes": int(np.sum(kidx == len(signers))), "first_member_lane": int(np.argmax(kidx == len(signers))),
+            "kinds": len(set(kinds))}
+    if info["table_entries_not_equal_to_host_rows"] or info["table_rows"] != len(reg.host_table()):
+        raise AssertionError(f"the grown comb table: {info}")
+    return check, checked, info
+
+
+def reconfig_phase(res: dict, seed: int, check_comb=None, check_verify=None) -> dict:
+    """Phase 16 on the card (see the module docstring); raises on what
+    :func:`reconfig_problems` finds.  ``check_comb(lane_counts)`` (the
+    grown table's, :func:`member_comb_check`) and ``check_verify(lane_counts)``
+    (the full run's) hold the comb and the general kernel against their
+    plain versions at every lane count the phase launched.  Returns its
+    general (``pad``) and comb (``chain``) launches."""
+    smi = _nvidia_smi("name,power.limit")
+    rec, (vlogs, clogs) = _drive(lambda: drive_reconfig("cuda", RECONF_N, RECONF_CLIENTS, RECONF_WRITES,
+                                                        RECONF_PROBED, RECONF_REMOVED, member_seed(seed)),
+                                 "reconfig", res)
+    rec["nvidia_smi"] = smi
+    if check_comb is not None:
+        check_comb(n for n, _, _ in clogs["chain"])
+        check_verify(n for n, _, _ in vlogs["pad"])
+        rec["comb_lane_counts_checked_vs_plain"] = sorted({n for n, _, _ in clogs["chain"]})
+        rec["verify_lane_counts_checked_vs_plain"] = sorted({n for n, _, _ in vlogs["pad"]})
+    print(f"[reconfig] {rec}", flush=True)
+    problems = reconfig_problems(rec)
+    if _other_comb_launches(rec, "chain") or rec["verify_mxu_launches"]:
+        problems.append(f"reconfig: comb launches {rec['comb_launches']}, mxu {rec['verify_mxu_launches']}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"pad": rec["verify_launches"], "chain": rec["comb_launches"]["chain"]}
+
+
 def host_prepare_times(items, repeats: int = 5) -> dict:
     """Phase 4's host prepare of ``items`` with the native ``h_batch`` and
     with the pure-Python hash (median µs per item of ``repeats``), the two
@@ -2559,6 +3034,9 @@ def run(args) -> dict:
         return res
     if args.only == "15":
         adversary_phases(res)
+        return res
+    if args.only == "16":
+        reconfig_phase(res, args.seed)
         return res
 
     # 3. kernel vs plain on the card
@@ -3219,6 +3697,15 @@ def run(args) -> dict:
 
     adv = adversary_phases(res, check_comb, check_verify)
 
+    # 16. live reconfiguration: a member added past the comb table's
+    # capacity, two removed; the comb kernel held at the grown table
+    check_grown, grown_checked, grown_table = member_comb_check(args.seed, signers, dev)
+    reconfig_phase(res, args.seed, check_grown, check_verify)
+    res["reconfig"]["grown_table"] = grown_table
+    res["reconfig"]["grown_table_max_abs_err_by_lanes"] = grown_checked
+    print(f"[reconfig] comb kernel equals plain at the 128-signer table at lane counts {sorted(grown_checked)}",
+          flush=True)
+
     res["kernels"] = [{
         "name": "ed25519_verify",
         "route": "cuda",
@@ -3604,10 +4091,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="also write every result as JSON here")
-    ap.add_argument("--only", choices=("14", "15"), default=None,
-                    help="run only the device and build phases and phase 14 (with 14s) or 15 (with 15p "
-                         "and 15s), print their records and no result line")
+    ap.add_argument("--only", choices=("14", "15", "16"), default=None,
+                    help="run only the device and build phases and phase 14 (with 14s), 15 (with 15p "
+                         "and 15s) or 16, print their records and no result line")
     args = ap.parse_args(argv)
+    t0 = time.perf_counter()
     try:
         import torch
 
@@ -3615,6 +4103,8 @@ def main(argv=None) -> int:
             print("chip_smoke: no CUDA device is available", file=sys.stderr)
             return 2
         res = run(args)
+        res["wall_s"] = time.perf_counter() - t0
+        print(f"[wall] {res['wall_s']:.1f} s", flush=True)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -3624,7 +4114,8 @@ def main(argv=None) -> int:
             json.dump(res, f, indent=1)
     if args.only:
         keys = {"14": ("processes", "processes_service"),
-                "15": ("adversaries", "adversary_processes", "scenarios")}[args.only]
+                "15": ("adversaries", "adversary_processes", "scenarios"),
+                "16": ("reconfig",)}[args.only]
         print(json.dumps({k: res[k] for k in keys}, default=str))
         return 0
     print(json.dumps({"kernels": res["kernels"]}))

@@ -2531,3 +2531,38 @@ class MochiReplica:
             "agg_misses": getattr(v, "agg_misses", None),
         }
 
+
+# --------------------------------------------------------------------------
+# wire-taint registration.  The fast path removes per-message
+# Ed25519 from the hot path; the lattice only tolerates that because each
+# replacement check is a registered sanitizer.  Registered via the runtime
+# API so the registry-rot tripwire owns them: rename any of these methods
+# without updating this block and the full-tree scan reports registry-rot.
+# MAC-session envelope auth itself rides the builtin "session-mac"
+# (_auth_mac) / "session-mac-fn" (mac_ok) edges.
+from ..analysis import wire_taint  # noqa: E402  (import at registration site)
+
+wire_taint.register_verifier_edge(
+    "cert-aggregate-verify", "_verify_aggregate_counted",
+    [wire_taint.CLS_CERT],
+    note="one-attestation write certificate: the 2f+1 grant set verifies "
+         "as a single batched-EdDSA aggregate, memoized cluster-wide by "
+         "cert hash (failure falls back to per-item audit attribution)",
+    expect_live=True,
+)
+wire_taint.register_verifier_edge(
+    "cert-aggregate-resync", "_check_certificate_fast",
+    [wire_taint.CLS_CERT],
+    note="resync/anti-entropy aggregate-first certificate recheck; audits "
+         "through _check_certificate (the builtin certificate-recheck edge) "
+         "on aggregate failure",
+    expect_live=True,
+)
+wire_taint.register_verifier_edge(
+    "checkpoint-transcript-verify", "_session_checkpoint",
+    [wire_taint.CLS_ENV],
+    note="signed checkpoint declaration vs the replica's accepted-envelope "
+         "ledger: retroactive conviction for MAC-window tampering; "
+         "MAC'd/unsigned declarations refuse as downgrade attempts",
+    expect_live=True,
+)

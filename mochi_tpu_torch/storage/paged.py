@@ -68,9 +68,7 @@ import zlib
 from collections import namedtuple
 from typing import Dict, Iterator, List, Optional, Tuple
 
-# The reference package imports analysis.wire_taint here and registers this
-# module's page-read source and per-entry recheck at its end; the port has
-# no analysis/ package yet, so both are left out, as in the port's replica.
+from ..analysis import wire_taint
 from ..protocol import (
     Action,
     SyncEntry,
@@ -1279,3 +1277,29 @@ class PagedStorage(DurableStorage):
         s["audits"] = self.audits
         s["audited_entries"] = self.audited_entries
         return s
+
+
+# Wire-taint registry (docs/ANALYSIS.md "The registry, and how fast paths
+# must use it"): page reads are a disk-taint SOURCE; the per-entry recheck
+# is the sanctioned sanitizer that admits an entry to the sync-adopt sink.
+# Registered via the runtime API so the registry-rot tripwire owns them:
+# rename either function without updating this block and the full-tree
+# scan reports registry-rot.  The analysis CLI loads this module through
+# wire_taint's edge-provider hook, so the lattice sees these edges in
+# every scan, not only in processes that already imported the engine.
+wire_taint.register_edge(
+    wire_taint.Edge(
+        "page-read", "source", "read_page_entry",
+        note="page entry bytes from disk: CRC is corruption detection, not "
+             "authentication — tainted until the per-entry recheck",
+        expect_live=True,
+    )
+)
+wire_taint.register_verifier_edge(
+    "page-entry-recheck", "_page_entry_admissible",
+    [wire_taint.CLS_CERT],
+    note="paged-engine per-entry re-verification (DSig posture: hash/"
+         "quorum-shape agreement at fault time; grant signatures re-verify "
+         "in batch at audit/compaction)",
+    expect_live=True,
+)

@@ -461,6 +461,7 @@ class ProcessCluster:
                 "kill_replica() first"
             )
         await self._reap([sp])  # collect the corpse + stop its pump
+        # mochi-lint: disable=await-races -- sp is identity-stable: host_process is written once in start() and cleared only in close(); the reap cannot remap which process hosts server_id
         await self._spawn(sp)
         await asyncio.wait_for(self._wait_ready(sp), timeout=self.ready_timeout_s)
 

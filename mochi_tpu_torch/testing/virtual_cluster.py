@@ -286,7 +286,13 @@ class VirtualCluster:
             admission=self.admission,
         )
         await fresh.start()
-        self.replicas[self.replicas.index(old)] = fresh
+        if old in self.replicas:
+            self.replicas[self.replicas.index(old)] = fresh
+        else:
+            # a close() or another restart of server_id ran during the awaits
+            # above and retired ``old``: the fresh replica has no slot
+            await fresh.close()
+            raise RuntimeError(f"{server_id} was retired while it restarted")
         if resync:
             await fresh.resync()
         return fresh

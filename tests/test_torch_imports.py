@@ -26,7 +26,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert "mochi_tpu_torch.verifier.service" in mods
     for m in ("crypto.comb", "crypto.cuda_comb", "server.replica", "server.__main__", "client.client",
               "testing.virtual_cluster", "storage.spi", "tools.gen_cluster", "testing.byzantine",
-              "testing.byzantine_client", "testing.schedule", "testing.scenario"):
+              "testing.byzantine_client", "testing.schedule", "testing.scenario",
+              "analysis.core", "analysis.wire_taint", "analysis.__main__"):
         assert f"mochi_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
