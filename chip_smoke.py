@@ -160,6 +160,11 @@ Phases (any failure exits non-zero and prints no result line):
    launch must be the tree under mxu and every general launch
    ``verify_mxu.cu`` (no ``pad`` launch of either), and each kernel must
    equal its plain version at every lane count it launched.
+9t. The cluster under the tree switch (``comb.COMB_IMPL = "tree"``,
+   restored after), at 9m's cut depth: every acked write must read back
+   with a 43-grant certificate, every comb launch must be ``comb_tree.cu``
+   (none ``comb.cu``, nor an mxu kernel), nothing may fall back, and each
+   kernel must equal its plain version at every lane count it launched.
 
 10. Sharded service — phase 8's traffic through
    ``VerifierService(ShardedCudaBatchVerifier(signers=...))`` over every
@@ -302,18 +307,48 @@ Phases (any failure exits non-zero and prints no result line):
    p50/p99, each kernel's launches and lanes, the router's counts, the
    card's idle share, the host milliseconds of each table the registry
    builds, and the members whose grants the read-back certificates hold.
+17. Boot and chunking.  17a: two child processes of this script
+   (``--boot-child``), so that every module loads and every kernel first
+   launches in the child: each builds ``CudaBatchVerifier(signers=<the 64
+   identities of phases 3-8>, warmup_buckets=...)``, the first with
+   ``(16, 256)`` and the second with none, and times ten checks of 43
+   grants and one client signature (the first and the last recorded, with
+   each kernel's launch ms, and the warmup seconds).  The warmed child must
+   have launched the general and the comb kernel at 16 and 256 lanes
+   before its first check; the other must have launched nothing before it;
+   every verdict must be right and nothing may fall back.  17b: 65,536
+   items (grants of the 64 identities, client signatures, forgeries, S >=
+   L, and host-rejected items filling at least one whole chunk) through
+   ``verify_batch`` on the card with ``MAX_LAUNCH`` at 8192, 16,384 and
+   32,768: the verdicts must equal the expected ones (and each other), a
+   sample ``keys.verify``, at most 4 chunks may be in flight (counted by
+   wrapping the launch path), an all-rejected chunk must launch nothing,
+   and each kernel must equal its plain version on a sample of lanes at
+   every lane count it launched; recorded per size: items/s, chunks,
+   launches and each launch's ms, pinned bytes in flight and the peak of
+   ``max_memory_allocated``.  17c: ``MOCHI_VERIFIER=remote
+   scripts/start_cluster_torch.sh 5 4 <port> <dir>`` as a process group
+   (the sidecar ``python -m mochi_tpu_torch.verifier.service --backend
+   cuda`` on the card, warmed at ``16,256``): every ``READY``; an SDK client
+   commits 8 signed PUTs and reads each back with at least a quorum of
+   grants; the sidecar's ``/status`` must show comb dispatches after
+   ``READY``, its warmup and no fallback, every replica's a remote verifier
+   that never fell back; then SIGINT to the group, and every process of it
+   must exit.  Recorded: each boot-to-``READY`` second.
 
-Phases 5, 5m, 8, 8t, 8m, 8tm, 9, 9m, 9tm, 10, 11, 13, 13p, 15, 15s and 16
-drive the main paths: each zeroes the launch counts just before it and
+Phases 5, 5m, 8, 8t, 8m, 8tm, 9, 9m, 9tm, 9t, 10, 11, 13, 13p, 15, 15s, 16
+and 17b drive the main paths: each zeroes the launch counts just before it and
 reads them just after (13 and 13p around each recovery, compaction and
 audit; 15s around each run; 16 also marks each stage without zeroing).  Phases 14, 14s and 15p launch the kernels in
 other processes: their children's admin shells count those launches, and
 the ``kernels`` line counts this process's alone (phase 16's launches
-are in its record, not in that line).  ``--only 14`` runs phases 1, 2, 14
+are in its record, not in that line; 17a's and 17c's are the children's).
+``--only 14`` runs phases 1, 2, 14
 and 14s, ``--only 15`` phases 1, 2, 15, 15p and 15s, ``--only 16`` phases 1,
-2 and 16 (without the corpora, so without the kernel-vs-plain checks), and
+2 and 16 (without the corpora, so without the kernel-vs-plain checks),
+``--only 17`` phases 1, 2 and 17a-17c, and
 each prints their records instead of the result lines.
-Every phase but 8t and 6tm-9tm runs the comb's default accumulation, the
+Every phase but 8t, 9t and 6tm-9tm runs the comb's default accumulation, the
 chain, and every phase but 3m-5m, 6m-9m and 6tm-9tm the default multiply,
 ``pad``.  On a machine with several
 cards, phases 10-12 use every card, phase 11 also runs the step on card 0
@@ -393,6 +428,16 @@ SCENARIO_SEEDS = (0, 7, 3, 62)
 # each stage (before, after adding member n, after removing the last
 # RECONF_REMOVED of the first n), the probes sent to the first old members.
 RECONF_N, RECONF_CLIENTS, RECONF_WRITES, RECONF_PROBED, RECONF_REMOVED = 64, 4, 4, 4, 2
+# Phase 17a: the lane counts a warmed verifier launches each kernel at (the
+# verifier service's --warmup default), and the checks timed in each child.
+BOOT_WARMUP, BOOT_CHECKS = (16, 256), 10
+# Phase 17b: verify_batch's window at these chunk sizes (MAX_LAUNCH), over
+# grants of the 64 identities, client-key signatures and host-rejected items.
+WINDOW_SIZES = (8192, 16384, 32768)
+WINDOW_GRANTS, WINDOW_CLIENT, WINDOW_REJECTED = 24576, 8192, 32768
+# Phase 17c: scripts/start_cluster_torch.sh's cluster (README's shared-verifier
+# posture): replicas, replication factor, signed PUTs.
+OPS_N, OPS_RF, OPS_WRITES = 5, 4, 8
 PARTIAL = 37  # lanes short of a full last block in the partial-block check
 NS_SLOTS, NS_VOTERS, NS_FORGED = 4, 64, 30  # the north-star quorum leg: slot 3 loses 30 votes
 MULTIHOST_LANES = 8  # lanes per process of the multi-process leg
@@ -1074,6 +1119,24 @@ def cluster_mxu_problems(cl: dict, launched: bool = True, kernel: str = "chain_m
     for key in ("fallback_batches", "crossover_batches"):
         if cl[key]:
             problems.append(f"cluster under mxu: {key} = {cl[key]}")
+    return problems
+
+
+def cluster_tree_problems(cl: dict, launched: bool = True) -> List[str]:
+    """What phase 9t must not show: no ``comb_tree.cu`` launch (when
+    ``launched``), a launch of another comb kernel (``comb.cu`` above all)
+    or of ``verify_mxu.cu``, no grant on the comb path, a fallback.  (An
+    acked write that does not read back with a 43-grant certificate raises
+    in ``drive_cluster``.)"""
+    problems = []
+    if (launched and cl["comb_launches"]["tree"] <= 0) or cl["routing"]["comb_items"] <= 0:
+        problems.append(f"the tree carried nothing: {cl['comb_launches']}, {cl['routing']}")
+    if _other_comb_launches(cl, "tree") or cl["verify_mxu_launches"]:
+        problems.append(f"cluster under the tree: comb launches {cl['comb_launches']}, mxu general launches "
+                        f"{cl['verify_mxu_launches']}")
+    for key in ("fallback_batches", "crossover_batches"):
+        if cl[key]:
+            problems.append(f"cluster under the tree: {key} = {cl[key]}")
     return problems
 
 
@@ -2867,6 +2930,488 @@ def host_prepare_times(items, repeats: int = 5) -> dict:
     return out
 
 
+# ----------------------------------------------------------- phase 17: boot
+
+def boot_child(seed: int, warm: str, checks: int = BOOT_CHECKS, device: str = "cuda",
+               n_signers: int = CLIENTS) -> dict:
+    """Phase 17a's child process: ``CudaBatchVerifier(signers=<n_signers
+    identities, 64 by default>, warmup_buckets=warm)`` built in a fresh process (the
+    modules load here, so each first launch is this process's own), then
+    ``checks`` checks of 43 grants and one client signature each through
+    the verifier.  Returns the warm launches (lanes by kernel), the warmup
+    seconds, and the wall ms and each kernel's launch ms of every check."""
+    import torch
+
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+    from mochi_tpu_torch.crypto import cuda_verify as CV
+    from mochi_tpu_torch.verifier.cuda import CudaBatchVerifier
+    from mochi_tpu_torch.verifier.spi import VerifyItem
+
+    rng = np.random.default_rng(seed)
+    signers = make_signers(rng, n_signers)
+    client = make_signers(np.random.default_rng(seed + 17), 1)[0]
+    reqs = []
+    for (items, want), k in zip(make_traffic(seed + 1, signers, clients=1, requests=checks, grants=GRANTS)[0],
+                                range(checks)):
+        msg = b"client envelope %d" % k
+        reqs.append((items + [VerifyItem(client.pub, msg, sign_with(client, k % NONCES_PER_SIGNER, msg))],
+                     want + [True]))
+    sizes = tuple(int(b) for b in warm.split(",") if b)
+    for sk in CV.launch_logs:
+        CV.launch_logs[sk] = []
+    for impl in CC.launch_logs:
+        CC.launch_logs[impl] = []
+
+    def logs() -> dict:
+        return {**{f"verify_{k}": v for k, v in CV.launch_logs.items()},
+                **{f"comb_{k}": v for k, v in CC.launch_logs.items()}}
+
+    def logged(since: Optional[dict] = None) -> list:
+        """Every logged launch (name, lanes, start, end), or those after
+        ``since`` (each kernel's log length then)."""
+        since = since or {}
+        return [(name, n, s, e) for name, log in logs().items() for n, s, e in log[since.get(name, 0):]]
+
+    t0 = time.perf_counter()
+    verifier = CudaBatchVerifier(device=device, signers=[s.pub for s in signers], warmup_buckets=sizes)
+    construct_s = time.perf_counter() - t0
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    warm = logged()
+    out = {"pid": os.getpid(), "warmup_buckets": list(sizes), "construct_s": construct_s,
+           "warmup_s": verifier.warmup_s,
+           "warm_launches": sorted({(name, n) for name, n, _, _ in warm}), "checks": []}
+
+    async def drive():
+        for items, want in reqs:
+            before = {name: len(log) for name, log in logs().items()}
+            t = time.perf_counter()
+            got = await verifier.verify_batch(items)
+            wall = time.perf_counter() - t
+            sync()
+            out["checks"].append({"wall_ms": 1e3 * wall, "right": got == want, "launches": [
+                (name, n, s.elapsed_time(e)) for name, n, s, e in logged(before)]})
+        out["fallback_batches"] = verifier.fallback_batches
+        out["has_fallback"] = verifier.fallback is not None
+        await verifier.close()
+
+    asyncio.run(drive())
+    return out
+
+
+def run_boot_children(seed: int, timeout_s: float = 300.0) -> dict:
+    """Phase 17a: :func:`boot_child` in a child process warmed at
+    ``BOOT_WARMUP`` and in one with no warmup, one after the other."""
+    out = {}
+    for name, warm in (("warmed", ",".join(map(str, BOOT_WARMUP))), ("cold", "")):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--seed", str(seed), "--boot-child", warm],
+                           capture_output=True, text=True, timeout=timeout_s)
+        if p.returncode:
+            raise AssertionError(f"boot child ({name}) exited {p.returncode}: {p.stderr[-3000:]}")
+        rec = json.loads(p.stdout.strip().splitlines()[-1])
+        rec["process_s"] = time.perf_counter() - t0
+        first, tenth = rec["checks"][0], rec["checks"][-1]
+        rec["first_check"], rec["last_check"] = first, tenth
+        rec["all_right"] = all(c["right"] for c in rec["checks"])
+        del rec["checks"]
+        out[name] = rec
+    return out
+
+
+def boot_problems(rec: dict) -> List[str]:
+    """What phase 17a must not show: a wrong verdict or a fallback in either
+    child, or, in the warmed child, a kernel of the live path (the general
+    kernel and the comb kernel) not launched at each warmup size before
+    the first check."""
+    problems = []
+    for name, ch in ((k, rec[k]) for k in ("warmed", "cold")):
+        if not ch["all_right"] or ch["fallback_batches"] or ch["has_fallback"]:
+            problems.append(f"boot child {name}: right {ch['all_right']}, fallback {ch['fallback_batches']}, "
+                            f"{ch['has_fallback']}")
+    warmed = {tuple(x) for x in rec["warmed"]["warm_launches"]}
+    kernels = {name for name, _, _ in rec["warmed"]["first_check"]["launches"]}
+    for kernel in sorted(kernels):
+        for n in BOOT_WARMUP:
+            if (kernel, n) not in warmed:
+                problems.append(f"warmed child: {kernel} not launched at {n} lanes before the first check "
+                                f"({sorted(warmed)})")
+    if len(kernels) < 2:
+        problems.append(f"warmed child's first check launched {sorted(kernels)}, expected a comb and a general kernel")
+    if rec["cold"]["warm_launches"]:
+        problems.append(f"cold child launched at construction: {rec['cold']['warm_launches']}")
+    return problems
+
+
+def window_items(seed: int, signers: List[Signer], grants: int = WINDOW_GRANTS, client: int = WINDOW_CLIENT,
+                 rejected: int = WINDOW_REJECTED):
+    """Phase 17b's 65,536 items and their expected verdicts: grants of the
+    registered ``signers`` (WINDOW_GRANTS, a few forged, a few with S >= L),
+    client-key signatures (WINDOW_CLIENT, a few forged), then host-rejected
+    items (WINDOW_REJECTED: S >= L, truncated lengths, y >= p), which fill
+    at least one whole chunk of the general kernel at every chunk size."""
+    from mochi_tpu_torch.verifier.spi import VerifyItem
+
+    rng = np.random.default_rng(seed)
+    clients = make_signers(rng, 8)
+    items, want = [], []
+    for k in range(grants + client):
+        s = signers[k % len(signers)] if k < grants else clients[k % len(clients)]
+        msg = b"window %d " % k + rng.bytes(16)
+        sig = sign_with(s, _below(rng, NONCES_PER_SIGNER), msg)
+        roll = rng.random()
+        ok = roll >= 0.02
+        if roll < 0.01:  # forged: one S bit flipped
+            sig = sig[:32] + bytes([sig[32] ^ (1 << _below(rng, 8))]) + sig[33:]
+        elif roll < 0.02:  # S >= L
+            sig = sig[:32] + ((int.from_bytes(sig[32:], "little") + L) % (1 << 256)).to_bytes(32, "little")
+        items.append(VerifyItem(s.pub, msg, sig))
+        want.append(ok)
+    good = items[grants]
+    bad_y = (P + 3).to_bytes(32, "little")
+    for k in range(rejected):
+        kind = k % 4
+        if kind == 0:
+            sig = good.signature[:32] + ((int.from_bytes(good.signature[32:], "little") + L)).to_bytes(32, "little")
+            items.append(VerifyItem(good.public_key, good.message, sig))
+        elif kind == 1:
+            items.append(VerifyItem(good.public_key[:31], good.message, good.signature))
+        elif kind == 2:
+            items.append(VerifyItem(good.public_key, good.message, good.signature[:63]))
+        else:
+            items.append(VerifyItem(bad_y, good.message, good.signature))
+        want.append(False)
+    return items, want
+
+
+def run_window(seed: int, signers: List[Signer], dev, sizes=WINDOW_SIZES,
+               counts=(WINDOW_GRANTS, WINDOW_CLIENT, WINDOW_REJECTED)) -> dict:
+    """Phase 17b: :func:`window_items` through ``verify_batch`` on the card
+    at each chunk size of ``WINDOW_SIZES`` (``MAX_LAUNCH`` set for the
+    run), the chunks in flight counted by wrapping the launch path.  Each
+    size's verdicts must equal the expected ones (and so each other), a
+    sample must equal ``keys.verify``, at most ``_PIPELINE_DEPTH`` chunks
+    may be in flight, and each kernel must equal its plain version on a
+    sample of lanes at every lane count it launched."""
+    import torch
+
+    from mochi_tpu_torch.crypto import batch_verify as BV
+    from mochi_tpu_torch.crypto import comb
+    from mochi_tpu_torch.crypto import keys
+
+    t0 = time.perf_counter()
+    items, want = window_items(seed + 170, signers, *counts)
+    reg = comb.SignerRegistry(dev)
+    reg.register_all([s.pub for s in signers])
+    on_card = torch.device(dev).type == "cuda"
+    out = {"items": len(items), "grants": counts[0], "client": counts[1], "rejected": counts[2],
+           "expected_accepted": int(sum(want)), "make_s": time.perf_counter() - t0, "sizes": {}}
+    sample = np.random.default_rng(seed + 171).choice(len(items), min(512, len(items)), replace=False).tolist()
+    sample_wrong = [j for j in sample if keys.verify(items[j].public_key, items[j].message, items[j].signature)
+                    != want[j]]
+    dispatch0, readback0, max0 = BV._dispatch, BV._readback, BV.MAX_LAUNCH
+    state = {"in_flight": 0, "peak": 0, "pinned": 0, "peak_pinned": 0, "chunks": 0, "empty": 0}
+
+    def dispatch(prepared, device, k=0, comb=None):
+        launched = dispatch0(prepared, device, k, comb)
+        pinned = sum(h.nbytes for h in launched[2][0]) if launched[2] is not None else 0
+        state["chunks"] += 1
+        state["empty"] += launched[0] is None
+        state["in_flight"] += 1
+        state["pinned"] += pinned
+        state["peak"] = max(state["peak"], state["in_flight"])
+        state["peak_pinned"] = max(state["peak_pinned"], state["pinned"])
+        return launched + (pinned,)
+
+    def readback(launched):
+        state["in_flight"] -= 1
+        state["pinned"] -= launched[4]
+        return readback0(launched[:4])
+
+    verdicts = {}
+    plain_checked = {}
+    try:
+        BV._dispatch, BV._readback = dispatch, readback
+        for size in sizes:
+            BV.MAX_LAUNCH = size
+            state.update(in_flight=0, peak=0, pinned=0, peak_pinned=0, chunks=0, empty=0)
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+            mem0 = torch.cuda.memory_allocated(dev) if on_card else 0
+            _zero_counts()
+            t = time.perf_counter()
+            got = BV.verify_batch(items, dev, reg)
+            wall = time.perf_counter() - t
+            rec = {}
+            vlogs, clogs = _read_counts(rec)
+            if on_card:
+                torch.cuda.synchronize()
+            verdicts[size] = got
+            rec.update({
+                "wall_s": wall, "items_per_s": len(items) / wall, "wrong": sum(g != w for g, w in zip(got, want)),
+                "chunks": state["chunks"], "chunks_all_rejected": state["empty"],
+                "peak_chunks_in_flight": state["peak"], "peak_pinned_in_flight_bytes": state["peak_pinned"],
+                "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev) - mem0 if on_card else None,
+                "launch_ms": {f"verify_{k}": [(n, s.elapsed_time(e)) for n, s, e in log]
+                              for k, log in vlogs.items() if log}
+                | {f"comb_{k}": [(n, s.elapsed_time(e)) for n, s, e in log] for k, log in clogs.items() if log},
+            })
+            out["sizes"][size] = rec
+            print(f"[window {size}] {rec}", flush=True)
+            # each kernel against its plain version at each lane count it
+            # launched, the kernel on all the lanes and the plain version on
+            # a sample of them
+            for kind, logs in (("verify", vlogs), ("comb", clogs)):
+                for name, log in logs.items():
+                    for n in sorted({n for n, _, _ in log or []} - set(plain_checked.get(f"{kind}_{name}", {}))):
+                        plain_checked.setdefault(f"{kind}_{name}", {})[n] = window_kernel_check(
+                            items, want, reg, dev, n, comb=kind == "comb")
+    finally:
+        BV._dispatch, BV._readback, BV.MAX_LAUNCH = dispatch0, readback0, max0
+    out["sample_vs_keys_verify_wrong"] = len(sample_wrong)
+    out["sizes_agree"] = len({tuple(v) for v in verdicts.values()}) == 1
+    out["kernel_vs_plain_max_abs_err"] = plain_checked
+    return out
+
+
+def window_kernel_check(items, want, reg, dev, n: int, comb: bool, sample: int = 512) -> int:
+    """The kernel of the switches in effect on the first ``n`` items of
+    phase 17b's comb stream (``comb``) or general stream, against its plain
+    version on ``sample`` of those lanes: the max abs difference of their
+    bitmaps.  Raises if they differ, or if the kernel's verdicts (ANDed with
+    the prechecks) differ from the expected ones."""
+    import torch
+
+    from mochi_tpu_torch.crypto import batch_verify as BV
+    from mochi_tpu_torch.crypto import comb as C
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+    from mochi_tpu_torch.crypto import cuda_verify as CV
+    from mochi_tpu_torch.crypto import curve
+
+    pos = [i for i, it in enumerate(items) if (reg.index_of(it.public_key) is not None) == comb]
+    pos = (pos * (-(-n // len(pos))))[:n]
+    prep = BV.prepare_packed([items[i] for i in pos])
+    idx = np.sort(np.random.default_rng(n).choice(n, min(n, sample), replace=False))
+    ti = torch.as_tensor(idx, device=dev)
+    if comb:
+        switches = CC.switches()
+        kidx = np.asarray([reg.index_of(items[i].public_key) for i in pos], dtype=np.int32)
+        lanes = CC.from_prepared(kidx, prep, dev)
+        got = CC.verify_comb_prepared(reg.device_table(dev, layout=CC.table_layout(dev, *switches)), *lanes,
+                                      impl=switches[0], multiply=switches[1])
+        table15 = torch.from_numpy(reg.host_table()).to(dev)
+        plain = C.verify_comb_prepared(table15, *[t[ti] for t in lanes], impl=switches[0])
+    else:
+        tens = CV.from_reference_prepared(prep, dev)
+        got = CV.verify_prepared_packed(*tens)
+        plain = curve.verify_prepared_packed(*[t[ti] for t in tens])
+    got_np = got.cpu().numpy()
+    err = int(np.abs(got_np[idx].astype(np.int64) - plain.cpu().numpy().astype(np.int64)).max())
+    wrong = int(np.sum(np.logical_and(got_np, prep[6]) != np.asarray([want[i] for i in pos], dtype=bool)))
+    if err or wrong:
+        raise AssertionError(f"17b: {'comb' if comb else 'general'} kernel at {n} lanes: vs plain {err}, "
+                             f"{wrong} wrong verdicts")
+    return err
+
+
+def window_problems(rec: dict, launched: bool = True) -> List[str]:
+    """What phase 17b must not show: a wrong verdict at any chunk size,
+    sizes that disagree, a sample off ``keys.verify``, more than 4 chunks in
+    flight, a chunk size without an all-rejected chunk, or (``launched``) a
+    size whose launches did not reach both kernels of the default
+    switches."""
+    problems = []
+    if rec["sample_vs_keys_verify_wrong"] or not rec["sizes_agree"]:
+        problems.append(f"17b: sample vs keys.verify {rec['sample_vs_keys_verify_wrong']}, "
+                        f"sizes agree {rec['sizes_agree']}")
+    for size, r in rec["sizes"].items():
+        if r["wrong"] or r["peak_chunks_in_flight"] > 4 or not r["chunks_all_rejected"]:
+            problems.append(f"17b at {size}: {r['wrong']} wrong, {r['peak_chunks_in_flight']} chunks in flight, "
+                            f"{r['chunks_all_rejected']} all-rejected chunks")
+        if launched and (r["verify_launches"] <= 0 or r["comb_launches"]["chain"] <= 0 or r["verify_mxu_launches"]
+                         or _other_comb_launches(r, "chain")):
+            problems.append(f"17b at {size}: launches {r['verify_launches']} general, {r['verify_mxu_launches']} "
+                            f"mxu, {r['comb_launches']} comb")
+    return problems
+
+
+def _group_pids(pgid: int) -> List[int]:
+    """The live processes of process group ``pgid`` (from /proc)."""
+    out = []
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    fields = f.read().rsplit(")", 1)[1].split()
+            except OSError:
+                continue
+            if int(fields[2]) == pgid and fields[0] != "Z":
+                out.append(int(d))
+    return out
+
+
+async def drive_operators(verifier: str, backend: str, n: int, rf: int, writes: int,
+                          ready_timeout_s: float = 300.0, timeout_s: float = 300.0) -> dict:
+    """Phase 17c: ``MOCHI_VERIFIER=verifier MOCHI_VERIFIER_BACKEND=backend
+    scripts/start_cluster_torch.sh n rf <port> <dir>`` as a process group;
+    every ``READY`` awaited (the sidecar's too, under ``remote``); an SDK
+    client commits ``writes`` signed PUTs and reads each back with a
+    certificate of at least the quorum; the sidecar's and every replica's
+    ``/status`` read; the group stopped with SIGINT and every process of it
+    awaited."""
+    import signal
+
+    from mochi_tpu_torch.client import MochiDBClient, TransactionBuilder
+    from mochi_tpu_torch.cluster.config import ClusterConfig
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    loop = asyncio.get_running_loop()
+    while True:  # the script's ports: base + i, base + 1000 + i, base + 2000 and + 2001
+        base = free_port_range(n, hi=40000)
+        if all(_port_free(p) for p in [base + 1000 + i for i in range(n)] + [base + 2000, base + 2001]):
+            break
+    with tempfile.TemporaryDirectory(prefix="mochi-operators-") as td:
+        env = dict(os.environ, MOCHI_VERIFIER=verifier, MOCHI_VERIFIER_BACKEND=backend)
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(["bash", os.path.join(repo, "scripts", "start_cluster_torch.sh"), str(n), str(rf),
+                                 str(base), td], cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        pgid = proc.pid
+        try:
+            logs = {f"server-{i}": f"server-{i}.log" for i in range(n)}
+            if verifier == "remote":
+                logs["verifier-service"] = "verifier.log"
+            ready: dict = {}
+            while len(ready) < len(logs):
+                for name, fn in logs.items():
+                    path = os.path.join(td, "log", fn)
+                    if name not in ready and os.path.exists(path) and "READY" in Path(path).read_text(errors="replace"):
+                        ready[name] = time.perf_counter() - t0
+                if proc.poll() is not None:
+                    raise AssertionError(f"start_cluster_torch.sh exited {proc.returncode} before every READY "
+                                         f"({sorted(ready)}): {proc.stdout.read().decode(errors='replace')[-2000:]}")
+                if time.perf_counter() - t0 > ready_timeout_s:
+                    raise AssertionError(f"not READY after {ready_timeout_s} s: {sorted(set(logs) - set(ready))}")
+                await asyncio.sleep(0.2)
+            config = ClusterConfig.from_json(Path(td, "cluster_config.json").read_text())
+            svc0 = await loop.run_in_executor(None, admin_status, base + 2001) if verifier == "remote" else None
+            sdk = MochiDBClient(config=config, timeout_s=60.0)
+            acked: dict = {}
+            write_s: List[float] = []
+            for k in range(writes):
+                key, value = f"ops-{k}", b"operators %d " % k + bytes(24)
+                t = time.perf_counter()
+                await asyncio.wait_for(sdk.execute_write_transaction(TransactionBuilder().write(key, value).build()),
+                                       timeout_s)
+                write_s.append(time.perf_counter() - t)
+                acked[key] = value
+            bad, grants = [], []
+            for key, value in sorted(acked.items()):
+                res = await asyncio.wait_for(sdk.execute_read_transaction(TransactionBuilder().read(key).build()),
+                                             timeout_s)
+                op = res.operations[0]
+                cert = op.current_certificate
+                grants.append(0 if cert is None else len(cert.grants))
+                if op.value != value or cert is None or len(cert.grants) < config.quorum:
+                    bad.append(key)
+            await sdk.close()
+            svc1 = await loop.run_in_executor(None, admin_status, base + 2001) if verifier == "remote" else None
+            replicas: dict = {}
+            for i in range(n):
+                st = await loop.run_in_executor(None, admin_status, base + 1000 + i)
+                replicas[st["server_id"]] = verifier_view(st)
+            members = _group_pids(pgid)
+        finally:
+            t1 = time.perf_counter()
+            os.killpg(pgid, signal.SIGINT)
+            try:
+                rc = proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                rc = None
+            deadline = time.monotonic() + 30
+            while _group_pids(pgid) and time.monotonic() < deadline:
+                await asyncio.sleep(0.2)
+            left = _group_pids(pgid)
+            if left:
+                os.killpg(pgid, signal.SIGKILL)
+            stop_s = time.perf_counter() - t1
+    service = None
+    if svc1 is not None:
+        svc, svc_ready = verifier_view(svc1), verifier_view(svc0)
+        warm, v = None, svc1["verifier"]
+        while v is not None and warm is None:
+            warm, v = v.get("warmup"), v.get("inner")
+        service = dict(svc, dispatches_after_ready=svc["dispatches"] - svc_ready["dispatches"],
+                       comb_items_after_ready=svc["comb_items"] - svc_ready["comb_items"],
+                       items=svc1["items"] - svc0["items"], warmup=warm)
+    return {
+        "verifier": verifier, "replicas": n, "rf": rf, "quorum": config.quorum, "backend": backend,
+        "ready_s": ready, "acked": len(acked), "read_back_bad": bad, "read_back_grants": grants,
+        "write_p50_ms": 1e3 * _pct(write_s, 0.5), "write_max_ms": 1e3 * max(write_s),
+        "service": service, "replica_verifiers": replicas, "group_pids": members, "script_rc": rc, "left_after_stop": left,
+        "stop_s": stop_s,
+    }
+
+
+def operators_problems(rec: dict, on_card: bool = True) -> List[str]:
+    """What phase 17c must not show: an acked key that does not read back
+    with a certificate of at least the quorum, a replica whose verifier is
+    not the remote one under the coalescer or that fell back, a script that
+    did not exit 0 on SIGINT or a process of its group left after it, and
+    (``on_card``) a sidecar without comb dispatches after READY, without
+    its warmup at 16 and 256 lanes, or that fell back."""
+    problems = []
+    if rec["read_back_bad"] or rec["acked"] < OPS_WRITES:
+        problems.append(f"17c: {rec['acked']} acked, read back wrong {rec['read_back_bad']}")
+    types = {"remote": ["CoalescingVerifier", "RemoteVerifier"], "cpu": ["CpuVerifier"]}[rec["verifier"]]
+    for sid, v in rec["replica_verifiers"].items():
+        if v["types"] != types or v["fallback_batches"]:
+            problems.append(f"17c {sid}: {v}")
+    if rec["script_rc"] != 0 or rec["left_after_stop"]:
+        problems.append(f"17c: the script exited {rec['script_rc']} on SIGINT, left {rec['left_after_stop']}")
+    if not on_card:
+        return problems
+    svc = rec["service"]
+    if svc["dispatches_after_ready"] <= 0 or svc["comb_items_after_ready"] <= 0 or svc["fallback_batches"]:
+        problems.append(f"17c sidecar: {svc}")
+    if svc["warmup"] is None or svc["warmup"]["buckets"] != list(BOOT_WARMUP):
+        problems.append(f"17c sidecar warmup: {svc['warmup']}")
+    return problems
+
+
+def _port_free(port: int) -> bool:
+    with socket.socket() as s:
+        try:
+            s.bind(("127.0.0.1", port))
+        except OSError:
+            return False
+    return True
+
+
+def boot_phases(res: dict, seed: int, signers: Optional[List[Signer]], dev) -> None:
+    """Phases 17a-17c on the card (see the module docstring); raises on
+    what :func:`boot_problems`, :func:`window_problems` or
+    :func:`operators_problems` finds."""
+    smi = _nvidia_smi("name,power.limit")
+    res["boot"] = rec = run_boot_children(seed)
+    rec["nvidia_smi"] = smi
+    print(f"[boot] {rec}", flush=True)
+    problems = boot_problems(rec)
+    if signers is None:
+        signers = make_signers(np.random.default_rng(seed), CLIENTS)
+    res["window"] = rec = run_window(seed, signers, dev)
+    rec["nvidia_smi"] = smi
+    print(f"[window] {rec}", flush=True)
+    problems += window_problems(rec)
+    res["operators"] = rec = asyncio.run(drive_operators("remote", "cuda", OPS_N, OPS_RF, OPS_WRITES))
+    rec["nvidia_smi"] = smi
+    print(f"[operators] {rec}", flush=True)
+    problems += operators_problems(rec)
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
 def _zero_counts():
     """Launch counts and traces zeroed just before a main-path phase."""
     from mochi_tpu_torch.crypto import batch_verify as BV
@@ -3037,6 +3582,9 @@ def run(args) -> dict:
         return res
     if args.only == "16":
         reconfig_phase(res, args.seed)
+        return res
+    if args.only == "17":
+        boot_phases(res, args.seed, None, dev)
         return res
 
     # 3. kernel vs plain on the card
@@ -3661,6 +4209,26 @@ def run(args) -> dict:
     if problems:
         raise AssertionError("; ".join(problems))
 
+    # 9t. the cluster under MOCHI_COMB_IMPL=tree, at 9m's cut depth: grants on
+    # comb_tree.cu, client keys on verify.cu
+    try:
+        comb.COMB_IMPL = "tree"
+        clt, (vlogs_t2, clogs_t2) = _drive(
+            lambda: drive_cluster("cuda", CLUSTER_N, CLUSTER_MXU_CLIENTS, CLUSTER_MXU_WRITES), "cluster_tree", res)
+        for n in sorted({n for n, _, _ in clogs_t2["tree"]} - set(tcheck)):
+            tcheck[n] = _check_comb_at(n, table25, table15, lanes, big_lanes, cprep[6], cwant, "tree")
+        for n in sorted({n for n, _, _ in vlogs_t2["pad"]} - set(checked)):
+            checked[n] = check_kernel_vs_plain([t[:n] for t in big_t], big[6][:n], flat_want[:n])
+    finally:
+        comb.COMB_IMPL = impl0
+    clt["tree_lane_counts_checked_vs_plain"] = sorted({n for n, _, _ in clogs_t2["tree"]})
+    clt["verify_lane_counts_checked_vs_plain"] = sorted({n for n, _, _ in vlogs_t2["pad"]})
+    print(f"[cluster, tree] tree kernel equals plain at lane counts {clt['tree_lane_counts_checked_vs_plain']}, "
+          f"general kernel at {clt['verify_lane_counts_checked_vs_plain']}", flush=True)
+    problems = cluster_tree_problems(clt)
+    if problems:
+        raise AssertionError("; ".join(problems))
+
     # 10-12. several cards: the sharded service, the quorum step, NCCL
     qres = sharded_phases(args.seed, res, traffic, signers, secret, dev, check_comb)
     q_tally = qres["tally"]
@@ -3706,14 +4274,22 @@ def run(args) -> dict:
     print(f"[reconfig] comb kernel equals plain at the 128-signer table at lane counts {sorted(grown_checked)}",
           flush=True)
 
+    # 17a-c. boot warmup in fresh processes, verify_batch's window at three
+    # chunk sizes, the operators' script cluster with its sidecar on the card
+    boot_phases(res, args.seed, signers, dev)
+    win = {size: r for size, r in res["window"]["sizes"].items()}
+
     res["kernels"] = [{
         "name": "ed25519_verify",
         "route": "cuda",
         "source": "mochi_tpu_torch/csrc/verify.cu",
         "design": "a team of 4 lanes a signature (csrc/verify25519.cuh), [S]B by the basepoint comb",
         "replaces": "mochi_tpu/crypto/pallas_verify.py:132",
-        "launches": svc["verify_launches"] + adv["15"]["pad"] + adv["15s"]["pad"],
-        "launches_by_phase": {"5": svc["verify_launches"], "15": adv["15"]["pad"], "15s": adv["15s"]["pad"]},
+        "launches": (svc["verify_launches"] + clt["verify_launches"] + adv["15"]["pad"] + adv["15s"]["pad"]
+                     + sum(r["verify_launches"] for r in win.values())),
+        "launches_by_phase": {"5": svc["verify_launches"], "9t": clt["verify_launches"], "15": adv["15"]["pad"],
+                              "15s": adv["15s"]["pad"],
+                              "17b": {size: r["verify_launches"] for size, r in win.items()}},
         "max_abs_err": max([max_abs_err, *checked.values()]),
         "ms": ms_8k,
         "ms_65536": ms_64k,
@@ -3748,9 +4324,11 @@ def run(args) -> dict:
         "design": f"a team of {ca['team']} lanes a signature, one a warp (csrc/comb_team.cuh), "
                   "the last also decoding R",
         "replaces": "mochi_tpu/crypto/comb.py:512",
-        "launches": cl["comb_launches"]["chain"] + adv["15"]["chain"] + adv["15s"]["chain"],
+        "launches": (cl["comb_launches"]["chain"] + adv["15"]["chain"] + adv["15s"]["chain"]
+                     + sum(r["comb_launches"]["chain"] for r in win.values())),
         "launches_by_phase": {"9": cl["comb_launches"]["chain"], "15": adv["15"]["chain"],
-                              "15s": adv["15s"]["chain"]},
+                              "15s": adv["15s"]["chain"],
+                              "17b": {size: r["comb_launches"]["chain"] for size, r in win.items()}},
         "max_abs_err": max(ccheck.values()),
         "ms": c8k,
         "ms_65536": c64k,
@@ -3780,7 +4358,8 @@ def run(args) -> dict:
         "design": f"one launch: a decode warp beside {res['kernel_attributes']['comb_tree']['team']} lanes a "
                   "signature summing its window points, four warps a block (csrc/comb_tree.cuh)",
         "replaces": "mochi_tpu/crypto/comb.py:428",
-        "launches": svc2t["comb_launches"]["tree"],
+        "launches": svc2t["comb_launches"]["tree"] + clt["comb_launches"]["tree"],
+        "launches_by_phase": {"8t": svc2t["comb_launches"]["tree"], "9t": clt["comb_launches"]["tree"]},
         "max_abs_err": max(tcheck.values()),
         "ms": t8k,
         "ms_2752": t_wave,
@@ -4091,9 +4670,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="also write every result as JSON here")
-    ap.add_argument("--only", choices=("14", "15", "16"), default=None,
+    ap.add_argument("--only", choices=("14", "15", "16", "17"), default=None,
                     help="run only the device and build phases and phase 14 (with 14s), 15 (with 15p "
-                         "and 15s) or 16, print their records and no result line")
+                         "and 15s), 16 or 17 (17a-17c), print their records and no result line")
+    ap.add_argument("--boot-child", default=None, metavar="SIZES",
+                    help="phase 17a's child: a verifier warmed at SIZES (comma-separated lane counts, or "
+                         "empty), ten timed checks, one JSON line")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
     try:
@@ -4102,6 +4684,9 @@ def main(argv=None) -> int:
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device is available", file=sys.stderr)
             return 2
+        if args.boot_child is not None:
+            print(json.dumps(boot_child(args.seed, args.boot_child)))
+            return 0
         res = run(args)
         res["wall_s"] = time.perf_counter() - t0
         print(f"[wall] {res['wall_s']:.1f} s", flush=True)
@@ -4115,7 +4700,8 @@ def main(argv=None) -> int:
     if args.only:
         keys = {"14": ("processes", "processes_service"),
                 "15": ("adversaries", "adversary_processes", "scenarios"),
-                "16": ("reconfig",)}[args.only]
+                "16": ("reconfig",),
+                "17": ("boot", "window", "operators")}[args.only]
         print(json.dumps({k: res[k] for k in keys}, default=str))
         return 0
     print(json.dumps({"kernels": res["kernels"]}))

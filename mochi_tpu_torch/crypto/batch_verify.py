@@ -27,13 +27,17 @@ tensor-core chain, ``comb_mxu.cu``, or tree, ``comb_tree_mxu.cu``).  A batch rea
 where it pins its comb table (``cuda_comb.switches``), so the table's
 layout and the kernel that reads it always agree.
 
-Requests larger than the launch size are cut into chunks.  Every chunk is
-launched before any is read back, so chunk k+1's host prepare runs while
-chunk k is on the card; each travels through pinned host buffers with
-``non_blocking`` copies on the calling thread's own CUDA stream, so the
-batches that several threads verify at once overlap on the card too.  A
-chunk whose prechecks reject every item never reaches the device and is not
-counted as a dispatch.
+Requests larger than the launch size (``MAX_LAUNCH``, ``MOCHI_MAX_BUCKET``)
+are cut into chunks behind the reference's bounded window: one prepare
+worker thread (``mochi-prep``) prepares chunk k+1 while the caller launches
+chunk k, and launches stay at most ``_PIPELINE_DEPTH`` (4) chunks ahead of
+readbacks, so live memory is O(4 chunks), not O(request).  A chunk's pinned
+inputs and bitmap are released at its readback.  Each chunk travels through
+pinned host buffers with ``non_blocking`` copies on the calling thread's own
+CUDA stream, so the batches that several threads verify at once overlap on
+the card too.  A mixed batch whose two halves each fit one launch launches
+both kernels before reading either back.  A chunk whose prechecks reject
+every item never reaches the device and is not counted as a dispatch.
 
 Verdicts equal OpenSSL's cofactorless verify and the reference package's
 bit for bit: per-item verdicts, device bitmap ANDed with the host
@@ -47,6 +51,8 @@ import contextlib
 import hashlib
 import os
 import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -59,11 +65,29 @@ from .comb import SignerRegistry
 from ..verifier.spi import VerifyItem
 
 
-# Largest single kernel launch, and CudaBatchVerifier's default batch.  The
-# kernel takes any lane count; 8192 was the reference's TPU memory limit,
-# and the card's own launch size is still to be chosen from measurements
-# (ROADMAP.md).
-MAX_LAUNCH = 8192
+MIN_LAUNCH = 16
+
+
+def _max_bucket() -> int:
+    """``MOCHI_MAX_BUCKET`` as the reference reads it: 8192 by default or
+    when it is not an integer, at least ``MIN_LAUNCH``, rounded down to a
+    power of two."""
+    try:
+        v = int(os.environ.get("MOCHI_MAX_BUCKET", "8192"))
+    except ValueError:
+        return 8192
+    v = max(v, MIN_LAUNCH)
+    return 1 << (v.bit_length() - 1)
+
+
+# Largest single kernel launch (read once, at import), and
+# CudaBatchVerifier's default batch.  The kernels take any lane count; the
+# default 8192 is the reference's, and the card's own launch size is still
+# to be chosen from measurements (ROADMAP.md).
+MAX_LAUNCH = _max_bucket()
+
+# Chunks launched ahead of readbacks in verify_batch's window.
+_PIPELINE_DEPTH = 4
 
 # 15-bit limb weights and the uint64-word forms of p and L, for the
 # vectorized prechecks below.
@@ -334,8 +358,9 @@ def verify_batch(items: Sequence[VerifyItem], device="cuda", registry=None,
     enables the comb path: an item whose key is registered with an index
     below ``comb_gen`` (the generation pinned at routing time; default: the
     current one) takes the comb kernel against the table of that
-    generation, the rest the general kernel.  Every chunk of both kernels
-    is launched before any is read back.  Verdicts are identical either way.
+    generation, the rest the general kernel.  The comb chunks, then the
+    general ones, go through one window (:func:`_run_window`).  Verdicts
+    are identical either way.
     """
     if not items:
         return []
@@ -350,22 +375,75 @@ def verify_batch(items: Sequence[VerifyItem], device="cuda", registry=None,
         comb_pos = [i for i, k in enumerate(idx) if k is not None and k < gen]
         gen_pos = [i for i, k in enumerate(idx) if k is None or k >= gen]
         _note_routing(len(comb_pos), len(gen_pos))
-    launched = []
+    jobs = []
     if comb_pos:
         switches = cuda_comb.switches()  # read once: the table's layout and the kernel agree
         table = registry.device_table(device, gen, layout=cuda_comb.table_layout(device, *switches))
         kidx = np.asarray([idx[i] for i in comb_pos], dtype=np.int32)
         for i in range(0, len(comb_pos), MAX_LAUNCH):
-            chunk = [items[j] for j in comb_pos[i : i + MAX_LAUNCH]]
-            launched.append(_dispatch(prepare_packed(chunk), device,
-                                      comb=(kidx[i : i + MAX_LAUNCH], table, *switches)))
+            jobs.append(([items[j] for j in comb_pos[i : i + MAX_LAUNCH]],
+                         (kidx[i : i + MAX_LAUNCH], table, *switches)))
     for i in range(0, len(gen_pos), MAX_LAUNCH):
-        chunk = [items[j] for j in gen_pos[i : i + MAX_LAUNCH]]
-        launched.append(_dispatch(prepare_packed(chunk), device))
+        jobs.append(([items[j] for j in gen_pos[i : i + MAX_LAUNCH]], None))
     out: List[bool] = [False] * len(items)
-    for j, ok in zip(comb_pos + gen_pos, (ok for chunk in launched for ok in _readback(chunk))):
+    prefetch = max(len(comb_pos), len(gen_pos)) > MAX_LAUNCH
+    for j, ok in zip(comb_pos + gen_pos, (ok for chunk in _run_window(jobs, device, prefetch) for ok in chunk)):
         out[j] = bool(ok)
     return out
+
+
+def _run_window(jobs, device: torch.device, prefetch: bool) -> List[np.ndarray]:
+    """Launch each (items, comb) job of ``jobs`` and read it back in order,
+    at most ``_PIPELINE_DEPTH`` launched and not yet read back: chunk k is
+    launched, then chunk k - 4 read back before chunk k + 1 is.  With
+    ``prefetch`` the prepare worker prepares chunk k + 1 while chunk k is
+    launched and chunk k - 4 read back; without it (a request of at most
+    one chunk a kernel) each chunk is prepared on the caller's thread, and
+    both kernels of a mixed batch still launch before either is read back.
+    A launched chunk (its pinned inputs, its bitmap) is dropped at its
+    readback.  Returns one verdict array per job."""
+    window: deque = deque()
+    out: List[np.ndarray] = []
+    pool = _prep_pool() if prefetch else None
+    fut = pool.submit(prepare_packed, jobs[0][0]) if pool else None
+    for k, (chunk, comb) in enumerate(jobs):
+        if pool is not None:
+            prepared = fut.result()
+            if k + 1 < len(jobs):
+                fut = pool.submit(prepare_packed, jobs[k + 1][0])
+        else:
+            prepared = prepare_packed(chunk)
+        window.append(_dispatch(prepared, device, comb=comb))
+        if len(window) >= _PIPELINE_DEPTH:
+            out.append(_readback(window.popleft()))
+    while window:
+        out.append(_readback(window.popleft()))
+    return out
+
+
+# One persistent prepare worker: verify_batch runs on the verifier's
+# executor threads, so a single overlap thread is enough (the reference's).
+_PREP_POOL: Optional[ThreadPoolExecutor] = None
+_PREP_POOL_LOCK = threading.Lock()
+
+
+def _prep_pool() -> ThreadPoolExecutor:
+    global _PREP_POOL
+    if _PREP_POOL is None:
+        with _PREP_POOL_LOCK:
+            if _PREP_POOL is None:
+                _PREP_POOL = ThreadPoolExecutor(max_workers=1, thread_name_prefix="mochi-prep")
+    return _PREP_POOL
+
+
+def _dummy_items(n: int) -> List[VerifyItem]:
+    """``n`` copies of one valid signature by a throwaway key (never a
+    registered signer): items every host precheck accepts."""
+    from .keys import generate_keypair
+
+    kp = generate_keypair()
+    msg = b"mochi-tpu warmup"
+    return [VerifyItem(kp.public_key, msg, kp.sign(msg))] * n
 
 
 # ------------------------------------------------------------------ backend
@@ -408,16 +486,41 @@ class TorchBatchBackend:
     def registered_signers(self) -> List[bytes]:
         return self.registry.public_keys()
 
-    def warmup(self) -> None:
+    def warmup(self, batch_sizes: Sequence[int] = ()) -> None:
         """Build and load the kernels now (one nvcc each, in parallel), and
         upload the comb table of the registered signers in the layout of
-        the switches in effect, so no request waits for either."""
+        the switches in effect, so no request waits for either.  Then, at
+        each of ``batch_sizes`` (at most ``MAX_LAUNCH``), launch the general
+        kernel of the skew in effect once on items its prechecks accept,
+        and, with signers registered, the comb kernel of the switches in
+        effect once against the registry's table, through the launch path
+        of live traffic (:func:`_dispatch`, :func:`_readback`), so the
+        first request pays no first launch.  A build or launch error
+        raises; so does a warm general launch that rejects a valid item."""
         if self.device.type == "cuda":
             switches = cuda_comb.switches()
             cuda_verify._lib(cuda_verify.skew())  # builds every missing kernel at once
             cuda_comb._lib(cuda_comb.kernel_of(*switches))
             if len(self.registry):
                 self.registry.device_table(self.device, layout=cuda_comb.table_layout(self.device, *switches))
+        self._warm_launches(self.device, batch_sizes)
+
+    def _warm_launches(self, device: torch.device, batch_sizes: Sequence[int]) -> None:
+        """One warm launch of each kernel of the live path on ``device`` at
+        each size; synchronizes the card before it returns."""
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        for n in dict.fromkeys(min(max(int(b), 1), MAX_LAUNCH) for b in batch_sizes):
+            prepared = prepare_packed(_dummy_items(n))
+            if not _readback(_dispatch(prepared, device)).all():
+                raise RuntimeError(f"warmup: the general kernel rejected valid items at {n} lanes")
+            if len(self.registry) and comb_enabled():
+                switches = cuda_comb.switches()
+                table = self.registry.device_table(device, layout=cuda_comb.table_layout(device, *switches))
+                comb = (np.zeros(n, dtype=np.int32), table, *switches)
+                _readback(_dispatch(prepared, device, comb=comb))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
     def register_signers(self, pubs: Sequence[bytes]) -> None:
         """Register known signers (cluster replica identities): their

@@ -80,11 +80,12 @@ def _build_verifier(args, config: ClusterConfig, shared: dict):
                 )
             from ..verifier.cuda import CudaBatchVerifier
 
-            # Builds and loads both kernels before READY; the cluster's
-            # replica identities are known signers, so their grant
-            # signatures take the comb kernel.
+            # Builds and loads both kernels and launches each once at 16
+            # lanes before READY, so the first client's commit pays no
+            # first launch; the cluster's replica identities are known
+            # signers, so their grant signatures take the comb kernel.
             shared["cuda"] = CudaBatchVerifier(
-                device="cuda", signers=list(config.public_keys.values())
+                device="cuda", signers=list(config.public_keys.values()), warmup_buckets=(16,)
             )
         return shared["cuda"]
     if args.verifier.startswith("remote:"):

@@ -23,6 +23,7 @@ batch.
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -41,13 +42,18 @@ class CudaBatchVerifier(BatchingVerifier):
     ``max_batch``/``max_delay_s`` are the batching discipline: ship partial
     batches on a timer so latency stays bounded at low load while large
     batches amortise launches at high load.  ``max_batch`` defaults to the
-    backend's launch size (``batch_verify.MAX_LAUNCH``, the reference's
-    8192 until the card's own is chosen, ROADMAP.md).  ``signers`` (and
+    backend's launch size (``batch_verify.MAX_LAUNCH``: ``MOCHI_MAX_BUCKET``,
+    the reference's 8192 by default until the card's own is chosen,
+    ROADMAP.md).  ``signers`` (and
     later ``register_signers`` calls) register known signers with the
     backend first, whose comb kernel then carries their signatures, and
     then through the SPI's walk (on the CPU, the fallback's host tables).
-    Construction builds the kernels and uploads the signers' comb table.
-    On a CUDA device there is no fallback: a failed batch raises.
+    Construction builds the kernels and uploads the signers' comb table,
+    then launches each kernel of the live path once at each size of
+    ``warmup_buckets`` (the reference's ``warmup_buckets``: the server
+    passes ``(16,)``, the service ``--warmup``), so the first request pays
+    no first launch; a build or launch error there raises.  On a CUDA
+    device there is no fallback: a failed batch raises.
     """
 
     def __init__(
@@ -58,6 +64,7 @@ class CudaBatchVerifier(BatchingVerifier):
         min_device_items: Optional[int] = None,
         max_inflight: int = 4,
         signers: Sequence[bytes] = (),
+        warmup_buckets: Sequence[int] = (),
     ):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -66,9 +73,9 @@ class CudaBatchVerifier(BatchingVerifier):
                 "device='cpu' to run the plain version on the host"
             )
         backend = TorchBatchBackend(device=device, min_device_items=min_device_items)
-        self._start(backend, max_batch, max_delay_s, max_inflight, signers)
+        self._start(backend, max_batch, max_delay_s, max_inflight, signers, warmup_buckets)
 
-    def _start(self, backend, max_batch, max_delay_s, max_inflight, signers) -> None:
+    def _start(self, backend, max_batch, max_delay_s, max_inflight, signers, warmup_buckets) -> None:
         super().__init__(
             backend=backend,
             max_batch=max_batch,
@@ -79,7 +86,10 @@ class CudaBatchVerifier(BatchingVerifier):
             self.fallback = None  # fail closed: see the module docstring
         if signers:
             self.register_signers(signers)
-        backend.warmup()
+        self.warmup_buckets = tuple(warmup_buckets)
+        t0 = time.perf_counter()
+        backend.warmup(self.warmup_buckets)
+        self.warmup_s = time.perf_counter() - t0
 
     def register_signers(self, pubs: Sequence[bytes]) -> bool:
         """Backend first (its comb registry), then the SPI walk, which also
@@ -121,15 +131,18 @@ class ShardedCudaBatchBackend(TorchBatchBackend):
         """Slices of each batch (devices of the mesh, counted with repeats)."""
         return self.mesh.size
 
-    def warmup(self) -> None:
-        """Build and load the kernels, and upload the registered signers'
-        comb table to every device of the mesh, in the layout of the
-        switches in effect."""
+    def warmup(self, batch_sizes: Sequence[int] = ()) -> None:
+        """Build and load the kernels, upload the registered signers' comb
+        table to every device of the mesh, in the layout of the switches in
+        effect, and launch each kernel once at each of ``batch_sizes`` on
+        every device of the mesh."""
         super().warmup()
         if self.device.type == "cuda" and len(self.registry):
             switches = cuda_comb.switches()
             for dev in dict.fromkeys(self.mesh.devices):
                 self.registry.device_table(dev, layout=cuda_comb.table_layout(dev, *switches))
+        for dev in dict.fromkeys(self.mesh.devices):
+            self._warm_launches(dev, batch_sizes)
 
     def _verify(self, items: Sequence[VerifyItem]) -> List[bool]:
         n = len(items)
@@ -156,7 +169,7 @@ class ShardedCudaBatchVerifier(CudaBatchVerifier):
     device may repeat: two slices on one card), and ``devices=["cpu", ...]``
     runs the plain versions on the host.  ``max_batch`` defaults to
     ``MAX_LAUNCH`` lanes per slice, so each card gets the single-card
-    verifier's launch.
+    verifier's launch.  ``warmup_buckets`` warms every device of the mesh.
     """
 
     def __init__(
@@ -167,8 +180,9 @@ class ShardedCudaBatchVerifier(CudaBatchVerifier):
         min_device_items: Optional[int] = None,
         max_inflight: int = 4,
         signers: Sequence[bytes] = (),
+        warmup_buckets: Sequence[int] = (),
     ):
         mesh = make_mesh(devices)
         backend = ShardedCudaBatchBackend(mesh, min_device_items=min_device_items)
         self._start(backend, MAX_LAUNCH * mesh.size if max_batch is None else max_batch,
-                    max_delay_s, max_inflight, signers)
+                    max_delay_s, max_inflight, signers, warmup_buckets)

@@ -254,6 +254,11 @@ class RemoteVerifier(SignatureVerifier):
         await self.fallback.close()
 
 
+def warmup_sizes(spec: str) -> tuple:
+    """``--warmup``'s comma-separated lane counts -> a tuple of ints."""
+    return tuple(int(b) for b in spec.split(",") if b.strip())
+
+
 def load_signers(path: str) -> List[bytes]:
     """Parse a signers file: one hex Ed25519 pubkey per line (# comments)."""
     out: List[bytes] = []
@@ -277,7 +282,7 @@ async def amain(args) -> None:
         from .cuda import ShardedCudaBatchVerifier
 
         t0 = time.time()
-        verifier = ShardedCudaBatchVerifier(signers=signers)
+        verifier = ShardedCudaBatchVerifier(signers=signers, warmup_buckets=warmup_sizes(args.warmup))
         LOG.info(
             "sharded verifier over %d devices (warmup %.1fs, %d known signers)",
             verifier.backend.n_devices,
@@ -291,11 +296,12 @@ async def amain(args) -> None:
         from .cuda import CudaBatchVerifier
 
         t0 = time.time()
-        verifier = CudaBatchVerifier(device="cuda", signers=signers)
+        verifier = CudaBatchVerifier(device="cuda", signers=signers, warmup_buckets=warmup_sizes(args.warmup))
         LOG.info(
-            "CUDA kernels ready in %.1fs (general kernel: %s multiply; %d known signers on the comb "
-            "kernel, %s accumulation, %s multiply)",
+            "CUDA kernels ready in %.1fs, warmed at %s lanes (general kernel: %s multiply; %d known "
+            "signers on the comb kernel, %s accumulation, %s multiply)",
             time.time() - t0,
+            args.warmup,
             skew(),
             len(signers),
             COMB_IMPL,
@@ -357,7 +363,8 @@ class ServiceAdminServer(HttpJsonServer):
         return 404, "application/json", '{"error": "not found"}'
 
 
-def main(argv=None) -> None:
+def build_parser() -> argparse.ArgumentParser:
+    """The service's command line."""
     parser = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter
     )
@@ -370,6 +377,12 @@ def main(argv=None) -> None:
         help="cuda: the CUDA kernels on one card (the default; fails "
         "when no card is present); cuda-sharded: each batch split over "
         "every visible card (fails likewise); cpu: host verification per item",
+    )
+    parser.add_argument(
+        "--warmup",
+        default="16,256",
+        help="comma-separated lane counts at which each kernel is launched once before READY "
+        "(the cuda backends)",
     )
     parser.add_argument(
         "--secret-file",
@@ -392,7 +405,11 @@ def main(argv=None) -> None:
         help="serve service counters as JSON over loopback HTTP (0 = ephemeral)",
     )
     parser.add_argument("--log-level", default="INFO")
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
     logging.basicConfig(
         level=args.log_level, format="%(asctime)s %(name)s %(levelname)s %(message)s"
     )

@@ -601,6 +601,12 @@ def verifier_stats(verifier) -> dict:
         v = getattr(verifier, attr, None)
         if isinstance(v, int):
             st[attr] = v
+    warm = getattr(verifier, "warmup_buckets", None)
+    if warm is not None:
+        # the lane counts each kernel was launched at before the first
+        # request (CudaBatchVerifier(warmup_buckets=)), and the seconds the
+        # build, the table upload and those launches took
+        st["warmup"] = {"buckets": list(warm), "seconds": getattr(verifier, "warmup_s", None)}
     backend = getattr(verifier, "backend", None)
     registry = getattr(backend, "registry", None)
     if registry is not None:

@@ -163,7 +163,7 @@ def test_card_verifier_raises_a_kernel_failure_instead_of_verifying_on_the_cpu(m
     # a CudaBatchVerifier on the card, whose kernel launch is refused; the
     # card itself is not touched (nothing is built or uploaded)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(BV.TorchBatchBackend, "warmup", lambda self: None)
+    monkeypatch.setattr(BV.TorchBatchBackend, "warmup", lambda self, batch_sizes=(): None)
 
     def refused(*args, **kwargs):
         raise RuntimeError("comb kernel launch refused")
@@ -261,3 +261,144 @@ def test_cli_backend_choice_and_loaders(tmp_path):
     assert load_secret(str(tmp_path / "s")) == b"\xab" * 32
     (tmp_path / "k").write_text("# signers\n" + "11" * 32 + "  # one\n\n" + "22" * 32 + "\n")
     assert load_signers(str(tmp_path / "k")) == [b"\x11" * 32, b"\x22" * 32]
+
+
+# ------------------------------------------------------------------- warmup
+
+
+def _record_dispatches(monkeypatch):
+    """Every launch-path dispatch as (lanes, comb?)."""
+    seen = []
+    real = BV._dispatch
+
+    def dispatch(prepared, device, k=0, comb=None):
+        seen.append((len(prepared[6]), comb is not None))
+        return real(prepared, device, k, comb)
+
+    monkeypatch.setattr(BV, "_dispatch", dispatch)
+    return seen
+
+
+def _every_lane_verifies(monkeypatch):
+    """Stand-ins for the two wrappers' plain arithmetic, which the warmup
+    tests do not count: every lane verifies."""
+    from mochi_tpu_torch.crypto import cuda_comb, cuda_verify
+
+    monkeypatch.setattr(cuda_verify, "verify_prepared_packed", lambda *t: torch.ones(len(t[1]), dtype=torch.bool))
+    monkeypatch.setattr(cuda_comb, "verify_comb_prepared",
+                        lambda table, *t, **kw: torch.ones(len(t[0]), dtype=torch.bool))
+
+
+def test_warmup_launches_each_path_once_at_each_size(monkeypatch):
+    """TorchBatchBackend.warmup((16, 256)) launches the general path once
+    at each size on items its prechecks accept, and with signers
+    registered the comb path too, through the live launch path."""
+    seen = _record_dispatches(monkeypatch)
+    _every_lane_verifies(monkeypatch)
+    backend = BV.TorchBatchBackend(device="cpu")
+    backend.warmup((16, 256))
+    assert seen == [(16, False), (256, False)]
+    seen.clear()
+    backend.register_signers([generate_keypair().public_key for _ in range(3)])
+    backend.warmup((16, 256))
+    assert seen == [(16, False), (16, True), (256, False), (256, True)]
+    seen.clear()
+    backend.warmup()
+    assert seen == []
+
+
+def test_verifier_warmup_buckets_reach_the_backend_and_its_stats(monkeypatch):
+    """CudaBatchVerifier(warmup_buckets=) warms its backend at those sizes
+    before it serves, and its stats name the sizes and the seconds; the
+    sharded verifier warms every slice's device."""
+    from mochi_tpu_torch.verifier.cuda import ShardedCudaBatchVerifier
+    from mochi_tpu_torch.verifier.spi import verifier_stats
+
+    seen = _record_dispatches(monkeypatch)
+    pubs = [generate_keypair().public_key for _ in range(2)]
+
+    async def main():
+        v = CudaBatchVerifier(device="cpu", signers=pubs, warmup_buckets=(16,))
+        assert seen == [(16, False), (16, True)]
+        st = verifier_stats(v)
+        assert st["warmup"]["buckets"] == [16] and st["warmup"]["seconds"] > 0
+        await v.close()
+        seen.clear()
+        sv = ShardedCudaBatchVerifier(devices=["cpu", "cpu"], signers=pubs, warmup_buckets=(16,))
+        assert seen == [(16, False), (16, True)]  # the one device of the mesh, once
+        await sv.close()
+
+    run(main())
+
+
+def test_a_warmup_failure_fails_the_verifier(monkeypatch):
+    """No fallback hides a warmup: a launch error raises out of the
+    verifier's construction, and so does a warm launch that rejects the
+    valid items."""
+    import numpy as np
+
+    def refused(*args, **kwargs):
+        raise RuntimeError("launch refused at warmup")
+
+    monkeypatch.setattr(BV, "_dispatch", refused)
+    with pytest.raises(RuntimeError, match="launch refused at warmup"):
+        CudaBatchVerifier(device="cpu", warmup_buckets=(16,))
+    monkeypatch.undo()
+    monkeypatch.setattr(BV, "_readback", lambda launched: np.zeros(len(launched[3]), dtype=bool))
+    with pytest.raises(RuntimeError, match="rejected valid items"):
+        CudaBatchVerifier(device="cpu", warmup_buckets=(16,))
+
+
+def test_server_warms_16_lanes_before_ready(monkeypatch):
+    """The replica entry point's card verifier is built (before any
+    replica prints READY) with warmup_buckets=(16,) and the cluster's
+    identities as its signers."""
+    import argparse
+
+    from mochi_tpu_torch.cluster.config import ClusterConfig
+    from mochi_tpu_torch.server import __main__ as server_main
+    from mochi_tpu_torch.verifier import cuda as cuda_mod
+
+    built = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(cuda_mod, "CudaBatchVerifier", lambda **kw: built.append(kw) or object())
+    kps = [generate_keypair() for _ in range(4)]
+    cfg = ClusterConfig.build({f"server-{i}": f"127.0.0.1:{9500 + i}" for i in range(4)}, rf=4,
+                              public_keys={f"server-{i}": kp.public_key for i, kp in enumerate(kps)})
+    shared: dict = {}
+    v = server_main._build_verifier(argparse.Namespace(verifier="cuda"), cfg, shared)
+    assert server_main._build_verifier(argparse.Namespace(verifier="cuda"), cfg, shared) is v  # one per process
+    assert len(built) == 1 and built[0]["warmup_buckets"] == (16,) and built[0]["device"] == "cuda"
+    assert sorted(built[0]["signers"]) == sorted(kp.public_key for kp in kps)
+
+
+def test_service_accepts_warmup_and_passes_it_to_the_card_verifier(monkeypatch, capsys):
+    """The service's --warmup (default 16,256) reaches the card verifier it
+    builds before READY; here the verifier runs the plain versions."""
+    from mochi_tpu_torch.verifier import cuda as cuda_mod
+    from mochi_tpu_torch.verifier import service as service_mod
+
+    built = []
+    real = cuda_mod.CudaBatchVerifier
+
+    def recording(**kw):
+        built.append(kw)
+        return real(**dict(kw, device="cpu"))
+
+    monkeypatch.setattr(cuda_mod, "CudaBatchVerifier", recording)
+    _every_lane_verifies(monkeypatch)
+    assert service_mod.build_parser().parse_args([]).warmup == "16,256"
+
+    async def boot(argv):
+        task = asyncio.ensure_future(service_mod.amain(service_mod.build_parser().parse_args(argv)))
+        for _ in range(600):
+            await asyncio.sleep(0.05)
+            if "READY" in capsys.readouterr().out:
+                break
+        task.cancel()
+        with pytest.raises(asyncio.CancelledError):
+            await task
+
+    run(boot(["--port", "0"]))
+    run(boot(["--port", "0", "--warmup", "16,32,"]))
+    assert [kw["warmup_buckets"] for kw in built] == [(16, 256), (16, 32)]
