@@ -1,0 +1,3 @@
+"""step_host_ms.bulk: see :func:`portbench.readers.step_host_ms`."""
+
+from portbench.readers import step_host_ms as read  # noqa: F401
