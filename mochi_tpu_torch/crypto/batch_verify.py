@@ -38,6 +38,10 @@ CUDA stream, so the batches that several threads verify at once overlap on
 the card too.  A mixed batch whose two halves each fit one launch launches
 both kernels before reading either back.  A chunk whose prechecks reject
 every item never reaches the device and is not counted as a dispatch.
+While a ``torch.profiler`` session records, each launch, its pins and each
+readback open a span on the profiler's clock
+(:func:`~mochi_tpu_torch.obs.trace.device_span`: ``mochi.dispatch``,
+``mochi.pin``, ``mochi.readback``).
 
 Verdicts equal OpenSSL's cofactorless verify and the reference package's
 bit for bit: per-item verdicts, device bitmap ANDed with the host
@@ -62,6 +66,7 @@ from . import cuda_comb
 from . import cuda_verify
 from . import field as F
 from .comb import SignerRegistry
+from ..obs.trace import SPAN_DISPATCH, SPAN_PIN, SPAN_READBACK, device_span
 from ..verifier.spi import VerifyItem
 
 
@@ -313,40 +318,52 @@ def _dispatch(prepared, device: torch.device, k: int = 0, comb: Optional[tuple] 
     at routing time in the layout of the (impl, multiply) read with it, that
     comb kernel runs, else the general kernel.  On a card it runs on the
     stream of (this thread, ``device``, slice ``k``).  Returns (bitmap or
-    None, stream, what must stay alive until readback, pre_ok)."""
-    *arrays, pre_ok = prepared
-    if not pre_ok.any():
-        return None, None, None, pre_ok
-    _note_dispatch(len(pre_ok), comb=comb is not None)
-    table = None
-    if comb is not None:
-        key_idx, table, impl, multiply = comb
-        host = cuda_comb.from_prepared(key_idx, arrays, "cpu")
-        kernel = lambda *t: cuda_comb.verify_comb_prepared(table, *t, impl=impl, multiply=multiply)  # noqa: E731
-    else:
-        host = cuda_verify.from_reference_prepared(arrays, "cpu")
-        kernel = cuda_verify.verify_prepared_packed
-    if device.type == "cpu":
-        return kernel(*host), None, None, pre_ok
-    hosts = [h.pin_memory() for h in host]
-    stream = _thread_stream(device, k)
-    with torch.cuda.device(device), torch.cuda.stream(stream):
-        bitmap = kernel(*(h.to(device, non_blocking=True) for h in hosts))
-    # The pinned inputs and the pinned comb table stay referenced until the
-    # readback synchronises: a registration that rebuilds the registry's
-    # table cannot free this one under the running kernel.
-    return bitmap, stream, (hosts, table), pre_ok
+    None, stream, what must stay alive until readback, pre_ok).  Runs in a
+    ``mochi.dispatch`` span, its pins in a ``mochi.pin`` one."""
+    with device_span(SPAN_DISPATCH):
+        *arrays, pre_ok = prepared
+        if not pre_ok.any():
+            return None, None, None, pre_ok
+        _note_dispatch(len(pre_ok), comb=comb is not None)
+        table = None
+        if comb is not None:
+            key_idx, table, impl, multiply = comb
+            host = cuda_comb.from_prepared(key_idx, arrays, "cpu")
+            kernel = lambda *t: cuda_comb.verify_comb_prepared(table, *t, impl=impl, multiply=multiply)  # noqa: E731
+        else:
+            host = cuda_verify.from_reference_prepared(arrays, "cpu")
+            kernel = cuda_verify.verify_prepared_packed
+        if device.type == "cpu":
+            return kernel(*host), None, None, pre_ok
+        hosts = _pinned(host)
+        stream = _thread_stream(device, k)
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            bitmap = kernel(*(h.to(device, non_blocking=True) for h in hosts))
+        # The pinned inputs and the pinned comb table stay referenced until the
+        # readback synchronises: a registration that rebuilds the registry's
+        # table cannot free this one under the running kernel.
+        return bitmap, stream, (hosts, table), pre_ok
+
+
+def _pinned(host: Sequence[torch.Tensor]) -> list:
+    """Pinned copies of ``host``, in one ``mochi.pin`` span.  One span a
+    group, not a pin: under the profiler a span's own records cost about
+    half of a 1,536-lane pin."""
+    with device_span(SPAN_PIN):
+        return [h.pin_memory() for h in host]
 
 
 def _readback(launched) -> np.ndarray:
     """Block on one launched chunk (a synchronising copy on the stream it
-    ran on) and AND the bitmap with the host prechecks: (n,) bool."""
-    bitmap, stream, _hosts, pre_ok = launched
-    if bitmap is None:  # all-rejected chunk: no device work was done
-        return np.zeros(len(pre_ok), dtype=bool)
-    with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
-        host = bitmap.cpu().numpy()
-    return np.logical_and(host, pre_ok)
+    ran on) and AND the bitmap with the host prechecks: (n,) bool.  Runs
+    in a ``mochi.readback`` span."""
+    with device_span(SPAN_READBACK):
+        bitmap, stream, _hosts, pre_ok = launched
+        if bitmap is None:  # all-rejected chunk: no device work was done
+            return np.zeros(len(pre_ok), dtype=bool)
+        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+            host = bitmap.cpu().numpy()
+        return np.logical_and(host, pre_ok)
 
 
 def verify_batch(items: Sequence[VerifyItem], device="cuda", registry=None,

@@ -31,6 +31,9 @@ causal record:
   conviction attached; replica conviction paths and the SIGTERM drain call
   it when ``MOCHI_TRACE_DIR`` is set, so a Byzantine verdict ships with
   the convicted message's causal path instead of just a counter.
+* **Device spans** — :func:`device_span` marks the quorum step's layer
+  boundaries for a ``torch.profiler`` session, on the card's clock, and
+  costs one attribute read outside one (the section at the end).
 
 Lazy-label discipline (enforced by the ``span-lazy-label`` analysis rule):
 span names are CONSTANTS and args are built only behind a ``wants(ctx)``
@@ -40,6 +43,7 @@ formatting for the ~95% of traffic that head-based sampling skips.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import random
@@ -520,6 +524,42 @@ def cost_cards(events: Iterable[Dict]) -> Dict[str, Dict]:
                   "queue_us", "fsyncs"):
             card[k] = round(card[k], 3)
     return cards
+
+
+# ------------------------------------------------------------ device spans
+#
+# The quorum step's layer boundaries (``parallel/sharded.py``'s step,
+# ``crypto/batch_verify.py``'s ``_dispatch`` and ``_readback``) as torch
+# profiler annotations.  While a ``torch.profiler`` session records, a span
+# lands in its trace as a ``user_annotation`` beside the card's kernels,
+# copies and memsets, on their clock, so an idle gap of the card can be
+# placed inside one.  Outside a session a span is one attribute read and a
+# shared no-op context: ``record_function`` entered with no profiler
+# running costs 7-13 µs, and a one-slice step on a card opens seven,
+# which would add 5-8% to a one-flush step.  The names are constants (the
+# span-lazy-label discipline).  torch is loaded on first use: the client
+# SDK imports this module and never runs a step.
+
+SPAN_QUORUM_STEP = "mochi.quorum_step"  # one whole quorum step
+SPAN_DISPATCH = "mochi.dispatch"  # a verify launch: staging, pins, uploads
+SPAN_TALLY = "mochi.tally"  # the step's tally, slot sum, all_reduce, commit
+SPAN_PIN = "mochi.pin"  # one group of pin_memory() copies
+SPAN_READBACK = "mochi.readback"  # a synchronising read of results
+
+_NO_SPAN = contextlib.nullcontext()
+_autograd_profiler = None  # torch.autograd.profiler, once loaded
+
+
+def device_span(name: str):
+    """``torch.profiler.record_function(name)`` while a torch profiler
+    session is recording, else one shared no-op context."""
+    global _autograd_profiler
+    prof = _autograd_profiler
+    if prof is None:
+        import torch.autograd.profiler as prof
+
+        _autograd_profiler = prof
+    return prof.record_function(name) if prof._is_profiler_enabled else _NO_SPAN
 
 
 def global_summary() -> Dict:

@@ -43,6 +43,7 @@ import torch
 
 from ..crypto import batch_verify as BV
 from ..crypto import cuda_comb
+from ..obs.trace import SPAN_QUORUM_STEP, SPAN_READBACK, SPAN_TALLY, device_span
 from . import cuda_tally
 
 
@@ -265,54 +266,63 @@ def make_quorum_step(mesh: Mesh, n_groups: int):
 
     Returns (bitmap (B,) bool: the verdicts, device bitmap AND pre_ok;
     counts (n_groups,) int32; committed (n_groups,) bool), on the host.
+
+    While a ``torch.profiler`` session records, a step runs in a
+    ``mochi.quorum_step`` span: each slice's verify launch in a
+    ``mochi.dispatch`` span, then the tally section (its pins, uploads,
+    launches, the slot sum, ``all_reduce`` and the commit) in a
+    ``mochi.tally`` one, each group of pins in ``mochi.pin``, each readback in
+    ``mochi.readback`` (``obs/trace.py``'s ``device_span``).
     """
     if n_groups < 0:
         raise ValueError(f"n_groups = {n_groups} is negative")
 
     def step(y_a, sign_a, y_r, sign_r, s_bytes, h_bytes, pre_ok, group_ids, threshold):
-        ids = np.ascontiguousarray(group_ids, dtype=np.int32)
-        _require_even(mesh, len(ids))
-        prepared = (y_a, sign_a, y_r, sign_r, s_bytes, h_bytes, np.asarray(pre_ok, dtype=bool))
-        launched = _dispatch_slices(mesh, prepared)
-        final = mesh.size == 1 and mesh.group is None  # the one slice's counts are the step's
-        committed = None
-        parts, alive = [], []  # (stream, counts) per slice; pinned inputs kept until readback
-        for k, (dev, (lo, hi), (bitmap, _s, _keep, ok)) in enumerate(
-                zip(mesh.devices, _bounds(mesh, len(ids)), launched)):
-            stream = BV._thread_stream(dev, k) if dev.type == "cuda" else None
-            with torch.cuda.stream(stream):  # a no-op on the CPU
-                if bitmap is None:  # the host rejected every lane: no vote to count
-                    lanes = (torch.zeros(0, dtype=torch.bool, device=dev),) * 2 + (
-                        torch.zeros(0, dtype=torch.int32, device=dev),)
-                else:
-                    host = (torch.from_numpy(ok), torch.from_numpy(ids[lo:hi]))
-                    if stream is not None:
-                        host = tuple(h.pin_memory() for h in host)
-                        alive.append(host)
-                    lanes = (bitmap, *(h.to(dev, non_blocking=True) for h in host))
-                if final:
-                    counts, committed = cuda_tally.quorum_tally_commit(*lanes, n_groups, threshold)
-                else:
-                    counts = cuda_tally.quorum_tally(*lanes, n_groups)
-            parts.append((stream, counts))
-        stream0 = parts[0][0]
-        with torch.cuda.stream(stream0):
-            counts = parts[0][1]
-            for stream, c in parts[1:]:
-                if stream is not None:
-                    # the add on the first slice's stream waits for this
-                    # slice's tally, and no longer
-                    done = torch.cuda.Event()
-                    done.record(stream)
-                    stream0.wait_event(done)
-                counts = counts + c.to(mesh.devices[0], non_blocking=True)
-            if mesh.group is not None:
-                _all_reduce(counts, mesh.group)
-            if committed is None:
-                committed = cuda_tally.quorum_commit(counts, threshold)
-        bitmap = _bitmap(launched)
-        with torch.cuda.stream(stream0):
-            return bitmap, counts.cpu(), committed.cpu()
+        with device_span(SPAN_QUORUM_STEP):
+            ids = np.ascontiguousarray(group_ids, dtype=np.int32)
+            _require_even(mesh, len(ids))
+            prepared = (y_a, sign_a, y_r, sign_r, s_bytes, h_bytes, np.asarray(pre_ok, dtype=bool))
+            launched = _dispatch_slices(mesh, prepared)
+            final = mesh.size == 1 and mesh.group is None  # the one slice's counts are the step's
+            committed = None
+            parts, alive = [], []  # (stream, counts) per slice; pinned inputs kept until readback
+            with device_span(SPAN_TALLY):
+                for k, (dev, (lo, hi), (bitmap, _s, _keep, ok)) in enumerate(
+                        zip(mesh.devices, _bounds(mesh, len(ids)), launched)):
+                    stream = BV._thread_stream(dev, k) if dev.type == "cuda" else None
+                    with torch.cuda.stream(stream):  # a no-op on the CPU
+                        if bitmap is None:  # the host rejected every lane: no vote to count
+                            lanes = (torch.zeros(0, dtype=torch.bool, device=dev),) * 2 + (
+                                torch.zeros(0, dtype=torch.int32, device=dev),)
+                        else:
+                            host = (torch.from_numpy(ok), torch.from_numpy(ids[lo:hi]))
+                            if stream is not None:
+                                host = BV._pinned(host)
+                                alive.append(host)
+                            lanes = (bitmap, *(h.to(dev, non_blocking=True) for h in host))
+                        if final:
+                            counts, committed = cuda_tally.quorum_tally_commit(*lanes, n_groups, threshold)
+                        else:
+                            counts = cuda_tally.quorum_tally(*lanes, n_groups)
+                    parts.append((stream, counts))
+                stream0 = parts[0][0]
+                with torch.cuda.stream(stream0):
+                    counts = parts[0][1]
+                    for stream, c in parts[1:]:
+                        if stream is not None:
+                            # the add on the first slice's stream waits for this
+                            # slice's tally, and no longer
+                            done = torch.cuda.Event()
+                            done.record(stream)
+                            stream0.wait_event(done)
+                        counts = counts + c.to(mesh.devices[0], non_blocking=True)
+                    if mesh.group is not None:
+                        _all_reduce(counts, mesh.group)
+                    if committed is None:
+                        committed = cuda_tally.quorum_commit(counts, threshold)
+            bitmap = _bitmap(launched)
+            with device_span(SPAN_READBACK), torch.cuda.stream(stream0):
+                return bitmap, counts.cpu(), committed.cpu()
 
     return step
 
