@@ -302,9 +302,10 @@ def comb_enabled() -> bool:
 _streams: dict = {}
 
 
-def _thread_stream(device: torch.device, k: int = 0) -> torch.cuda.Stream:
+def _thread_stream(device: torch.device, k=0) -> torch.cuda.Stream:
     """One CUDA stream per (thread, device, slice ``k``), so concurrent
-    callers, and the slices of one sharded batch on one card, overlap."""
+    callers, and the slices of one sharded batch on one card, overlap
+    (``k`` may be any key: a slice's upload stream is ``(k, "upload")``)."""
     key = (threading.get_ident(), str(device), k)
     s = _streams.get(key)
     if s is None:
@@ -312,12 +313,17 @@ def _thread_stream(device: torch.device, k: int = 0) -> torch.cuda.Stream:
     return s
 
 
-def _dispatch(prepared, device: torch.device, k: int = 0, comb: Optional[tuple] = None):
+def _dispatch(prepared, device: torch.device, k: int = 0, comb: Optional[tuple] = None,
+              out: Optional[torch.Tensor] = None, upload: Optional[torch.cuda.Stream] = None):
     """Send one prepared chunk to the device and launch; no readback.
     With ``comb`` = (key_idx, table, impl, multiply), the comb table pinned
     at routing time in the layout of the (impl, multiply) read with it, that
     comb kernel runs, else the general kernel.  On a card it runs on the
-    stream of (this thread, ``device``, slice ``k``).  Returns (bitmap or
+    stream of (this thread, ``device``, slice ``k``); its uploads run there
+    too, or on ``upload``, which that stream then waits for (so a chunk's
+    uploads can overlap the kernel before it).  ``out``, a contiguous bool
+    view on ``device`` of the chunk's length, takes the kernel's bitmap
+    (left as it is when no lane passes the prechecks).  Returns (bitmap or
     None, stream, what must stay alive until readback, pre_ok).  Runs in a
     ``mochi.dispatch`` span, its pins in a ``mochi.pin`` one."""
     with device_span(SPAN_DISPATCH):
@@ -326,19 +332,28 @@ def _dispatch(prepared, device: torch.device, k: int = 0, comb: Optional[tuple] 
             return None, None, None, pre_ok
         _note_dispatch(len(pre_ok), comb=comb is not None)
         table = None
+        into = {} if out is None else {"out": out}
         if comb is not None:
             key_idx, table, impl, multiply = comb
             host = cuda_comb.from_prepared(key_idx, arrays, "cpu")
-            kernel = lambda *t: cuda_comb.verify_comb_prepared(table, *t, impl=impl, multiply=multiply)  # noqa: E731
+            kernel = lambda *t: cuda_comb.verify_comb_prepared(table, *t, impl=impl, multiply=multiply, **into)  # noqa: E731
         else:
             host = cuda_verify.from_reference_prepared(arrays, "cpu")
-            kernel = cuda_verify.verify_prepared_packed
+            kernel = lambda *t: cuda_verify.verify_prepared_packed(*t, **into)  # noqa: E731
         if device.type == "cpu":
             return kernel(*host), None, None, pre_ok
         hosts = _pinned(host)
         stream = _thread_stream(device, k)
         with torch.cuda.device(device), torch.cuda.stream(stream):
-            bitmap = kernel(*(h.to(device, non_blocking=True) for h in hosts))
+            if upload is None:
+                lanes = [h.to(device, non_blocking=True) for h in hosts]
+            else:
+                with torch.cuda.stream(upload):
+                    lanes = [h.to(device, non_blocking=True) for h in hosts]
+                stream.wait_stream(upload)
+                for t in lanes:  # freed below: not reused before the kernel has read it
+                    t.record_stream(stream)
+            bitmap = kernel(*lanes)
         # The pinned inputs and the pinned comb table stay referenced until the
         # readback synchronises: a registration that rebuilds the registry's
         # table cannot free this one under the running kernel.

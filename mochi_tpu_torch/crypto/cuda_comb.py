@@ -261,12 +261,13 @@ _TABLE_SHAPES = {"radix25": (3, 10), "fe17": (comb.ROW_WIDTH,)}
 
 
 def verify_comb_prepared(table, key_idx, y_r, sign_r, s_bytes, h_bytes, impl=None,
-                         multiply=None) -> torch.Tensor:
+                         multiply=None, out=None) -> torch.Tensor:
     """(B,) bool bitmap of the comb verify with ``impl``'s accumulation
     (default ``comb.COMB_IMPL``) and ``multiply`` (``pad`` or ``mxu``;
     default ``MOCHI_SKEW_IMPL``'s): on a card the kernel of
     :func:`kernel_of`; on the CPU the plain version of the same pair (see
-    the module docstring)."""
+    the module docstring).  ``out``, a contiguous (B,) bool tensor on the
+    lanes' device, takes the bitmap in place of a new one and is returned."""
     impl = comb.check_impl(impl)
     if multiply is None:
         multiply = switches()[1]
@@ -278,20 +279,24 @@ def verify_comb_prepared(table, key_idx, y_r, sign_r, s_bytes, h_bytes, impl=Non
             or table.shape[0] == 0:
         raise ValueError(f"table has shape {tuple(table.shape)}, expected (rows, "
                          f"{', '.join(map(str, _TABLE_SHAPES[layout]))}) in the {layout} layout")
+    n = y_r.shape[0]
+    if out is not None:
+        _check("out", out, torch.bool, (n,), device)
     if device.type == "cpu":
-        return comb.verify_comb_prepared(table, key_idx, y_r, sign_r, s_bytes, h_bytes, impl=impl,
-                                         multiply=multiply)
+        got = comb.verify_comb_prepared(table, key_idx, y_r, sign_r, s_bytes, h_bytes, impl=impl,
+                                        multiply=multiply)
+        return got if out is None else out.copy_(got)
     if device.type != "cuda":
         raise ValueError(f"no comb kernel for device {device}")
     kernel = kernel_of(impl, multiply)
-    n = y_r.shape[0]
     _check("table", table, torch.int32, tuple(table.shape), device)
     _check("key_idx", key_idx, torch.int32, (n,), device)
     _check("y_r", y_r, torch.int32, (n, F.NLIMBS), device)
     _check("sign_r", sign_r, torch.int32, (n,), device)
     _check("s_bytes", s_bytes, torch.uint8, (n, 32), device)
     _check("h_bytes", h_bytes, torch.uint8, (n, 32), device)
-    out = torch.empty(n, dtype=torch.bool, device=device)
+    if out is None:
+        out = torch.empty(n, dtype=torch.bool, device=device)
     if n == 0:
         return out
     lib = _lib(kernel)

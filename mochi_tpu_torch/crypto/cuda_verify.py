@@ -190,22 +190,28 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def verify_prepared_packed(y_a, sign_a, y_r, sign_r, s_bytes, h_bytes) -> torch.Tensor:
+def verify_prepared_packed(y_a, sign_a, y_r, sign_r, s_bytes, h_bytes, out=None) -> torch.Tensor:
     """(B,) bool bitmap of the cofactorless verify with the kernel of
-    :func:`skew` (see module docstring)."""
+    :func:`skew` (see module docstring).  ``out``, a contiguous (B,) bool
+    tensor on the inputs' device (a view into a larger bitmap, say), takes
+    the bitmap in place of a new one and is returned."""
     device = y_a.device
+    n = y_a.shape[0]
+    if out is not None:
+        _check("out", out, torch.bool, (n,), device)
     if device.type == "cpu":
-        return curve.verify_prepared_packed(y_a, sign_a, y_r, sign_r, s_bytes, h_bytes)
+        got = curve.verify_prepared_packed(y_a, sign_a, y_r, sign_r, s_bytes, h_bytes)
+        return got if out is None else out.copy_(got)
     if device.type != "cuda":
         raise ValueError(f"no verify kernel for device {device}")
-    n = y_a.shape[0]
     _check("y_a", y_a, torch.int32, (n, F.NLIMBS), device)
     _check("sign_a", sign_a, torch.int32, (n,), device)
     _check("y_r", y_r, torch.int32, (n, F.NLIMBS), device)
     _check("sign_r", sign_r, torch.int32, (n,), device)
     _check("s_bytes", s_bytes, torch.uint8, (n, 32), device)
     _check("h_bytes", h_bytes, torch.uint8, (n, 32), device)
-    out = torch.empty(n, dtype=torch.bool, device=device)
+    if out is None:
+        out = torch.empty(n, dtype=torch.bool, device=device)
     if n == 0:
         return out
     sk = skew()

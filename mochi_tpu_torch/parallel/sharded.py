@@ -13,8 +13,10 @@ runs the hand-written kernels (``csrc/verify.cu``, ``csrc/comb.cu``,
 ``csrc/tally.cu``) on a stream of its own, launched through
 ``crypto/batch_verify.py``'s path (pinned staging, a non-blocking upload,
 a readback on the same stream), and every slice is launched before any is
-read back; on the CPU it runs their plain versions.  The slots of the
-local slices are added on the first slice's device (a copy and an add, after
+read back; a slice of 2 x ``MAX_LAUNCH`` lanes or more is staged and
+launched in parts of about ``MAX_LAUNCH`` lanes, so the host pins a part
+while the card verifies the one before.  On the CPU it runs their plain
+versions.  The slots of the local slices are added on the first slice's device (a copy and an add, after
 an event per slice), then ``all_reduce(SUM)`` over the process group, so
 every rank holds the same counts, as the reference's replicated outputs do.
 
@@ -149,10 +151,10 @@ def commit(counts, threshold: int) -> torch.Tensor:
 # ---------------------------------------------------------- slice launches
 
 
-def _bounds(mesh: Mesh, n: int) -> List[Tuple[int, int]]:
-    """Contiguous bounds of ``n`` lanes over the mesh's slices, as even as
-    they go (equal when ``n`` is a multiple of ``mesh.size``)."""
-    return [(k * n // mesh.size, (k + 1) * n // mesh.size) for k in range(mesh.size)]
+def _bounds(n: int, parts: int) -> List[Tuple[int, int]]:
+    """Contiguous bounds of ``n`` lanes in ``parts`` parts, as even as they
+    go (equal when ``n`` is a multiple of ``parts``)."""
+    return [(k * n // parts, (k + 1) * n // parts) for k in range(parts)]
 
 
 def _require_even(mesh: Mesh, n: int) -> None:
@@ -173,17 +175,58 @@ def _dispatch_slices(mesh: Mesh, prepared, key_idx=None, registry=None, gen: Opt
     kernel.  The comb switches are read once for the batch
     (``cuda_comb.switches``): every slice pins the table layout of the
     kernel it launches.  A slice whose prechecks reject every lane does no
-    device work.  Returns ``batch_verify._dispatch``'s record per slice."""
+    device work; a slice of 2 x ``MAX_LAUNCH`` lanes or more is staged in
+    parts (:func:`_dispatch_slice`).  Returns ``batch_verify._dispatch``'s
+    record per slice."""
     launched = []
     switches = None if key_idx is None else cuda_comb.switches()
-    for k, (dev, (lo, hi)) in enumerate(zip(mesh.devices, _bounds(mesh, len(prepared[6])))):
+    for k, (dev, (lo, hi)) in enumerate(zip(mesh.devices, _bounds(len(prepared[6]), mesh.size))):
         part = tuple(None if a is None else a[lo:hi] for a in prepared)
-        if key_idx is None:
-            launched.append(BV._dispatch(part, dev, k=k))
-        else:
+        comb = None
+        if key_idx is not None:
             table = registry.device_table(dev, gen, layout=cuda_comb.table_layout(dev, *switches))
-            launched.append(BV._dispatch(part, dev, k, comb=(key_idx[lo:hi], table, *switches)))
+            comb = (key_idx[lo:hi], table, *switches)
+        launched.append(_dispatch_slice(part, dev, k, comb))
     return launched
+
+
+def _dispatch_slice(prepared, dev: torch.device, k: int, comb: Optional[tuple]):
+    """Launch one slice: ``batch_verify._dispatch`` of the whole slice when
+    it holds under 2 x ``MAX_LAUNCH`` lanes (read at the call), else of each
+    of its ``n // MAX_LAUNCH`` contiguous parts, as even as they go, in
+    turn, each with its own pins, uploads and launch, so the host pins part
+    j + 1 while the card runs part j.  On a card the parts' kernels run on
+    the slice's stream and their uploads on an upload stream of the slice,
+    which the kernels' stream waits for part by part, so an upload overlaps
+    the kernel before it too.  The kernels write into views of one (n,)
+    bool bitmap on the device; a part the prechecks reject whole launches
+    nothing and its range is zeroed.  Returns ``_dispatch``'s record for
+    the slice: (bitmap, or None when no part launched; stream; every
+    part's pinned inputs; the slice's pre_ok)."""
+    n = len(prepared[6])
+    parts = n // BV.MAX_LAUNCH
+    if parts < 2:
+        return BV._dispatch(prepared, dev, k, comb=comb)
+    stream = upload = None
+    if dev.type == "cuda":
+        stream, upload = BV._thread_stream(dev, k), BV._thread_stream(dev, (k, "upload"))
+    with torch.cuda.stream(stream):  # a no-op on the CPU
+        bitmap = torch.empty(n, dtype=torch.bool, device=dev)  # on the slice's stream, as its kernels
+    alive, skipped = [], []
+    for lo, hi in _bounds(n, parts):
+        part = tuple(None if a is None else a[lo:hi] for a in prepared)
+        sub = None if comb is None else (comb[0][lo:hi], *comb[1:])
+        got, _s, keep, _ok = BV._dispatch(part, dev, k, comb=sub, out=bitmap[lo:hi], upload=upload)
+        if got is None:
+            skipped.append((lo, hi))
+        else:
+            alive.append(keep)
+    if not alive:  # one entry a launched part (None on the CPU)
+        return None, None, None, prepared[6]
+    with torch.cuda.stream(stream):  # no rejected part's lane ever holds an uninitialised byte
+        for lo, hi in skipped:
+            bitmap[lo:hi].zero_()
+    return bitmap, stream, alive, prepared[6]
 
 
 def _bitmap(launched) -> torch.Tensor:
@@ -255,11 +298,12 @@ def make_quorum_step(mesh: Mesh, n_groups: int):
     threshold)``: ``prepare_packed``'s seven arrays, ``group_ids`` (B,)
     int32 — the quorum slot (object or transaction) each signature votes
     for — and ``threshold``, 2f+1.  B must be a multiple of ``mesh.size``
-    (:func:`pad_to_multiple`).  Per slice: one verify launch and one tally
-    launch into an (n_groups,) int32 on its device, on the slice's stream
-    (a slice the prechecks reject whole launches no verify and tallies no
-    lane).  Then the slots of all slices are added on the first slice's
-    stream, after an event per slice, summed over the process group
+    (:func:`pad_to_multiple`).  Per slice: one verify launch, or one a part
+    for a slice of 2 x ``MAX_LAUNCH`` lanes or more (:func:`_dispatch_slice`),
+    into one bitmap, and one tally launch into an (n_groups,) int32 on its
+    device, on the slice's stream (a slice the prechecks reject whole
+    launches no verify and tallies no lane).  Then the slots of all slices
+    are added on the first slice's stream, after an event per slice, summed over the process group
     (``all_reduce``), and compared with the threshold there.  On a mesh of
     one slice and no process group the tally's counts are final, so one
     launch of the fused tally-and-commit kernel does both.
@@ -268,9 +312,9 @@ def make_quorum_step(mesh: Mesh, n_groups: int):
     counts (n_groups,) int32; committed (n_groups,) bool), on the host.
 
     While a ``torch.profiler`` session records, a step runs in a
-    ``mochi.quorum_step`` span: each slice's verify launch in a
-    ``mochi.dispatch`` span, then the tally section (its pins, uploads,
-    launches, the slot sum, ``all_reduce`` and the commit) in a
+    ``mochi.quorum_step`` span: each verify launch (one a slice, or one a
+    part) in a ``mochi.dispatch`` span, then the tally section (its pins,
+    uploads, launches, the slot sum, ``all_reduce`` and the commit) in a
     ``mochi.tally`` one, each group of pins in ``mochi.pin``, each readback in
     ``mochi.readback`` (``obs/trace.py``'s ``device_span``).
     """
@@ -288,7 +332,7 @@ def make_quorum_step(mesh: Mesh, n_groups: int):
             parts, alive = [], []  # (stream, counts) per slice; pinned inputs kept until readback
             with device_span(SPAN_TALLY):
                 for k, (dev, (lo, hi), (bitmap, _s, _keep, ok)) in enumerate(
-                        zip(mesh.devices, _bounds(mesh, len(ids)), launched)):
+                        zip(mesh.devices, _bounds(len(ids), mesh.size), launched)):
                     stream = BV._thread_stream(dev, k) if dev.type == "cuda" else None
                     with torch.cuda.stream(stream):  # a no-op on the CPU
                         if bitmap is None:  # the host rejected every lane: no vote to count

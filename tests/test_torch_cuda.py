@@ -1008,6 +1008,78 @@ def test_quorum_step_on_the_card_equals_the_plain_step(card, corpus):
             assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+def test_cut_quorum_step_on_the_card_equals_the_plain_step(card, corpus, monkeypatch):
+    """A one-slice step of 2 x MAX_LAUNCH + 64 lanes is launched in two
+    parts into one bitmap: at the real MAX_LAUNCH (the corpus tiled, its
+    forged and non-canonical lanes included) against the same step uncut,
+    the expected verdicts and the plain tally; with MAX_LAUNCH patched to
+    256 (576 lanes) against the plain CPU step."""
+    from mochi_tpu_torch.parallel import make_mesh, make_quorum_step
+    from mochi_tpu_torch.parallel import sharded as S
+
+    items, want, _ = corpus
+    g, threshold = 23, 4
+    step = make_quorum_step(make_mesh([card]), g)
+    for launch in (BV.MAX_LAUNCH, 256):
+        monkeypatch.setattr(BV, "MAX_LAUNCH", launch)
+        n = 2 * launch + 64
+        reps = -(-n // len(items))
+        prepared = BV.prepare_packed((items * reps)[:n])
+        ids = np.random.default_rng(n).integers(-g, g + 3, n).astype(np.int32)
+        before = (BV.device_dispatch_count(), CV.launches["pad"])
+        got = step(*prepared, ids, threshold)
+        assert (BV.device_dispatch_count(), CV.launches["pad"]) == (before[0] + 2, before[1] + 2)
+        if launch == 256:
+            plain = make_quorum_step(make_mesh(devices=["cpu"] * 2), g)(*prepared, ids, threshold)
+        else:
+            verdicts = torch.tensor((want * reps)[:n])
+            counts = S.segment_tally(verdicts, torch.ones(n, dtype=torch.bool), torch.from_numpy(ids), g)
+            plain = (verdicts, counts, S.commit(counts, threshold))
+            monkeypatch.setattr(BV, "MAX_LAUNCH", n)
+            uncut = step(*prepared, ids, threshold)
+            assert BV.device_dispatch_count() == before[0] + 3
+            for a, b in zip(got, uncut):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+        assert plain[0].tolist() == (want * reps)[:n]
+        for a, b in zip(got, plain):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_kernel_wrappers_fill_exactly_their_out_view(card, corpus, comb_setup):
+    """``out=`` of the general and the comb wrapper: the kernel writes the
+    view's lanes, returns the view, and leaves the bytes around it as they
+    were."""
+    from mochi_tpu_torch.crypto import cuda_comb as CC
+
+    items, want, _ = corpus
+    n, lo = 333, 40
+    prepared = BV.prepare_packed(items[:n])
+    buf = torch.full((n + 2 * lo,), 0xA5, dtype=torch.uint8, device=card)
+    view = buf.view(torch.bool)[lo:lo + n]
+    tens = CV.from_reference_prepared(prepared, card)
+    got = CV.verify_prepared_packed(*tens, out=view)
+    assert got.data_ptr() == view.data_ptr()
+    host = buf.cpu()
+    assert host[:lo].eq(0xA5).all() and host[lo + n:].eq(0xA5).all()
+    assert torch.equal(host[lo:lo + n], CV.verify_prepared_packed(*tens).to(torch.uint8).cpu())
+    assert (host[lo:lo + n].numpy().astype(bool) & prepared[6]).tolist() == want[:n]
+
+    reg, citems, cwant = comb_setup
+    cprep = BV.prepare_packed(citems[:n])
+    kidx = np.asarray([reg.index_of(it.public_key) for it in citems[:n]], dtype=np.int32)
+    lanes = CC.from_prepared(kidx, cprep, card)
+    table = reg.device_table(card, layout=CC.table_layout(card, *CC.switches()))
+    buf.fill_(0xA5)
+    got = CC.verify_comb_prepared(table, *lanes, out=view)
+    assert got.data_ptr() == view.data_ptr()
+    host = buf.cpu()
+    assert host[:lo].eq(0xA5).all() and host[lo + n:].eq(0xA5).all()
+    assert torch.equal(host[lo:lo + n], CC.verify_comb_prepared(table, *lanes).to(torch.uint8).cpu())
+    assert (host[lo:lo + n].numpy().astype(bool) & cprep[6]).tolist() == cwant[:n]
+    with pytest.raises(ValueError):
+        CV.verify_prepared_packed(*tens, out=view[:-1])
+
+
 def test_sharded_backend_on_two_slices_of_the_card(card, comb_setup):
     from mochi_tpu_torch.crypto import keys
     from mochi_tpu_torch.parallel import make_mesh

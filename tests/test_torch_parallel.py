@@ -396,6 +396,104 @@ def test_quorum_step_equals_the_reference_step_on_its_8_device_mesh(mesh8):
     assert committed.tolist() == np.asarray(r_committed).tolist()
 
 
+def _cut_batch(n, rejected=range(0)):
+    """``_signed_items(n)`` with lanes 3, 20, 41 and 50 forged, and every
+    lane of ``rejected`` replaced by one the host prechecks reject (the two
+    of :func:`_host_rejected_items` in turn)."""
+    items = _signed_items(n, forge={3, 20, 41, 50})
+    bad = _host_rejected_items()
+    for i in rejected:
+        items[i] = bad[i % 2]
+    return items
+
+
+# (lanes, host-rejected lanes) under MAX_LAUNCH = 16: the slice is cut into
+# n // 16 parts as even as they go when that is 2 or more
+CUT_CASES = {
+    "64 lanes in 4 parts": (64, range(0)),
+    "64 lanes, part 2 rejected whole": (64, range(16, 32)),
+    "72 lanes in 4 uneven parts, the last rejected whole": (72, range(54, 72)),
+    "40 lanes in 2 parts, the first rejected whole": (40, range(0, 20)),
+    "48 lanes, every part rejected": (48, range(48)),
+    "24 lanes, under 2 x MAX_LAUNCH: one launch": (24, range(0, 12)),
+}
+
+
+@pytest.fixture
+def one_thread():
+    """The plain versions at a few dozen lanes gain little from threads,
+    and the test workers share the host's cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.mark.parametrize("name", list(CUT_CASES))
+def test_quorum_step_cut_into_parts_equals_the_uncut_step_and_the_reference(name, monkeypatch, one_thread):
+    """A one-slice step with ``MAX_LAUNCH`` patched to 16: the slice is
+    staged and launched in n // 16 parts into one bitmap (a part the
+    prechecks reject whole launches nothing); bitmap, counts and commits
+    equal the same step uncut (the real ``MAX_LAUNCH``) and the reference's
+    verdicts and tally; each launched part is one dispatch of its lanes."""
+    n, rejected = CUT_CASES[name]
+    g, threshold = 5, 3
+    items = _cut_batch(n, rejected)
+    prepared = BV.prepare_packed(items)
+    assert not prepared[6][list(rejected)].any()
+    ids = np.random.default_rng(n).integers(-g, g + 2, n).astype(np.int32)
+    step = make_quorum_step(make_mesh(devices=["cpu"]), g)
+    assert BV.MAX_LAUNCH >= n
+    before = BV.device_dispatch_count()
+    uncut = step(*prepared, ids, threshold)
+    assert BV.device_dispatch_count() - before == int(prepared[6].any())
+    monkeypatch.setattr(BV, "MAX_LAUNCH", 16)
+    parts = S._bounds(n, n // 16) if n >= 32 else [(0, n)]
+    launched = [(lo, hi) for lo, hi in parts if prepared[6][lo:hi].any()]
+    before = (BV.device_dispatch_count(), BV.device_item_count())
+    got = step(*prepared, ids, threshold)
+    assert (BV.device_dispatch_count(), BV.device_item_count()) == (
+        before[0] + len(launched), before[1] + sum(hi - lo for lo, hi in launched))
+    for a, b in zip(got, uncut):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    want = [jkeys.verify(i.public_key, i.message, i.signature) for i in items]
+    assert got[0].tolist() == want
+    ref = _reference_tally(np.asarray(want), np.ones(n, bool), ids, g)
+    assert got[1].tolist() == ref.tolist() and got[2].tolist() == (ref >= threshold).tolist()
+    if n == 24:
+        assert len(launched) == 1
+
+
+def test_sharded_comb_verify_cut_into_parts_equals_the_uncut_verdicts(monkeypatch, one_thread):
+    """``make_sharded_verify_comb`` on two CPU slices of 36 lanes with
+    ``MAX_LAUNCH`` patched to 16: two comb launches of 18 lanes a slice,
+    the verdicts those of the uncut slices."""
+    from mochi_tpu_torch.crypto import comb
+
+    kps = [keys.keypair_from_seed(bytes([k + 90] * 32)) for k in range(4)]
+    items = []
+    for i in range(72):
+        kp = kps[i % 4]
+        msg = b"cut comb %d" % i
+        sig = kp.sign(msg)
+        if i in (5, 30, 60):
+            sig = bytes([sig[0] ^ 1]) + sig[1:]
+        items.append(VerifyItem(kp.public_key, msg, sig))
+    reg = comb.SignerRegistry("cpu")
+    reg.register_all([kp.public_key for kp in kps])
+    kidx = np.asarray([reg.index_of(i.public_key) for i in items], np.int32)
+    packed = BV.prepare_packed(items)
+    verify = S.make_sharded_verify_comb(make_mesh(devices=["cpu"] * 2))
+    before = BV.comb_dispatch_count()
+    uncut = verify(reg, kidx, *packed[2:6])
+    assert BV.comb_dispatch_count() == before + 2
+    monkeypatch.setattr(BV, "MAX_LAUNCH", 16)
+    got = verify(reg, kidx, *packed[2:6])
+    assert BV.comb_dispatch_count() == before + 2 + 4
+    assert torch.equal(got, uncut)
+    assert got.tolist() == [i not in (5, 30, 60) for i in range(72)]
+
+
 def test_sharded_verify_forms_on_cpu_slices():
     items = _signed_items(6, forge={4})
     want = [i != 4 for i in range(6)]

@@ -4,7 +4,8 @@
 (``mochi.quorum_step``, ``mochi.dispatch``, ``mochi.tally``, ``mochi.pin``,
 ``mochi.readback``) for a ``torch.profiler`` session and is one shared no-op
 outside one.  On the CPU: the spans a one-slice CPU mesh's step exports and
-how they nest, that no span is built with no profiler running, the private
+how they nest, a slice cut into parts opening one ``mochi.dispatch`` a
+part, that no span is built with no profiler running, the private
 flag the gate reads, a worker thread's spans, and that the tracing module
 imports without torch.  On a card (``python -m pytest --noconftest -m cuda
 tests/test_torch_step_spans.py``): one ``mochi.pin`` span around each
@@ -97,6 +98,22 @@ def test_cpu_step_exports_its_spans_nested_on_one_thread(batch, tmp_path):
     bitmap, counts, committed = out
     assert bitmap.tolist() == [i != 5 for i in range(LANES)]
     assert counts.tolist() == [3, 3, 1] and committed.tolist() == [True, True, False]
+
+
+def test_cpu_step_cut_into_parts_opens_a_dispatch_span_a_part(batch, tmp_path, monkeypatch):
+    """With ``MAX_LAUNCH`` patched to 2 the step's one slice of 8 lanes is
+    launched in 4 parts: one ``mochi.dispatch`` a part, every one inside
+    the step's ``mochi.quorum_step``, and the step's outputs unchanged."""
+    step = make_quorum_step(make_mesh(["cpu"]), GROUPS)
+    want = step(*batch, THRESHOLD)
+    monkeypatch.setattr(BV, "MAX_LAUNCH", 2)
+    out, spans = _profiled_spans(lambda: step(*batch, THRESHOLD), tmp_path)
+    [(outer, inner)] = _nest(spans, T.SPAN_QUORUM_STEP)
+    assert sorted(e["name"] for e in inner) == sorted([T.SPAN_DISPATCH] * 4 + [T.SPAN_TALLY] + [T.SPAN_READBACK] * 2)
+    assert len(inner) == len(spans) - 1
+    dispatches = sorted((e["ts"], e["ts"] + e["dur"]) for e in inner if e["name"] == T.SPAN_DISPATCH)
+    assert all(a[1] <= b[0] + 1e-2 for a, b in zip(dispatches, dispatches[1:]))  # in turn, not nested
+    _same(out, want)
 
 
 def test_no_span_is_built_without_a_profiler(batch, tmp_path, monkeypatch):
